@@ -1,0 +1,180 @@
+"""Host-side guarantees of the port: its copies of jax-free host modules
+equal the JAX package's originals, it imports and runs without jax, and
+its CUDA entries never quietly compute on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from upscale_video_tpu.models import bin_loader as jax_bin
+from upscale_video_tpu.models import param_parser as jax_pp
+from upscale_video_tpu.models.zoo import make_srvgg_graph as jax_graph
+from upscale_video_tpu.ops.yuv import packed_to_i420 as jax_packed_to_i420
+from upscale_video_tpu.ops.yuv import yuv420_from_frames as jax_yuv_frames
+from upscale_video_tpu.pipeline.chain import ChainSpec as JaxSpec
+from upscale_video_tpu_torch import resolve_device
+from upscale_video_tpu_torch.kernels import build
+from upscale_video_tpu_torch.models import bin_loader, param_parser
+from upscale_video_tpu_torch.models.zoo import make_srvgg_graph
+from upscale_video_tpu_torch.ops.conv_chain import (
+    conv3x3_chain, launch_chain_layer, make_layer,
+)
+from upscale_video_tpu_torch.ops.tail import sr_tail_chain
+from upscale_video_tpu_torch.ops.yuv import packed_to_i420, yuv420_from_frames
+from upscale_video_tpu_torch.pipeline.chain import ChainSpec
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _layers(g):
+    return [(l.type, l.name, l.inputs, l.outputs, l.attrs) for l in g.layers]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(scale=4, num_conv=3, num_feat=24)])
+def test_srvgg_graph_equals_jax(kw):
+    assert _layers(make_srvgg_graph(**kw)) == _layers(jax_graph(**kw))
+
+
+def test_param_round_trip_equals_jax():
+    text = jax_pp.emit_param(jax_graph(scale=2, num_conv=2, num_feat=8))
+    assert param_parser.emit_param(param_parser.parse_param(text)) == text
+    assert _layers(param_parser.parse_param(text)) == \
+        _layers(jax_pp.parse_param(text))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthesize_weights_byte_identical(seed):
+    g = jax_graph(scale=2, num_conv=3, num_feat=16)
+    want = jax_bin.synthesize_weights(g, seed=seed)
+    got = bin_loader.synthesize_weights(param_parser.parse_param(
+        jax_pp.emit_param(g)), seed=seed)
+    assert got.keys() == want.keys()
+    for name in want:
+        assert got[name].keys() == want[name].keys()
+        for k in want[name]:
+            assert got[name][k].tobytes() == want[name][k].tobytes()
+
+
+def test_load_weights_equals_jax():
+    g = jax_graph(scale=2, num_conv=1, num_feat=8)
+    blob = jax_bin.emit_bin(g, jax_bin.synthesize_weights(g, seed=1))
+    want = jax_bin.load_weights(g, blob)
+    got = bin_loader.load_weights(g, blob)
+    for name in want:
+        for k in want[name]:
+            np.testing.assert_array_equal(got[name][k], want[name][k])
+
+
+@pytest.mark.parametrize("text", [None, "", "a", "n=3,r", "n=99", "n=0,a",
+                                  "sr=x_Foo"])
+def test_chainspec_parse_equals_jax(text):
+    got, want = ChainSpec.parse(text), JaxSpec.parse(text)
+    assert (got.anime, got.denoise, got.real_life, got.sr_file) == \
+        (want.anime, want.denoise, want.real_life, want.sr_file)
+    assert got.stage_names() == want.stage_names()
+
+
+@pytest.mark.parametrize("text", [None, "r", "a,n=3"])
+def test_chain_policies_equal_jax(text):
+    from upscale_video_tpu.pipeline import chain as jchain
+    from upscale_video_tpu_torch.pipeline import chain as pchain
+
+    got, want = pchain.ChainSpec.parse(text), jchain.ChainSpec.parse(text)
+    assert pchain.default_tile(got) == jchain.default_tile(want)
+    assert pchain.default_frames_per_step(got) == \
+        jchain.default_frames_per_step(want)
+    for prec in ("auto", "bf16", "mixed", "f32"):
+        pc, pr = pchain.precision_dtypes(prec, got)
+        jc, jr = jchain.precision_dtypes(prec, want)
+        assert str(pc) == f"torch.{jnp.dtype(jc).name}"
+        assert (pr is None and jr is None) or \
+            str(pr) == f"torch.{jnp.dtype(jr).name}"
+
+
+def test_packed_to_i420_equals_jax():
+    f = np.random.default_rng(2).integers(0, 256, (1, 8, 12, 3), dtype=np.uint8)
+    want_packed = np.asarray(jax_yuv_frames(jnp.asarray(f), True))
+    got_packed = yuv420_from_frames(torch.from_numpy(f), True).numpy()
+    np.testing.assert_array_equal(got_packed, want_packed)
+    np.testing.assert_array_equal(packed_to_i420(got_packed[0], 2),
+                                  jax_packed_to_i420(want_packed[0], 2))
+
+
+def test_imports_and_runs_without_jax(tmp_path):
+    """With jax made unimportable, the port's package, pipeline and CLI
+    import, an engine builds on the CPU and steps a batch, and no kernel
+    library was built or loaded on the way."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np, torch
+        import upscale_video_tpu_torch
+        import upscale_video_tpu_torch.pipeline.process
+        import upscale_video_tpu_torch.cli.upscale_video
+        from upscale_video_tpu_torch.kernels import build
+        from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
+        eng = ChainEngine.build(ChainSpec(), 2, "cpu", synthetic=True)
+        out = eng.planar_step(torch.zeros((1, 8, 8, 3), dtype=torch.uint8))
+        assert tuple(out.shape) == (1, 8, 8, 12), out.shape
+        assert build._lib is None
+        assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+                       if sys.modules[m] is not None)
+        print("OK")
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(tmp_path), env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+def test_port_sources_never_import_jax():
+    pkg = REPO / "upscale_video_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            assert not (s.startswith("import jax") or s.startswith("from jax")), path
+
+
+def test_resolve_device_cuda_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cuda_entries_never_compute_without_a_card():
+    """Off the CPU the wrappers launch or raise: a tensor on another
+    device is refused, and the launch path has no library to fall back
+    from when nvcc is missing."""
+    layer = make_layer(np.zeros((3, 3, 3, 4), np.float32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv3x3_chain(torch.zeros(1, 4, 4, 3, device="meta"), [layer])
+    with pytest.raises(ValueError, match="unsupported device"):
+        sr_tail_chain(torch.zeros(1, 6, 6, 4, device="meta"),
+                      torch.zeros(1, 4, 4, 3), torch.zeros(36, 12),
+                      torch.zeros(12), 2)
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    buf = torch.zeros(1, 6, 6, 3, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        launch_chain_layer(buf, torch.zeros(1, 6, 6, 4, dtype=torch.bfloat16),
+                           make_layer(np.zeros((3, 3, 3, 4), np.float32)))
+
+
+def test_kernel_sources_ship_and_hash():
+    for name in build.SOURCES + build.HEADERS:
+        assert (build.CSRC_DIR / name).is_file()
+    assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+    assert build.library_path().name.startswith("libuvt_kernels_")
+    assert build._lib is None or torch.cuda.is_available()

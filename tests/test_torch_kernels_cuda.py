@@ -1,0 +1,115 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: every test skips with a reason on a host without a CUDA
+device (the decision is made inside the fixture, never at import).  This
+file imports no jax, so on a GPU host without jax it runs on its own::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: K1 rounds each layer once to bf16 after an f32 accumulation
+whose order differs from cuDNN's, so a value may land one bf16 ulp away
+and the ulp propagates (the JAX suite's chain bounds,
+tests/test_conv_chain.py:58,70); K2's uint8 outputs may differ by 1 LSB
+where that ulp-level difference straddles a rounding boundary.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from upscale_video_tpu_torch.ops.common import (
+    ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
+)
+from upscale_video_tpu_torch.ops.conv_chain import (
+    conv3x3_chain, conv3x3_chain_plain, make_layer,
+)
+from upscale_video_tpu_torch.ops.tail import sr_tail_chain, sr_tail_chain_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _layers(rng, specs, dev):
+    out = []
+    for cin, cout, act in specs:
+        slope = (rng.uniform(0.1, 0.3, (cout,)).astype(np.float32)
+                 if act == ACT_PRELU else
+                 np.asarray([0.2], np.float32) if act == ACT_LEAKY else None)
+        out.append(make_layer(
+            rng.normal(0, 0.15, (3, 3, cin, cout)).astype(np.float32),
+            rng.normal(0, 0.05, (cout,)).astype(np.float32), slope, act,
+            device=dev))
+    return out
+
+
+@pytest.mark.parametrize("specs", [
+    [(3, 16, ACT_PRELU), (16, 64, ACT_LEAKY), (64, 64, ACT_RELU),
+     (64, 12, ACT_NONE)],
+    [(3, 64, ACT_PRELU)] + [(64, 64, ACT_PRELU)] * 2,
+    [(128, 128, ACT_PRELU), (128, 100, ACT_NONE)],
+])
+def test_chain_kernel_matches_plain(dev, specs):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 37, 53, specs[0][0]))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    layers = _layers(rng, specs, dev)
+    before = conv3x3_chain.launches
+    got = conv3x3_chain(x, layers, crop=False)
+    torch.cuda.synchronize()
+    assert conv3x3_chain.launches - before == len(layers)
+    want = conv3x3_chain_plain(x, layers, crop=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=5e-2, rtol=2e-2)
+    ring = torch.ones(got.shape[1:3], dtype=torch.bool, device=dev)
+    ring[1:-1, 1:-1] = False
+    assert torch.count_nonzero(got[:, ring]) == 0
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("layout", ["planar", "frames", "model"])
+def test_tail_kernel_matches_plain(dev, s, layout):
+    rng = np.random.default_rng(2)
+    n, h, w, cf = 2, 37, 53, 64
+    inner = torch.from_numpy(rng.normal(0, 0.5, (n, h, w, cf)).astype(np.float32))
+    buf = torch.nn.functional.pad(inner, (0, 0, 1, 1, 1, 1)).to(dev, torch.bfloat16)
+    skip = torch.from_numpy(rng.uniform(0, 1, (n, h, w, 3)).astype(np.float32)
+                            ).to(dev, torch.bfloat16)
+    wmat = torch.from_numpy(rng.normal(0, 0.05, (9 * cf, 3 * s * s))
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(0, 0.05, (3 * s * s,))
+                            .astype(np.float32)).to(dev)
+    got = sr_tail_chain(buf, skip, wmat, bias, s, layout)
+    torch.cuda.synchronize()
+    want = sr_tail_chain_plain(buf, skip, wmat, bias, s, layout)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= (1e-4 if layout == "model" else 1.0)
+
+
+def test_engine_step_launches_each_kernel(dev):
+    from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
+
+    eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True)
+    frames = torch.randint(0, 256, (4, 24, 40, 3), dtype=torch.uint8)
+    k1, k2 = conv3x3_chain.launches, sr_tail_chain.launches
+    out = eng.planar_step(frames)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (4, 24, 40, 12)
+    assert conv3x3_chain.launches - k1 == 17
+    assert sr_tail_chain.launches - k2 == 1
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    layer = make_layer(np.zeros((3, 3, 3, 8), np.float32), device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        conv3x3_chain(torch.zeros(1, 5, 5, 3, device=dev), [layer])
+    f32 = make_layer(np.zeros((3, 3, 3, 8), np.float32), dtype=torch.float32,
+                     device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        conv3x3_chain(torch.zeros(1, 5, 5, 3, device=dev, dtype=torch.bfloat16),
+                      [f32])

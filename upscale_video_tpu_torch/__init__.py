@@ -1,0 +1,23 @@
+"""upscale_video_tpu_torch — the PyTorch + CUDA port of ``upscale_video_tpu``.
+
+The JAX package beside it is the reference.  This package mirrors its
+layout module for module (``models/``, ``ops/``, ``pipeline/``,
+``parallel/``, ``cli/``, ``video/``) and adds ``csrc/`` (hand-written CUDA C++ kernels
+for Hopper, ``sm_90a``) and ``kernels/`` (their nvcc build and ctypes
+binding).  It imports ``torch`` and never ``jax``.
+
+Layouts at public functions stay the JAX package's: NHWC frames, HWIO
+weights, and the BGR model domain.  Every public entry takes an explicit
+``device``; :func:`resolve_device` never substitutes the CPU for a
+missing GPU.
+
+The port covers the default ``upscale-video -i X`` path: the 2x SRVGG
+Compact model, whole-frame, on the stream plane, under the shuffle-planar
+u8 and the 4:2:0 contracts.
+"""
+
+from upscale_video_tpu_torch.device import resolve_device
+
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,123 @@
+"""Build the CUDA kernels in ``csrc/`` with nvcc and bind them with ctypes.
+
+The sources expose a plain C interface (no PyTorch headers), so one nvcc
+call builds them in seconds::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/libuvt_kernels_<hash>.so csrc/*.cu
+
+The library is built at first use into ``upscale_video_tpu_torch/_build/``
+(listed in ``.gitignore``), keyed by a hash of the sources and flags, so a
+fresh checkout builds it on its first kernel call and a changed source
+never loads a stale library.  Nothing here runs at import time: the CPU
+tests import every module on a host with no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("conv3x3_chain.cu", "sr_tail.cu")
+HEADERS = ("conv3x3_core.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # src, dst, wmat, bias, slope, n, h, w, cin, cout, act, stream
+    "uvt_conv3x3_chain_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # src, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream
+    "uvt_sr_tail": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "uvt_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+last_build_seconds: Optional[float] = None  # 0.0 when the cached .so loaded
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME or /usr/local/cuda; raises."""
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels are built from csrc/ at first use"
+    )
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in HEADERS + SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libuvt_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the sources into the hashed library unless it exists."""
+    global last_build_seconds
+    out = library_path()
+    if out.exists():
+        last_build_seconds = 0.0
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC_DIR / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (args, res) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = res
+            _lib = lib
+        return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if code != 0:
+        msg = library().uvt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

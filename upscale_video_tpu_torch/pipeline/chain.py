@@ -1,0 +1,335 @@
+"""Model-chain engine over the port's kernels, and the batched stepper.
+
+Port of ``upscale_video_tpu/pipeline/chain.py:35-162, 166-522, 747-822``,
+restricted to the slice the port covers: the empty ``-m`` chain (the 2x —
+or 4x — SRVGG Compact model), whole-frame, on one device.  Every step runs
+the same program: uint8 frames -> model domain -> K1 (the 17-layer body
+for 2x Compact) -> K2 (the fused tail, emitting the step's output layout)
+-> optional 4:2:0 pack.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from upscale_video_tpu_torch.models.zoo import (
+    Model, load_model, make_synthetic_model,
+)
+from upscale_video_tpu_torch.ops.pixel import frames_to_model
+from upscale_video_tpu_torch.ops.yuv import (
+    i420_to_model, yuv420_from_frames, yuv420_from_planar,
+)
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class ChainSpec:
+    """Parsed ``-m`` model chain (host copy of the JAX ``ChainSpec``)."""
+
+    anime: bool = False
+    denoise: Optional[int] = None  # 1..30 or None
+    real_life: bool = False
+    sr_file: Optional[str] = None  # custom SR model stem suffix (sr=...)
+
+    @classmethod
+    def parse(cls, models: Optional[str]) -> "ChainSpec":
+        """Parse ``"a,n=3,r"`` with the reference's clamping semantics
+        (n>30 -> 30, n<=0 -> off); ``sr=<stem>`` picks a custom SR file."""
+        spec = cls()
+        if not models:
+            return spec
+        for item in models.split(","):
+            item = item.strip()
+            if item == "a":
+                spec.anime = True
+            elif item == "r":
+                spec.real_life = True
+            elif item.startswith("n="):
+                level = int(item[2:])
+                spec.denoise = min(level, 30) if level > 0 else None
+            elif item.startswith("sr="):
+                spec.sr_file = item[3:]
+                if not spec.sr_file:
+                    raise ValueError("sr= needs a model file stem suffix")
+            elif item:
+                raise ValueError(f"unknown model chain item {item!r}")
+        if spec.real_life and spec.sr_file:
+            raise ValueError("'r' and 'sr=' both select the SR model — "
+                             "pass one")
+        return spec
+
+    def effective_scale(self, scale: int) -> int:
+        """'r' forces scale 4."""
+        return 4 if self.real_life else scale
+
+    def stage_names(self) -> List[str]:
+        out = []
+        if self.denoise:
+            out.append(f"denoise(h={self.denoise})")
+        if self.anime:
+            out.append("anime-deblur")
+        if self.sr_file:
+            out.append(f"sr({self.sr_file})")
+        else:
+            out.append("valar-4x" if self.real_life else "compact-sr")
+        return out
+
+    def is_default(self) -> bool:
+        return not (self.anime or self.denoise or self.real_life
+                    or self.sr_file)
+
+
+def precision_dtypes(precision: str, spec: "ChainSpec | None" = None):
+    """``--precision`` -> ``(compute_dtype, residual_dtype)`` as in the JAX
+    package: ``auto`` is ``mixed`` for ``-m r`` and bf16 otherwise."""
+    if precision == "auto":
+        precision = "mixed" if spec is not None and spec.real_life else "bf16"
+    if precision == "f32":
+        return torch.float32, None
+    if precision not in ("bf16", "mixed"):
+        raise ValueError(f"unknown precision {precision!r}")
+    return torch.bfloat16, (torch.float32 if precision == "mixed" else None)
+
+
+def default_frames_per_step(spec: ChainSpec) -> int:
+    """4 frames per step for the Compact family, 1 for ``-m r``."""
+    return 1 if spec.real_life else 4
+
+
+def default_tile(spec: ChainSpec) -> "int | tuple":
+    """Whole-frame (0) for the Compact family; ``-m r`` tiles (JAX: 544)."""
+    return 544 if spec.real_life else 0
+
+
+def parse_chips(chips: Optional[str]) -> Tuple[List[int], int]:
+    """``"0,0,1"`` -> (unique ids [0, 1], multiplier 2), as the JAX
+    ``parallel.mesh.parse_chips``."""
+    if not chips:
+        return [0], 1
+    try:
+        ids = [int(g) for g in chips.split(",")]
+    except ValueError as e:
+        raise ValueError(f"invalid chips spec {chips!r}") from e
+    uniq = sorted(set(ids))
+    return uniq, max(ids.count(i) for i in uniq)
+
+
+@dataclass
+class ChainEngine:
+    """Executes the SR chain on batches of uint8 frames on one device.
+
+    Step callables take and return device tensors: uint8 ``(N, H, W, 3)``
+    frames (or flat I420 ``(N, h*w*3//2)`` under ``i420_in``) in, the
+    contract's uint8 layout out."""
+
+    spec: ChainSpec
+    scale: int
+    sr_model: Model
+    device: torch.device
+    channel_order: str = "bgr"
+    _yuv_steps: dict = field(default=None, repr=False)
+
+    @classmethod
+    def build(cls, spec: ChainSpec, scale: int, device: "torch.device | str",
+              model_path: Optional[str] = None,
+              compute_dtype: torch.dtype = torch.bfloat16,
+              synthetic: bool = False) -> "ChainEngine":
+        """Load the chain's SR model on ``device`` (the stock Compact role,
+        or a random-weight Compact stand-in with ``synthetic``)."""
+        if not spec.is_default():
+            raise NotImplementedError(
+                f"-m chain {spec.stage_names()} is not ported yet (only the "
+                "default Compact SR chain)")
+        device = torch.device(device)
+        scale = spec.effective_scale(scale)
+        if scale == 1:
+            raise NotImplementedError("scale 1 (no SR stage) is not ported yet")
+        if synthetic:
+            model = make_synthetic_model(scale=scale, device=device,
+                                         compute_dtype=compute_dtype)
+        else:
+            model = load_model("compact", scale, device, model_path,
+                               compute_dtype)
+        # plan now: an unsupported graph raises before any frame is read
+        model.frames_forward("planar")
+        return cls(spec=spec, scale=scale, sr_model=model, device=device)
+
+    def _to_model(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        return frames_to_model(frames_u8.to(self.device), self.channel_order)
+
+    @property
+    def step(self) -> Callable:
+        """uint8 RGB (N, H, W, 3) -> uint8 RGB (N, sH, sW, 3)."""
+        fwd = self.sr_model.frames_forward("frames")
+        return lambda f: fwd(self.sr_model.state, self._to_model(f))
+
+    @property
+    def planar_scale(self) -> Optional[int]:
+        """Shuffle factor of the shuffle-planar contract.  The tail kernel
+        writes the planar layout directly, so every planned SRVGG model
+        has it (the JAX Pallas path turns it off instead, chain.py:431)."""
+        return self.sr_model.planar_scale
+
+    @property
+    def planar_step(self) -> Callable:
+        """uint8 RGB (N, H, W, 3) -> uint8 planar (N, H, W, 3*s*s)."""
+        fwd = self.sr_model.frames_forward("planar")
+        return lambda f: fwd(self.sr_model.state, self._to_model(f))
+
+    def yuv_step(self, full_range: bool, planar: bool,
+                 i420_in: Optional[Tuple[int, int, bool]] = None) -> Callable:
+        """Step emitting the packed 4:2:0 contract from RGB frames or, with
+        ``i420_in=(src_h, src_w, in_full_range)``, flat I420 input."""
+        if self._yuv_steps is None:
+            self._yuv_steps = {}
+        key = (full_range, planar, i420_in)
+        if key in self._yuv_steps:
+            return self._yuv_steps[key]
+        order = self.channel_order
+        s = self.planar_scale
+        if planar and (not s or s % 2):
+            raise ValueError(f"planar yuv contract unavailable (planar_scale={s})")
+        fwd = self.sr_model.frames_forward("planar" if planar else "frames")
+
+        def fn(x):
+            x = x.to(self.device)
+            if i420_in is None:
+                m = frames_to_model(x, order)
+            else:
+                src_h, src_w, in_full = i420_in
+                m = i420_to_model(x, src_h, src_w, in_full, order)
+            y = fwd(self.sr_model.state, m)
+            if planar:
+                return yuv420_from_planar(y, s, full_range)
+            return yuv420_from_frames(y, full_range)
+
+        self._yuv_steps[key] = fn
+        return fn
+
+    @property
+    def input_rank_flexible(self) -> bool:
+        """Steps accept the flat I420 input (no row sharding here)."""
+        return True
+
+    def configure_chips(self, chips: Optional[str],
+                        frames_per_step: int) -> int:
+        """Apply a ``-g`` multiset on one GPU: repetition of the one id
+        deepens the batch (as in JAX); more than one GPU raises."""
+        ids, multiplier = parse_chips(chips)
+        if len(ids) > 1:
+            raise NotImplementedError(
+                f"-g {chips}: multi-GPU runs are not ported yet (one GPU)")
+        if chips:
+            frames_per_step = max(frames_per_step * multiplier, frames_per_step)
+            log.info("chips %s -> frames_per_step %d", chips, frames_per_step)
+        return frames_per_step
+
+    def describe(self) -> str:
+        return " -> ".join(self.spec.stage_names()) + f" (scale {self.scale}x)"
+
+
+class BatchedStepper:
+    """Accumulates frames into fixed-size device batches, one batch in
+    flight: results come back one batch behind, as in the JAX stepper
+    (chain.py:787-795), so the host decodes batch i+1 while the device
+    runs batch i.
+
+    On CUDA the two input buffers are pinned host tensors (ping-pong): a
+    batch goes up with a non-blocking copy whose completion event is
+    waited on before that buffer is refilled.  Each result comes down into
+    a fresh pinned tensor (PyTorch's caching host allocator recycles them)
+    with a non-blocking copy; its CUDA event is synchronised before the
+    host reads it, since the copy call returns before the bytes land.
+    """
+
+    def __init__(self, step_fn: Callable, frames_per_step: int,
+                 device: "torch.device | str"):
+        self.step_fn = step_fn
+        self.n = frames_per_step
+        self.device = torch.device(device)
+        self._cuda = self.device.type == "cuda"
+        self._count = 0
+        self._pending = None  # (host tensor, event or None, valid count)
+        self._bufs: List[Optional[torch.Tensor]] = [None, None]
+        self._h2d_done: List[Optional[torch.cuda.Event]] = [None, None]
+        self._slot = 0
+
+    def _buf_for(self, frame: np.ndarray) -> np.ndarray:
+        buf = self._bufs[self._slot]
+        if buf is None or tuple(buf.shape[1:]) != frame.shape:
+            if self._count:
+                raise ValueError(
+                    f"frame shape changed mid-batch: buffer holds "
+                    f"{self._count} frame(s) of {tuple(buf.shape[1:])}, "
+                    f"got {frame.shape}"
+                )
+            buf = torch.empty((self.n, *frame.shape),
+                              dtype=torch.from_numpy(np.empty(0, frame.dtype)).dtype,
+                              pin_memory=self._cuda)
+            self._bufs[self._slot] = buf
+            self._h2d_done[self._slot] = None
+        if self._count == 0 and self._h2d_done[self._slot] is not None:
+            # the previous upload from this buffer must have landed
+            self._h2d_done[self._slot].synchronize()
+            self._h2d_done[self._slot] = None
+        return buf.numpy()
+
+    def _collect(self) -> List[np.ndarray]:
+        if self._pending is None:
+            return []
+        host, ev, valid = self._pending
+        self._pending = None
+        if ev is not None:
+            ev.synchronize()
+        arr = host.numpy()
+        return [arr[i] for i in range(valid)]
+
+    def _dispatch(self, valid: int) -> List[np.ndarray]:
+        buf = self._bufs[self._slot]
+        if self._cuda:
+            dev_in = buf.to(self.device, non_blocking=True)
+            up = torch.cuda.Event()
+            up.record()
+            self._h2d_done[self._slot] = up
+            out = self.step_fn(dev_in)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        else:
+            host = self.step_fn(buf)  # a new tensor: never aliases buf
+            ev = None
+        done = self._collect()
+        self._pending = (host, ev, valid)
+        self._slot = 1 - self._slot
+        return done
+
+    def feed(self, frame: np.ndarray) -> List[np.ndarray]:
+        """Add one frame; returns any completed output frames (in order)."""
+        buf = self._buf_for(frame)
+        np.copyto(buf[self._count], frame)
+        self._count += 1
+        if self._count < self.n:
+            return []
+        self._count = 0
+        return self._dispatch(self.n)
+
+    def flush(self) -> List[np.ndarray]:
+        """Process the trailing partial batch (padded with its last frame)
+        and drain the pipeline."""
+        out: List[np.ndarray] = []
+        if self._count:
+            valid = self._count
+            buf = self._bufs[self._slot].numpy()
+            for i in range(valid, self.n):
+                np.copyto(buf[i], buf[valid - 1])
+            self._count = 0
+            out.extend(self._dispatch(valid))
+        out.extend(self._collect())
+        return out
