@@ -15,6 +15,7 @@ import torch
 
 from upscale_video_tpu.models import bin_loader as jax_bin
 from upscale_video_tpu.models import param_parser as jax_pp
+from upscale_video_tpu.models.zoo import make_rrdb_graph as jax_rrdb_graph
 from upscale_video_tpu.models.zoo import make_srvgg_graph as jax_graph
 from upscale_video_tpu.ops.yuv import packed_to_i420 as jax_packed_to_i420
 from upscale_video_tpu.ops.yuv import yuv420_from_frames as jax_yuv_frames
@@ -22,7 +23,9 @@ from upscale_video_tpu.pipeline.chain import ChainSpec as JaxSpec
 from upscale_video_tpu_torch import resolve_device
 from upscale_video_tpu_torch.kernels import build
 from upscale_video_tpu_torch.models import bin_loader, param_parser
-from upscale_video_tpu_torch.models.zoo import make_srvgg_graph
+from upscale_video_tpu_torch.models.zoo import (
+    make_rrdb_graph, make_srvgg_graph, params_from_jax,
+)
 from upscale_video_tpu_torch.ops.conv_chain import (
     conv3x3_chain, launch_chain_layer, make_layer,
 )
@@ -40,6 +43,34 @@ def _layers(g):
 @pytest.mark.parametrize("kw", [dict(), dict(scale=4, num_conv=3, num_feat=24)])
 def test_srvgg_graph_equals_jax(kw):
     assert _layers(make_srvgg_graph(**kw)) == _layers(jax_graph(**kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(num_rrdb=23), dict(num_rrdb=1, scale=2),
+    dict(num_rrdb=1, variant="esrgan"),
+    dict(num_rrdb=3, num_feat=32, num_grow=16),
+])
+def test_rrdb_graph_equals_jax(kw):
+    assert _layers(make_rrdb_graph(**kw)) == _layers(jax_rrdb_graph(**kw))
+
+
+def test_params_from_jax_carries_rrdb_convs():
+    """Every conv of the Valar graph crosses over: the bias-less 1x1 skips
+    as (64, 32) matrices with zero bias, conv_last 64 -> 3 as (576, 3)."""
+    g = jax_rrdb_graph(num_rrdb=1)
+    params = jax_bin.synthesize_weights(g, seed=2)
+    state = params_from_jax(params, "cpu", torch.float32)
+    convs = [l.name for l in g.layers if l.type == "Convolution"]
+    assert sorted(state.keys()) == sorted(convs)
+    for name in convs:
+        w = params[name]["weight"]
+        np.testing.assert_array_equal(state[name].wmat.numpy(),
+                                      w.reshape(-1, w.shape[-1]))
+        b = params[name].get("bias", np.zeros(w.shape[-1], np.float32))
+        np.testing.assert_array_equal(state[name].bias.numpy(), b)
+    assert tuple(state["r0d0_c6"].wmat.shape) == (64, 32)
+    assert "bias" not in params["r0d0_c6"]
+    assert tuple(state["conv_last"].wmat.shape) == (576, 3)
 
 
 def test_param_round_trip_equals_jax():
@@ -118,11 +149,21 @@ def test_imports_and_runs_without_jax(tmp_path):
         import upscale_video_tpu_torch
         import upscale_video_tpu_torch.pipeline.process
         import upscale_video_tpu_torch.cli.upscale_video
+        import upscale_video_tpu_torch.models.ops
+        import upscale_video_tpu_torch.ops.rdb
+        import upscale_video_tpu_torch.ops.tiling
         from upscale_video_tpu_torch.kernels import build
+        from upscale_video_tpu_torch.models.zoo import make_synthetic_rrdb_model
         from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
         eng = ChainEngine.build(ChainSpec(), 2, "cpu", synthetic=True)
         out = eng.planar_step(torch.zeros((1, 8, 8, 3), dtype=torch.uint8))
         assert tuple(out.shape) == (1, 8, 8, 12), out.shape
+        valar = ChainEngine(ChainSpec(real_life=True), 4,
+                            make_synthetic_rrdb_model(num_rrdb=1,
+                                                      residual_dtype=torch.float32),
+                            torch.device("cpu"), tile=8, halo=2)
+        out = valar.step(torch.zeros((1, 6, 10, 3), dtype=torch.uint8))
+        assert tuple(out.shape) == (1, 24, 40, 3), out.shape
         assert build._lib is None
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                        if sys.modules[m] is not None)

@@ -10,7 +10,10 @@ Tolerances: K1 rounds each layer once to bf16 after an f32 accumulation
 whose order differs from cuDNN's, so a value may land one bf16 ulp away
 and the ulp propagates (the JAX suite's chain bounds,
 tests/test_conv_chain.py:58,70); K2's uint8 outputs may differ by 1 LSB
-where that ulp-level difference straddles a rounding boundary.
+where that ulp-level difference straddles a rounding boundary.  K5 rounds
+each per-source piece to bf16 after a tensor-core f32 sum whose order
+differs from cuDNN's, so a piece may land one bf16 ulp away and move the
+output by ``2**-6 + 2**-7 * |want|`` (tests/test_torch_rdb.py).
 """
 
 import numpy as np
@@ -22,6 +25,9 @@ from upscale_video_tpu_torch.ops.common import (
 )
 from upscale_video_tpu_torch.ops.conv_chain import (
     conv3x3_chain, conv3x3_chain_plain, make_layer,
+)
+from upscale_video_tpu_torch.ops.rdb import (
+    GC, NF, pack_rdb_weights, rdb_block, rdb_block_plain,
 )
 from upscale_video_tpu_torch.ops.tail import sr_tail_chain, sr_tail_chain_plain
 
@@ -113,3 +119,57 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError, match="bf16"):
         conv3x3_chain(torch.zeros(1, 5, 5, 3, device=dev, dtype=torch.bfloat16),
                       [f32])
+
+
+def _rdb_weights(rng, dev):
+    ws, bs = [], []
+    for t in range(5):
+        cin, cout = NF + t * GC, (NF if t == 4 else GC)
+        ws.append(rng.normal(0, 0.05, (3, 3, cin, cout)).astype(np.float32))
+        bs.append(rng.normal(0, 0.05, (cout,)).astype(np.float32))
+    return pack_rdb_weights(ws, bs, rng.normal(0, 0.05, (1, 1, NF, GC)),
+                            rng.normal(0, 0.05, (GC,)), device=dev)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 14, 16), (3, 5, 70)])
+def test_rdb_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(3)
+    wts = _rdb_weights(rng, dev)
+    x = torch.from_numpy(rng.normal(0, 0.5, shape + (NF,)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    before = rdb_block.launches
+    got = rdb_block(x, wts)
+    torch.cuda.synchronize()
+    assert rdb_block.launches - before == 1
+    want = rdb_block_plain(x, wts)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 2.0 ** -6 + 2.0 ** -7 * want.float().abs()).all())
+
+
+def test_rdb_kernel_refuses_bad_inputs(dev):
+    wts = _rdb_weights(np.random.default_rng(4), dev)
+    x = torch.zeros(1, 8, 8, NF, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rdb_block(x.float(), wts)
+    with pytest.raises(ValueError, match="contiguous"):
+        rdb_block(x.permute(0, 2, 1, 3), wts)
+    with pytest.raises(ValueError, match="takes"):
+        rdb_block(x[..., :32].contiguous(), wts)
+    with pytest.raises(ValueError, match="contiguous on"):
+        rdb_block(x, wts._replace(wpack=wts.wpack.cpu()))
+
+
+def test_valar_step_launches_k5_per_block(dev):
+    from upscale_video_tpu_torch.models.zoo import make_synthetic_rrdb_model
+    from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
+
+    model = make_synthetic_rrdb_model(num_rrdb=2, device=dev,
+                                      residual_dtype=torch.float32)
+    eng = ChainEngine(ChainSpec(real_life=True), 4, model, dev, tile=16, halo=4)
+    frames = torch.randint(0, 256, (1, 20, 24, 3), dtype=torch.uint8)
+    k5 = rdb_block.launches
+    out = eng.step(frames)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (1, 80, 96, 3)
+    assert rdb_block.launches - k5 == 6  # per block, one launch for 4 tiles

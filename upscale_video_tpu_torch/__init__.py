@@ -11,9 +11,10 @@ weights, and the BGR model domain.  Every public entry takes an explicit
 ``device``; :func:`resolve_device` never substitutes the CPU for a
 missing GPU.
 
-The port covers the default ``upscale-video -i X`` path: the 2x SRVGG
-Compact model, whole-frame, on the stream plane, under the shuffle-planar
-u8 and the 4:2:0 contracts.
+The port covers the default ``upscale-video -i X`` path (the 2x SRVGG
+Compact model, whole-frame) and ``-m r`` (the 4x Valar RRDBNet, mixed
+precision, tiled), on the stream plane, under the u8 (shuffle-planar or
+full-frame) and the 4:2:0 contracts.
 """
 
 from upscale_video_tpu_torch.device import resolve_device

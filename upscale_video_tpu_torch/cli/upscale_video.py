@@ -16,7 +16,7 @@ from upscale_video_tpu.cli.common import (
     add_logging_args,
     add_model_chain_args,
 )
-from upscale_video_tpu_torch.pipeline.chain import parse_chips
+from upscale_video_tpu_torch.pipeline.chain import ChainSpec, parse_chips
 from upscale_video_tpu_torch.pipeline.process import process_file
 
 
@@ -69,19 +69,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_slice(args) -> None:
-    """Raise ``NotImplementedError`` for every flag outside the port."""
+    """Raise ``NotImplementedError`` for every flag outside the port: the
+    default chain and ``-m r`` are ported, with ``--tile_size`` for ``-m r``
+    only, ``--precision mixed`` for ``-m r`` only, f32 on the CPU only, and
+    ``--conv_impl auto`` (or ``rdb``, what auto is for ``-m r``)."""
     bad = []
-    if args.models:
+    real_life = False
+    try:
+        spec = ChainSpec.parse(args.models)
+        real_life = spec.real_life
+        if spec.anime or spec.denoise or spec.sr_file:
+            bad.append(f"-m {args.models}")
+    except ValueError:
         bad.append(f"-m {args.models}")
     if args.tta:
         bad.append("--tta")
-    if args.tile_size not in (None, 0):
-        bad.append(f"--tile_size {args.tile_size}")
+    if args.tile_size not in (None, 0) and not real_life:
+        bad.append(f"--tile_size {args.tile_size} without -m r")
     on_cpu = str(args.device).startswith("cpu")
-    if args.precision not in (("auto", "bf16", "f32") if on_cpu
-                              else ("auto", "bf16")):
-        bad.append(f"--precision {args.precision} on {args.device}")
-    if args.conv_impl != "auto":
+    allowed = {"auto", "bf16"} | ({"mixed"} if real_life else set()) \
+        | ({"f32"} if on_cpu else set())
+    if args.precision not in allowed:
+        bad.append(f"--precision {args.precision} on {args.device}"
+                   + ("" if real_life else " without -m r"))
+    if args.conv_impl not in ("auto", "rdb") or (
+            args.conv_impl == "rdb" and not real_life):
         bad.append(f"--conv_impl {args.conv_impl}")
     if len(parse_chips(args.chips)[0]) > 1:
         bad.append(f"-g {args.chips} (more than one GPU)")
@@ -115,10 +127,13 @@ def main(argv=None) -> int:
         batch_size=args.batch_size,
         chips=args.chips,
         resume_processing=args.resume_processing,
+        models=args.models,
         model_path=args.model_path,
         log_level=args.log_level,
         log_dir=args.log_dir,
         precision=args.precision,
+        tile_size=args.tile_size,
+        halo=args.halo,
         frames_per_step=args.frames_per_step,
         global_quality=args.global_quality,
         synthetic_models=args.synthetic_models,

@@ -1,10 +1,12 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc and bind them with ctypes.
 
-The sources expose a plain C interface (no PyTorch headers), so one nvcc
-call builds them in seconds::
+The sources expose a plain C interface (no PyTorch headers).  Each source
+compiles on its own nvcc process, all started together, so the build takes
+as long as its slowest source; one more nvcc call links the objects::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libuvt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c csrc/<source>.cu -o <source>.o  (each)
+    nvcc -shared -o _build/libuvt_kernels_<hash>.so *.o
 
 The library is built at first use into ``upscale_video_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by a hash of the sources and flags, so a
@@ -20,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -28,11 +31,11 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("conv3x3_chain.cu", "sr_tail.cu")
+SOURCES = ("conv3x3_chain.cu", "sr_tail.cu", "rdb_block.cu")
 HEADERS = ("conv3x3_core.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -42,6 +45,8 @@ _SIGNATURES = {
     "uvt_conv3x3_chain_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # src, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream
     "uvt_sr_tail": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # x, out, wpack, bpack, n, h, w, slope, stream
+    "uvt_rdb_block": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
     "uvt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -78,6 +83,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libuvt_kernels_{source_hash()}.so"
 
 
+def _run(cmds) -> None:
+    """Run nvcc commands concurrently; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(c)}\n{o[-8000:]}")
+
+
 def build() -> Path:
     """Compile the sources into the hashed library unless it exists."""
     global last_build_seconds
@@ -86,18 +104,15 @@ def build() -> Path:
         last_build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, Path(s).stem + ".o") for s in SOURCES]
+        _run([[nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / s), "-o", o]
+              for s, o in zip(SOURCES, objs)])
+        tmp = os.path.join(tmpdir, out.name)
+        _run([[nvcc, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     last_build_seconds = time.perf_counter() - t0
     return out
 

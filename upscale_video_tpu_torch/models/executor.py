@@ -1,18 +1,24 @@
-"""Graph planner + forward module for the SRVGG (Compact) family.
+"""Graph planners + forward modules: the SRVGG (Compact) family and the
+RRDBNet (Valar) family.
 
-Port of the parts of ``upscale_video_tpu/models/executor.py`` that the
-Compact graph reaches with ``--conv_impl pallas``: ``_match_srvgg_tail``
+SRVGG: port of the parts of ``upscale_video_tpu/models/executor.py`` that
+the Compact graph reaches with ``--conv_impl pallas``: ``_match_srvgg_tail``
 (:884), ``probe_srvgg_tail`` (:935) and the chain assembly
 (``_plan_pallas_fusion`` / ``_assemble_chains``, :705-881).  In the port
-this plan is the only one: the whole body becomes one bordered conv chain
-(kernel K1, :mod:`upscale_video_tpu_torch.ops.conv_chain`) and the tail one
-fused tail launch (kernel K2, :mod:`upscale_video_tpu_torch.ops.tail`).
+this plan is the only one for the family: the whole body becomes one
+bordered conv chain (kernel K1, :mod:`upscale_video_tpu_torch.ops.conv_chain`)
+and the tail one fused tail launch (kernel K2,
+:mod:`upscale_video_tpu_torch.ops.tail`).  The JAX planner's TPU lane gate
+(``_pallas_fusable``'s ``cin >= 32``, executor.py:723-730) is not copied.
 
-The JAX planner's TPU lane gate (``_pallas_fusable``'s ``cin >= 32``,
-executor.py:723-730) is not copied: every SRVGG graph becomes chain + tail.
-A graph outside the covered ops (Input, Split, SAME 3x3 stride-1
-Convolution, PReLU, PixelShuffle mode 0, integer-scale nearest Interp,
-BinaryOp add) raises ``NotImplementedError``; nothing falls back.
+RRDBNet: port of ``_plan_rdb_blocks`` (:539-702, with ``_dense_conv_class``
+:383) and of ``build_forward``'s graph walk (:1001-1570) for the generic
+ops in :mod:`upscale_video_tpu_torch.models.ops`: every matched dense
+block is one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`), every
+other layer one op, blobs are freed at their last use, and ``mixed``
+keeps the residual spine (Eltwise/BinaryOp) in f32.
+
+Any other graph raises ``NotImplementedError``; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,11 +29,14 @@ import torch
 from torch import nn
 
 from upscale_video_tpu_torch.models.bin_loader import _infer_conv_in_channels
+from upscale_video_tpu_torch.models.ops import OP_REGISTRY, conv_geometry
 from upscale_video_tpu_torch.models.param_parser import NcnnGraph, NcnnLayer
 from upscale_video_tpu_torch.ops.common import (
     ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
 )
 from upscale_video_tpu_torch.ops.conv_chain import ChainLayer, conv3x3_chain
+from upscale_video_tpu_torch.ops.pixel import model_to_frames
+from upscale_video_tpu_torch.ops.rdb import RDBWeights, pack_rdb_weights, rdb_block
 from upscale_video_tpu_torch.ops.tail import LAYOUTS, sr_tail_chain
 
 SUPPORTED_OPS = frozenset({
@@ -48,18 +57,11 @@ def _chain_eligible(layer: NcnnLayer) -> bool:
     """SAME 3x3 / stride 1 / dilation 1 / pad 1 convs with both channel
     counts in 1..128 and a fused activation of none/relu/leaky
     (executor.py:733 ``_chain_eligible``)."""
-    kw = layer.attr_i(1)
-    kh = layer.attr_i(11, kw)
-    sw = layer.attr_i(3, 1)
-    sh = layer.attr_i(13, sw)
-    dw = layer.attr_i(2, 1)
-    dh = layer.attr_i(12, dw)
-    p = layer.attr_i(4, 0)
-    pads = {p, layer.attr_i(14, p), layer.attr_i(15, p), layer.attr_i(16, p)}
+    kh, kw, stride, dil, pads = conv_geometry(layer)
     cout = layer.attr_i(0)
     cin = _infer_conv_in_channels(layer) or 0
-    return (kw, kh) == (3, 3) and (sw, sh) == (1, 1) and (dw, dh) == (1, 1) \
-        and pads == {1} and layer.attr_i(9, 0) in (0, 1, 2) \
+    return (kh, kw) == (3, 3) and stride == (1, 1) and dil == (1, 1) \
+        and set(pads) == {1} and layer.attr_i(9, 0) in (0, 1, 2) \
         and 0 < cin <= 128 and 0 < cout <= 128
 
 
@@ -272,18 +274,318 @@ class SRVGGForward(nn.Module):
         return y[0] if squeeze else y
 
 
+def _dense_conv_class(layer: NcnnLayer) -> Optional[str]:
+    """``"3x3"`` for SAME 3x3 stride-1 dilation-1 convs, ``"1x1"`` for pad-0
+    1x1 stride-1 convs, else None; the activation must be none/relu/leaky
+    (executor.py:383)."""
+    if layer.type != "Convolution" or len(layer.inputs) != 1:
+        return None
+    if layer.attr_i(9, 0) not in (0, 1, 2):
+        return None
+    kh, kw, stride, dil, pads = conv_geometry(layer)
+    if stride != (1, 1) or dil != (1, 1):
+        return None
+    if (kh, kw) == (3, 3) and set(pads) == {1}:
+        return "3x3"
+    if (kh, kw) == (1, 1) and set(pads) == {0}:
+        return "1x1"
+    return None
+
+
+def _plan_rdb_blocks(graph: NcnnGraph, consumers: Dict[str, List[int]]):
+    """Match the Valar residual dense blocks (executor.py:539-702)::
+
+        c1 = lrelu(conv3x3(x))                          Conv_1
+        c2 = lrelu(conv3x3(cat(x,c1))) + conv1x1(x)     Conv_4/Conv_6/Add_7
+        c3 = lrelu(conv3x3(cat(x,c1,c2)))               Conv_9
+        c4 = lrelu(conv3x3(cat(x,c1,c2,c3))) + c2       Conv_12/Add_14
+        c5 = conv3x3(cat(x,c1,c2,c3,c4))                Conv_16
+        out = 0.2*c5 + x                                Eltwise Add_19
+
+    Returns ``(blocks, absorbed)``: per block the root blob, output blob,
+    the five 3x3 conv names, the 1x1 skip conv, the leaky slope and the
+    trigger (Eltwise) name; ``absorbed`` holds every matched layer and the
+    Split/Noop aliases of interior blobs.  A block whose interior blob
+    reaches a consumer outside it is not claimed (the leak guard)."""
+    producers: Dict[str, int] = {}
+    by_name: Dict[str, NcnnLayer] = {}
+    for i, layer in enumerate(graph.layers):
+        by_name[layer.name] = layer
+        for b in layer.outputs:
+            producers[b] = i
+
+    def root_of(blob: str) -> str:
+        seen = set()
+        while blob not in seen:
+            seen.add(blob)
+            pi = producers.get(blob)
+            if pi is None:
+                return blob
+            layer = graph.layers[pi]
+            if layer.type in ("Split", "Noop") and layer.inputs:
+                blob = layer.inputs[0]
+            else:
+                return blob
+        return blob
+
+    def producer(blob):
+        pi = producers.get(root_of(blob))
+        return graph.layers[pi] if pi is not None else None
+
+    def is_conv(layer, k, n_out, leaky):
+        if layer is None or layer.type != "Convolution":
+            return False
+        if layer.attr_i(0) != n_out or layer.attr_i(1) != k:
+            return False
+        if _dense_conv_class(layer) != ("3x3" if k == 3 else "1x1"):
+            return False
+        act = layer.attr_i(9, 0)
+        return act == 2 if leaky else act == 0
+
+    def cat_roots(layer):
+        return [root_of(b) for b in layer.inputs]
+
+    blocks = []
+    absorbed: set = set()
+    for layer in graph.layers:
+        if layer.type != "Eltwise" or len(layer.inputs) != 2:
+            continue
+        coeffs = layer.attr(1, None)
+        if not coeffs or list(coeffs)[:2] != [0.2, 1.0]:
+            continue
+        c5_conv = producer(layer.inputs[0])
+        x_root = root_of(layer.inputs[1])
+        if not is_conv(c5_conv, 3, 64, leaky=False):
+            continue
+        cat5 = producer(c5_conv.inputs[0])
+        if cat5 is None or cat5.type != "Concat" or len(cat5.inputs) != 5:
+            continue
+        roots = cat_roots(cat5)
+        if roots[0] != x_root:
+            continue
+        c1_conv = producer(roots[1])
+        if not (is_conv(c1_conv, 3, 32, leaky=True)
+                and root_of(c1_conv.inputs[0]) == x_root):
+            continue
+        add7 = producer(roots[2])
+        if add7 is None or add7.type != "BinaryOp" or add7.attr_i(0, 0) != 0:
+            continue
+        c4a, c6a = producer(add7.inputs[0]), producer(add7.inputs[1])
+        if is_conv(c6a, 3, 32, leaky=True):  # argument order can flip
+            c4a, c6a = c6a, c4a
+        if not (is_conv(c4a, 3, 32, leaky=True)
+                and is_conv(c6a, 1, 32, leaky=False)
+                and root_of(c6a.inputs[0]) == x_root):
+            continue
+        cat2 = producer(c4a.inputs[0])
+        if (cat2 is None or cat2.type != "Concat" or len(cat2.inputs) != 2
+                or cat_roots(cat2) != [x_root, roots[1]]):
+            continue
+        c9 = producer(roots[3])
+        if not is_conv(c9, 3, 32, leaky=True):
+            continue
+        cat3 = producer(c9.inputs[0])
+        if cat3 is None or cat3.type != "Concat" or cat_roots(cat3) != roots[:3]:
+            continue
+        add14 = producer(roots[4])
+        if (add14 is None or add14.type != "BinaryOp"
+                or add14.attr_i(0, 0) != 0):
+            continue
+        c12, c2b = producer(add14.inputs[0]), add14.inputs[1]
+        if not is_conv(c12, 3, 32, leaky=True):
+            c12, c2b = producer(add14.inputs[1]), add14.inputs[0]
+        if not (is_conv(c12, 3, 32, leaky=True) and root_of(c2b) == roots[2]):
+            continue
+        cat4 = producer(c12.inputs[0])
+        if cat4 is None or cat4.type != "Concat" or cat_roots(cat4) != roots[:4]:
+            continue
+        block_names = {
+            c1_conv.name, c4a.name, c6a.name, c9.name, c12.name,
+            c5_conv.name, add7.name, add14.name, cat2.name, cat3.name,
+            cat4.name, cat5.name, layer.name,
+        }
+        # interior blobs are never materialized: absorb their Split/Noop
+        # aliases with the block, and decline a block whose interior
+        # reaches a consumer outside it
+        interior: set = set()
+        for nm in block_names - {layer.name}:
+            interior |= set(by_name[nm].outputs)
+        splits: set = set()
+        changed = True
+        while changed:
+            changed = False
+            for l2 in graph.layers:
+                if (l2.type in ("Split", "Noop") and l2.name not in splits
+                        and any(b in interior for b in l2.inputs)):
+                    splits.add(l2.name)
+                    interior |= set(l2.outputs)
+                    changed = True
+        leaked = any(
+            graph.layers[ci].name not in block_names
+            and graph.layers[ci].name not in splits
+            for b in interior
+            for ci in consumers.get(b, [])
+        )
+        if leaked:
+            continue
+        blocks.append({
+            "root": x_root,
+            "out": layer.outputs[0],
+            "convs": [c1_conv.name, c4a.name, c9.name, c12.name,
+                      c5_conv.name],
+            "skip_conv": c6a.name,
+            "slope": float(c1_conv.attr(10, [0.2])[0]),
+            "trigger": layer.name,
+        })
+        absorbed |= block_names | splits
+    return blocks, absorbed
+
+
+class GraphForward(nn.Module):
+    """Stateless forward of an RRDBNet (Valar) graph: ``fwd(state, x)``
+    walks the layers in order, as the JAX ``build_forward`` does.
+
+    - Under a bf16 compute dtype every matched dense block is one K5
+      launch on the block's input cast to bf16; its output comes back in
+      bf16.  Its packed weights live in ``state`` under the trigger's name,
+      put there once by :meth:`prepare`.  Under f32 (the CPU parity path) the blocks run as
+      generic ops, as the JAX package's f32 path does.
+    - ``residual_dtype=torch.float32`` with bf16 compute is ``mixed``: the
+      inputs of every Eltwise and BinaryOp are upcast to f32 and their
+      results flow on in f32 (``_spine_cast``, executor.py:1214); the next
+      conv or dense block rounds its own input to bf16.
+    - The JAX executor's canvas-eltwise branch (executor.py:1492) needs a
+      canvas on every combine operand; an RRDB's skip operand never has
+      one, so on the Valar graph every combine takes the generic path,
+      which is the one ported (pinned by tests/test_torch_valar.py).
+
+    ``x``: model-domain ``(N, H, W, 3)`` (BGR, [0, 1]).  ``emit="model"``
+    returns float32 ``(N, sH, sW, 3)``; ``"frames"`` uint8 RGB.
+    """
+
+    EMITS = ("model", "frames")
+
+    def __init__(self, graph: NcnnGraph, device: torch.device,
+                 compute_dtype: torch.dtype, residual_dtype, emit: str):
+        super().__init__()
+        if emit not in self.EMITS:
+            raise ValueError(f"emit {emit!r} not in {self.EMITS}")
+        unsupported = sorted({l.type for l in graph.layers} - set(OP_REGISTRY))
+        if unsupported:
+            raise NotImplementedError(
+                f"unsupported ncnn layer types for the port: {unsupported}")
+        if len(graph.input_blobs) != 1 or len(graph.output_blobs) != 1:
+            raise NotImplementedError(
+                f"one input and one output expected, got "
+                f"{graph.input_blobs} / {graph.output_blobs}")
+        consumers = _consumers(graph)
+        blocks, absorbed = _plan_rdb_blocks(graph, consumers)
+        if not blocks:
+            raise NotImplementedError("graph has no Valar dense block")
+        self.graph = graph
+        self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self.emit = emit
+        self.residual_f32 = (residual_dtype == torch.float32
+                             and compute_dtype != torch.float32)
+        fused = compute_dtype != torch.float32
+        self.rdb_triggers = {b["trigger"]: b for b in blocks} if fused else {}
+        self.rdb_absorbed = absorbed if fused else set()
+        self.last_use: Dict[str, int] = {}
+        for i, layer in enumerate(graph.layers):
+            for b in layer.inputs:
+                self.last_use[b] = i
+
+    def prepare(self, state: nn.ModuleDict) -> None:
+        """Add each dense block's packed K5 weights to ``state`` under its
+        trigger's name (the trigger Eltwise has no weights of its own).
+        Called at plan time (``Model.frames_forward``), where a second
+        layout's forward finds them packed; :meth:`forward` only reads them."""
+        from upscale_video_tpu_torch.models.zoo import LayerWeights
+
+        for name, block in self.rdb_triggers.items():
+            if name in state:
+                continue
+            cv = [state[c] for c in block["convs"]]
+            sk = state[block["skip_conv"]]
+            rw = pack_rdb_weights([c.wmat for c in cv], [c.bias for c in cv],
+                                  sk.wmat, sk.bias, block["slope"],
+                                  dtype=self.compute_dtype, device=self.device)
+            state[name] = LayerWeights(wpack=rw.wpack, bpack=rw.bpack)
+
+    def forward(self, state, x: torch.Tensor) -> torch.Tensor:
+        squeeze = x.ndim == 3
+        if squeeze:
+            x = x[None]
+        unpacked = [n for n in self.rdb_triggers if n not in state]
+        if unpacked:
+            raise RuntimeError(
+                f"{len(unpacked)} dense blocks have no packed K5 weights in "
+                f"this state (first: {unpacked[0]}): call prepare(state)")
+        cd = self.compute_dtype
+        graph = self.graph
+        blobs: Dict[str, torch.Tensor] = {
+            graph.input_blobs[0]: x.to(device=self.device, dtype=cd)}
+
+        def free(i, layer):
+            for b in layer.inputs:
+                if self.last_use.get(b) == i and b in blobs:
+                    del blobs[b]
+
+        for i, layer in enumerate(graph.layers):
+            if layer.type == "Input":
+                continue
+            block = self.rdb_triggers.get(layer.name)
+            if block is not None:
+                pw = state[layer.name]
+                blobs[block["out"]] = rdb_block(
+                    blobs[layer.inputs[1]].to(cd).contiguous(),
+                    RDBWeights(pw.wpack, pw.bpack, block["slope"]))
+                free(i, layer)
+                continue
+            if layer.name in self.rdb_absorbed:
+                free(i, layer)
+                continue
+            ins = [blobs[b] for b in layer.inputs]
+            if self.residual_f32 and layer.type in ("Eltwise", "BinaryOp"):
+                ins = [t.to(torch.float32) if t.is_floating_point() else t
+                       for t in ins]
+            p = state[layer.name] if layer.name in state else None
+            out = OP_REGISTRY[layer.type](layer, ins, p, cd)
+            if isinstance(out, list):
+                for name, t in zip(layer.outputs, out):
+                    blobs[name] = t
+            else:
+                blobs[layer.outputs[0]] = out
+            free(i, layer)
+        y = blobs[graph.output_blobs[0]].to(torch.float32)
+        if self.emit == "frames":
+            y = model_to_frames(y)
+        return y[0] if squeeze else y
+
+
 def build_forward(graph: NcnnGraph, device: "torch.device | str",
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  emit: str = "model") -> SRVGGForward:
-    """Plan ``graph`` and return its forward module (K1 then K2).
+                  emit: str = "model", residual_dtype=None):
+    """Plan ``graph`` and return its forward module: an SRVGG graph gets
+    :class:`SRVGGForward` (K1 then K2), a graph with Valar dense blocks
+    :class:`GraphForward` (K5 per block); anything else raises.
 
     ``compute_dtype`` bf16 runs the kernels on CUDA (held to the JAX
     Pallas path); float32 is accepted only on the CPU, where the plain
-    versions run (held to the JAX XLA f32 path)."""
+    versions and generic ops run (held to the JAX XLA f32 path).
+    ``residual_dtype=torch.float32`` is ``--precision mixed`` and applies
+    to :class:`GraphForward` only."""
     device = torch.device(device)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {compute_dtype}")
     if device.type == "cuda" and compute_dtype != torch.bfloat16:
         raise NotImplementedError(
             "the CUDA kernels compute in bf16; float32 runs on the CPU only")
-    return SRVGGForward(plan_srvgg(graph), device, compute_dtype, emit)
+    if probe_srvgg_tail(graph) is not None or not any(
+            l.type == "Concat" for l in graph.layers):
+        if residual_dtype is not None:
+            raise NotImplementedError(
+                "--precision mixed is ported for the RRDBNet (-m r) only")
+        return SRVGGForward(plan_srvgg(graph), device, compute_dtype, emit)
+    return GraphForward(graph, device, compute_dtype, residual_dtype, emit)

@@ -1,10 +1,10 @@
-"""Model zoo: resolution, loading, the Compact architecture, ``Model``.
+"""Model zoo: resolution, loading, the Compact and RRDBNet architectures, ``Model``.
 
-Port of ``upscale_video_tpu/models/zoo.py:57-193, 196-245, 404-420``.
-``make_srvgg_graph`` is a host copy (the same graph, layer for layer);
-``Model`` is an ``nn.Module`` holding its weights as buffers in the
-kernels' layout (:func:`params_from_jax`).  The on-disk stem is
-``str(scale) + model_file`` as in the reference.
+Port of ``upscale_video_tpu/models/zoo.py:57-193, 196-420``.
+``make_srvgg_graph`` and ``make_rrdb_graph`` are host copies (the same
+graphs, layer for layer); ``Model`` is an ``nn.Module`` holding its weights
+as buffers in the kernels' layout (:func:`params_from_jax`).  The on-disk
+stem is ``str(scale) + model_file`` as in the reference.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from upscale_video_tpu_torch.models.bin_loader import (
     load_weights_file, synthesize_weights,
 )
 from upscale_video_tpu_torch.models.executor import (
-    SRVGGForward, build_forward, probe_srvgg_tail,
+    GraphForward, build_forward, probe_srvgg_tail,
 )
 from upscale_video_tpu_torch.models.param_parser import (
     NcnnGraph, NcnnLayer, parse_param_file,
@@ -45,9 +45,12 @@ def resolve_model_path(model_path: Optional[str] = None) -> Optional[str]:
 
 
 class LayerWeights(nn.Module):
-    """One ncnn layer's weights as buffers: ``wmat`` (9*cin, cout) in the
-    compute dtype (the kernels' matrix, rows in (dy, dx, cin) order) and
-    ``bias`` (cout,) f32 for a conv; ``slope`` (C,) f32 for a PReLU."""
+    """One ncnn layer's weights as buffers: ``wmat`` (kh*kw*cin, cout) in
+    the compute dtype (the kernels' matrix, rows in (dy, dx, cin) order;
+    a 1x1 conv's is (cin, cout)) and ``bias`` (cout,) f32 for a conv
+    (zeros when the layer has none); ``slope`` (C,) f32 for a PReLU; and,
+    added by the RRDBNet forward, a dense block's packed K5 weights
+    ``wpack``/``bpack`` under its trigger's name."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()
@@ -84,26 +87,34 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
 
 
 class Model(nn.Module):
-    """A loaded SRVGG-family model on one device."""
+    """A loaded model on one device: an SRVGG (K1 + K2) or an RRDBNet
+    (K5 per dense block).  ``residual_dtype=torch.float32`` is
+    ``--precision mixed`` (RRDBNet only)."""
 
     def __init__(self, name: str, scale: int, graph: NcnnGraph,
                  params: Dict[str, Dict[str, np.ndarray]],
                  device: "torch.device | str",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 residual_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.name = name
         self.scale = scale
         self.graph = graph
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
+        self.residual_dtype = residual_dtype
         self.state = params_from_jax(params, self.device, compute_dtype)
-        self._forwards: Dict[str, SRVGGForward] = {}
+        self._forwards: Dict[str, nn.Module] = {}
 
-    def frames_forward(self, emit: str = "frames") -> SRVGGForward:
-        """The built forward for one output layout (cached)."""
+    def frames_forward(self, emit: str = "frames") -> nn.Module:
+        """The built forward for one output layout (cached).  Building an
+        RRDBNet forward packs its dense blocks' K5 weights into ``state``."""
         if emit not in self._forwards:
-            self._forwards[emit] = build_forward(
-                self.graph, self.device, self.compute_dtype, emit)
+            fwd = build_forward(self.graph, self.device, self.compute_dtype,
+                                emit, self.residual_dtype)
+            if isinstance(fwd, GraphForward):
+                fwd.prepare(self.state)
+            self._forwards[emit] = fwd
         return self._forwards[emit]
 
     @property
@@ -117,8 +128,11 @@ class Model(nn.Module):
 
 def load_model(model_file: str, scale: int, device: "torch.device | str",
                model_path: Optional[str] = None,
-               compute_dtype: torch.dtype = torch.bfloat16) -> Model:
-    """Load ``{scale}{model_file}.param/.bin`` from a model directory."""
+               compute_dtype: torch.dtype = torch.bfloat16,
+               residual_dtype: Optional[torch.dtype] = None) -> Model:
+    """Load ``{scale}{model_file}.param/.bin`` from a model directory;
+    ``model_file`` is a role of :data:`MODEL_FILES` (``"compact"``,
+    ``"valar"``) or a raw stem suffix."""
     stem_suffix = MODEL_FILES.get(model_file, model_file)
     base = resolve_model_path(model_path)
     if base is None:
@@ -129,7 +143,7 @@ def load_model(model_file: str, scale: int, device: "torch.device | str",
     graph = parse_param_file(stem + ".param")
     params = load_weights_file(graph, stem + ".bin")
     return Model(f"{scale}{stem_suffix}", scale, graph, params, device,
-                 compute_dtype)
+                 compute_dtype, residual_dtype)
 
 
 def make_srvgg_graph(
@@ -195,3 +209,133 @@ def make_synthetic_model(
     params = synthesize_weights(graph, seed=seed)
     return Model(f"synthetic_{scale}x_compact", scale, graph, params, device,
                  compute_dtype)
+
+
+def make_rrdb_graph(
+    scale: int = 4,
+    num_feat: int = 64,
+    num_grow: int = 32,
+    num_rrdb: int = 2,
+    variant: str = "valar",
+) -> NcnnGraph:
+    """RRDBNet graph (host copy of the JAX zoo's, zoo.py:248).
+
+    ``variant="valar"`` mirrors ``4x_Valar_v1.param``: ``num_rrdb`` RRDBs
+    of 3 dense blocks (5 dense 3x3 convs over growing concats, a 1x1 skip
+    into c2, c2 re-added into c4, residual scale 0.2), trunk conv + global
+    skip, then nearest-2x + conv upsampling to ``scale``.  ``num_rrdb=23``
+    is layer-count and FLOP-identical to the real Valar graph (modulo
+    ncnn Split bookkeeping).  ``variant="esrgan"`` is basicsr's plain
+    RRDBNet (no 1x1 skip, no interior adds).  The port runs the ``valar``
+    variant."""
+    if variant not in ("valar", "esrgan"):
+        raise ValueError(f"unknown RRDB variant {variant!r}")
+    layers = [NcnnLayer("Input", "input", [], ["input"])]
+    uid = [0]
+
+    def blob():
+        out = f"b{uid[0]}"
+        uid[0] += 1
+        return out
+
+    def conv(name, src, cin, cout, k=3, act=None):
+        # real graph: 3x3 convs carry bias (5=1), the 1x1 skips do not
+        attrs = {0: cout, 1: k, 6: cout * cin * k * k}
+        if k == 3:
+            attrs[4] = 1
+            attrs[5] = 1
+        if act is not None:
+            attrs[9] = 2
+            attrs[10] = [act]
+        out = blob()
+        layers.append(NcnnLayer("Convolution", name, [src], [out], attrs))
+        return out
+
+    def cat(name, srcs):
+        out = blob()
+        layers.append(NcnnLayer("Concat", name, list(srcs), [out], {0: 0}))
+        return out
+
+    def add(name, a, b):
+        out = blob()
+        layers.append(NcnnLayer("BinaryOp", name, [a, b], [out], {0: 0}))
+        return out
+
+    def residual(name, body, skip):  # 0.2*body + skip
+        out = blob()
+        layers.append(NcnnLayer(
+            "Eltwise", name, [body, skip], [out], {0: 1, 1: [0.2, 1.0]}
+        ))
+        return out
+
+    def rdb_valar(tag, x0):
+        x1 = conv(f"{tag}_c1", x0, num_feat, num_grow, act=0.2)
+        c4 = conv(f"{tag}_c4", cat(f"{tag}_cat1", [x0, x1]),
+                  num_feat + num_grow, num_grow, act=0.2)
+        sk = conv(f"{tag}_c6", x0, num_feat, num_grow, k=1)
+        x2 = add(f"{tag}_a7", c4, sk)
+        x3 = conv(f"{tag}_c9", cat(f"{tag}_cat2", [x0, x1, x2]),
+                  num_feat + 2 * num_grow, num_grow, act=0.2)
+        c12 = conv(f"{tag}_c12", cat(f"{tag}_cat3", [x0, x1, x2, x3]),
+                   num_feat + 3 * num_grow, num_grow, act=0.2)
+        x4 = add(f"{tag}_a14", c12, x2)
+        c16 = conv(f"{tag}_c16", cat(f"{tag}_cat4", [x0, x1, x2, x3, x4]),
+                   num_feat + 4 * num_grow, num_feat)
+        return residual(f"{tag}_res", c16, x0)
+
+    def rdb_esrgan(tag, x0):
+        feats = [x0]
+        for k in range(1, 5):
+            nxt = conv(
+                f"{tag}_c{k}",
+                feats[0] if k == 1 else cat(f"{tag}_cat{k - 1}", feats),
+                num_feat + (k - 1) * num_grow, num_grow, act=0.2,
+            )
+            feats.append(nxt)
+        x5 = conv(f"{tag}_c5", cat(f"{tag}_cat4", feats),
+                  num_feat + 4 * num_grow, num_feat)
+        return residual(f"{tag}_res", x5, x0)
+
+    rdb = rdb_valar if variant == "valar" else rdb_esrgan
+
+    fea = conv("conv_first", "input", 3, num_feat)
+    x = fea
+    for i in range(num_rrdb):
+        rin = x
+        for j in range(3):
+            x = rdb(f"r{i}d{j}", x)
+        x = residual(f"r{i}_res", x, rin)
+    trunk = conv("conv_trunk", x, num_feat, num_feat)
+    x = add("trunk_add", fea, trunk)
+    ups = 1
+    while ups < scale:
+        out = blob()
+        layers.append(NcnnLayer(
+            "Interp", f"up{ups}", [x], [out], {0: 1, 1: 2.0, 2: 2.0}
+        ))
+        x = conv(f"conv_up{ups}", out, num_feat, num_feat, act=0.2)
+        ups *= 2
+    x = conv("conv_hr", x, num_feat, num_feat, act=0.2)
+    conv("conv_last", x, num_feat, 3)
+    layers[-1].outputs[0] = "output"
+    blob_count = len({b for l in layers for b in l.outputs})
+    return NcnnGraph(layers=layers, blob_count=blob_count)
+
+
+def make_synthetic_rrdb_model(
+    scale: int = 4,
+    num_feat: int = 64,
+    num_grow: int = 32,
+    num_rrdb: int = 2,
+    seed: int = 0,
+    device: "torch.device | str" = "cpu",
+    compute_dtype: torch.dtype = torch.bfloat16,
+    residual_dtype: Optional[torch.dtype] = None,
+) -> Model:
+    """An RRDBNet (Valar-family) model with random weights: the JAX
+    ``make_synthetic_rrdb_model``'s graph and, byte for byte, its weights."""
+    graph = make_rrdb_graph(scale=scale, num_feat=num_feat,
+                            num_grow=num_grow, num_rrdb=num_rrdb)
+    params = synthesize_weights(graph, seed=seed)
+    return Model(f"synthetic_{scale}x_rrdb{num_rrdb}", scale, graph, params,
+                 device, compute_dtype, residual_dtype)

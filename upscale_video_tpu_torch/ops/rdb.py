@@ -1,0 +1,187 @@
+"""K5: one Valar/ESRGAN residual dense block — CUDA kernel wrapper + plain version.
+
+Port of ``upscale_video_tpu/ops/rdb_pallas.py:253`` ``_rdb_kernel`` (reached
+via ``rdb_apply_canvas`` :675 and ``rdb_apply`` :544).  One call computes a
+whole Valar dense block over ``(N, H, W, 64)`` frames::
+
+    c1 = lrelu(conv(x))
+    c2 = lrelu(conv(x, c1)) + conv1x1(x)
+    c3 = lrelu(conv(x, c1, c2))
+    c4 = lrelu(conv(x, c1, c2, c3)) + c2
+    c5 = conv(x, c1, c2, c3, c4)
+    out = x + 0.2 * c5
+
+with the TPU kernel's rounding points: the conv of source ``s`` into target
+``t`` is accumulated in f32 and rounded to bf16 on its own (one piece per
+source, summed in f32 in source order x, c1, c2, ...); bias, lrelu, the
+skip and the c2 re-add run in f32 (c4 adds c2's f32 value before its
+rounding); c1..c4 are rounded once to bf16; ``out = bf16(f32(x) + 0.2 *
+c5)``.  Every conv is zero-padded at the frame edge.
+
+The weights travel packed (:func:`pack_rdb_weights`): one bf16 matrix per
+target ``t`` of shape ``(width_t, 9 * cin_t)`` whose row holds, per source
+in order, that source's taps in ``(dy, dx, channel)`` order — the
+per-source slices of ``pack_rdb_weights`` in the JAX package (:160), here
+transposed so the kernel reads B fragments as contiguous pairs — then the
+1x1 skip transposed ``(32, 64)``; and the f32 biases ``b1..b5, b_skip``.
+
+:func:`rdb_block` dispatches on the input's device: a CPU tensor takes
+:func:`rdb_block_plain`; a CUDA tensor launches ``csrc/rdb_block.cu`` or
+raises.  ``rdb_block.launches`` counts kernel launches (one per call).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from upscale_video_tpu_torch.ops.conv_chain import no_tf32
+
+NF = 64   # trunk width
+GC = 32   # growth channels
+WIDTHS = (GC, GC, GC, GC, NF)                    # c1..c5
+CINS = tuple(NF + t * GC for t in range(5))      # 64, 96, 128, 160, 192
+SOURCE_CH = (NF, GC, GC, GC, GC)                 # x, c1..c4
+SOURCE_OFF = (0, NF, NF + GC, NF + 2 * GC, NF + 3 * GC)
+W_OFFS = tuple(int(v) for v in np.cumsum(
+    [0] + [WIDTHS[t] * 9 * CINS[t] for t in range(5)]))
+SKIP_W_OFF = W_OFFS[5]
+WPACK_NUMEL = SKIP_W_OFF + GC * NF               # 241,664
+B_OFFS = (0, GC, 2 * GC, 3 * GC, 4 * GC)
+SKIP_B_OFF = 4 * GC + NF
+BPACK_NUMEL = SKIP_B_OFF + GC                    # 224
+MACS_PER_PIXEL = WPACK_NUMEL                     # one MAC per weight per pixel
+
+
+class RDBWeights(NamedTuple):
+    wpack: torch.Tensor  # (WPACK_NUMEL,) in the compute dtype (bf16 for K5)
+    bpack: torch.Tensor  # (BPACK_NUMEL,) f32
+    slope: float         # the leaky slope of c1..c4 (the graph's, 0.2)
+
+
+def _f32(a, shape) -> torch.Tensor:
+    """numpy array or tensor -> f32 tensor of ``shape`` (same element
+    order: an HWIO weight or its ``(kh*kw*cin, cout)`` matrix)."""
+    t = torch.as_tensor(a).detach().to(torch.float32)
+    if t.numel() != int(np.prod(shape)):
+        raise ValueError(f"weight of {t.numel()} values does not fit {shape}")
+    return t.reshape(shape)
+
+
+def pack_rdb_weights(ws: Sequence, bs: Sequence, skip_w, skip_b=None,
+                     slope: float = 0.2, dtype: torch.dtype = torch.bfloat16,
+                     device: "torch.device | str | None" = None) -> RDBWeights:
+    """Five conv weights ``(3, 3, cin_t, width_t)`` (HWIO, or the same
+    values as a ``(9*cin_t, width_t)`` matrix) with their biases (None =
+    zeros), and the 1x1 skip ``(1, 1, 64, 32)`` with an optional bias ->
+    :class:`RDBWeights` on ``device`` (default: the weights' own)."""
+    wt: List[torch.Tensor] = []
+    for t in range(5):
+        w = _f32(ws[t], (3, 3, CINS[t], WIDTHS[t]))
+        wt.append(torch.cat([
+            w[:, :, SOURCE_OFF[s]:SOURCE_OFF[s] + SOURCE_CH[s], :]
+            .reshape(9 * SOURCE_CH[s], WIDTHS[t]).T
+            for s in range(t + 1)], dim=1))
+    sk = _f32(skip_w, (NF, GC))
+    wpack = torch.cat([m.reshape(-1) for m in wt] + [sk.T.reshape(-1)])
+    biases = [torch.zeros(n, device=wpack.device) if b is None
+              else _f32(b, (n,)).to(wpack.device)
+              for b, n in zip(list(bs) + [skip_b], WIDTHS + (GC,))]
+    bpack = torch.cat(biases)
+    device = wpack.device if device is None else device
+    return RDBWeights(wpack.to(device=device, dtype=dtype).contiguous(),
+                      bpack.to(device=device).contiguous(), float(slope))
+
+
+def _source_weight(wpack: torch.Tensor, t: int, s: int) -> torch.Tensor:
+    """Source ``s``'s slice of target ``t`` as f32 OIHW ``(width_t, cs, 3, 3)``."""
+    k = 9 * CINS[t]
+    wt = wpack[W_OFFS[t]:W_OFFS[t + 1]].reshape(WIDTHS[t], k)
+    k0 = 9 * SOURCE_OFF[s]
+    cs = SOURCE_CH[s]
+    blk = wt[:, k0:k0 + 9 * cs].to(torch.float32)
+    return blk.reshape(WIDTHS[t], 3, 3, cs).permute(0, 3, 1, 2)
+
+
+def rdb_block_plain(x: torch.Tensor, weights: RDBWeights) -> torch.Tensor:
+    """The plain PyTorch version of K5, with its rounding points: each
+    source's conv (``F.conv2d`` in f32 on compute-dtype values, TF32 off)
+    is rounded to the compute dtype (``wpack``'s) on its own, the pieces
+    are summed in f32 in source order, and the rest follows the module
+    docstring.  ``x``: ``(N, H, W, 64)``; returns the same shape in the
+    compute dtype."""
+    _check_shapes(x, weights)
+    cd = weights.wpack.dtype
+    wp, bp, slope = weights.wpack, weights.bpack.to(torch.float32), weights.slope
+    xs = x.to(cd).permute(0, 3, 1, 2).to(torch.float32)   # NCHW, cd values
+    srcs = [xs]
+    c2 = c5 = None
+    with no_tf32():
+        for t in range(5):
+            total = None
+            for s, src in enumerate(srcs):
+                piece = F.conv2d(src, _source_weight(wp, t, s), padding=1)
+                piece = piece.to(cd).to(torch.float32)
+                total = piece if total is None else total + piece
+            b = bp[B_OFFS[t]:B_OFFS[t] + WIDTHS[t]].view(1, -1, 1, 1)
+            val = total + b
+            if t == 4:
+                c5 = val
+                break
+            val = torch.where(val >= 0, val, val * slope)
+            if t == 1:
+                wsk = wp[SKIP_W_OFF:].reshape(GC, NF).to(torch.float32)
+                skip = F.conv2d(xs, wsk.view(GC, NF, 1, 1))
+                val = val + (skip + bp[SKIP_B_OFF:].view(1, -1, 1, 1))
+                c2 = val
+            elif t == 3:
+                val = val + c2
+            srcs.append(val.to(cd).to(torch.float32))
+    y = (xs + 0.2 * c5).to(cd)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _check_shapes(x: torch.Tensor, weights: RDBWeights) -> None:
+    if x.ndim != 4 or x.shape[-1] != NF:
+        raise ValueError(f"rdb_block takes (N, H, W, {NF}), got {tuple(x.shape)}")
+    if weights.wpack.shape != (WPACK_NUMEL,) or \
+            weights.bpack.shape != (BPACK_NUMEL,):
+        raise ValueError(
+            f"packed weights {tuple(weights.wpack.shape)} / "
+            f"{tuple(weights.bpack.shape)} != ({WPACK_NUMEL},) / ({BPACK_NUMEL},)")
+
+
+def rdb_block(x: torch.Tensor, weights: RDBWeights) -> torch.Tensor:
+    """One fused dense block over ``x`` ``(N, H, W, 64)``: the plain version
+    for a CPU tensor, the K5 launch for a CUDA tensor (bf16 in, bf16 out)."""
+    if x.device.type == "cpu":
+        return rdb_block_plain(x, weights)
+    if x.device.type != "cuda":
+        raise ValueError(f"rdb_block: unsupported device {x.device}")
+    _check_shapes(x, weights)
+    for name, t, dt in (("x", x, torch.bfloat16),
+                        ("wpack", weights.wpack, torch.bfloat16),
+                        ("bpack", weights.bpack, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"rdb_block: {name} must be {dt}, got {t.dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"rdb_block: {name} must be contiguous on {x.device}")
+    from upscale_video_tpu_torch.kernels import build
+
+    n, h, w, _ = x.shape
+    out = torch.empty_like(x)
+    code = build.library().uvt_rdb_block(
+        x.data_ptr(), out.data_ptr(), weights.wpack.data_ptr(),
+        weights.bpack.data_ptr(), n, h, w, ctypes.c_float(weights.slope),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(code, "rdb_block launch")
+    rdb_block.launches += 1
+    return out
+
+
+rdb_block.launches = 0

@@ -1,11 +1,15 @@
 """Model-chain engine over the port's kernels, and the batched stepper.
 
 Port of ``upscale_video_tpu/pipeline/chain.py:35-162, 166-522, 747-822``,
-restricted to the slice the port covers: the empty ``-m`` chain (the 2x —
-or 4x — SRVGG Compact model), whole-frame, on one device.  Every step runs
-the same program: uint8 frames -> model domain -> K1 (the 17-layer body
-for 2x Compact) -> K2 (the fused tail, emitting the step's output layout)
--> optional 4:2:0 pack.
+restricted to the chains the port covers, on one device:
+
+- the empty ``-m`` chain (the 2x — or 4x — SRVGG Compact model),
+  whole-frame: uint8 frames -> model domain -> K1 (the 17-layer body for
+  2x Compact) -> K2 (the fused tail, emitting the step's output layout)
+  -> optional 4:2:0 pack;
+- ``-m r`` (the 4x Valar RRDBNet), tiled: uint8 frames -> model domain ->
+  haloed tiles -> the graph walk (K5 per dense block, K1 per other 3x3
+  conv) -> scaled-halo crop -> u8 frames -> optional 4:2:0 pack.
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ import numpy as np
 import torch
 
 from upscale_video_tpu_torch.models.zoo import (
-    Model, load_model, make_synthetic_model,
+    Model, load_model, make_synthetic_model, make_synthetic_rrdb_model,
 )
-from upscale_video_tpu_torch.ops.pixel import frames_to_model
+from upscale_video_tpu_torch.ops.pixel import frames_to_model, model_to_frames
+from upscale_video_tpu_torch.ops.tiling import fit_tile_grid, tiled_apply
 from upscale_video_tpu_torch.ops.yuv import (
     i420_to_model, yuv420_from_frames, yuv420_from_planar,
 )
@@ -102,9 +107,20 @@ def default_frames_per_step(spec: ChainSpec) -> int:
     return 1 if spec.real_life else 4
 
 
+# ``-m r``'s tile budget: at 1080p it fits (544, 480), a 2x4 grid of
+# 576x512 haloed tiles (the JAX package's VALAR_DEFAULT_TILE).
+VALAR_DEFAULT_TILE = 544
+# Tiles per model call: a 1080p frame's 8 tiles in one call, so a 2160p
+# frame's 32 go in four and the peak device memory stays that of one
+# 1080p frame: 19.58 GB at 23 RRDBs on an NVIDIA H100 80GB HBM3
+# (chip_smoke.py's [valar_step_vs_plain] reports it).
+TILES_PER_STEP = 8
+
+
 def default_tile(spec: ChainSpec) -> "int | tuple":
-    """Whole-frame (0) for the Compact family; ``-m r`` tiles (JAX: 544)."""
-    return 544 if spec.real_life else 0
+    """Whole-frame (0) for the Compact family; ``-m r`` tiles at
+    :data:`VALAR_DEFAULT_TILE`."""
+    return VALAR_DEFAULT_TILE if spec.real_life else 0
 
 
 def parse_chips(chips: Optional[str]) -> Tuple[List[int], int]:
@@ -126,12 +142,16 @@ class ChainEngine:
 
     Step callables take and return device tensors: uint8 ``(N, H, W, 3)``
     frames (or flat I420 ``(N, h*w*3//2)`` under ``i420_in``) in, the
-    contract's uint8 layout out."""
+    contract's uint8 layout out.  ``tile`` is 0 (whole frame), a budget
+    (:func:`~upscale_video_tpu_torch.ops.tiling.fit_tile_grid`) or an
+    exact ``(th, tw)`` pair; ``halo`` is the tiles' context border."""
 
     spec: ChainSpec
     scale: int
     sr_model: Model
     device: torch.device
+    tile: "int | tuple" = 0
+    halo: int = 16
     channel_order: str = "bgr"
     _yuv_steps: dict = field(default=None, repr=False)
 
@@ -139,41 +159,88 @@ class ChainEngine:
     def build(cls, spec: ChainSpec, scale: int, device: "torch.device | str",
               model_path: Optional[str] = None,
               compute_dtype: torch.dtype = torch.bfloat16,
-              synthetic: bool = False) -> "ChainEngine":
-        """Load the chain's SR model on ``device`` (the stock Compact role,
-        or a random-weight Compact stand-in with ``synthetic``)."""
-        if not spec.is_default():
+              synthetic: bool = False,
+              residual_dtype: Optional[torch.dtype] = None,
+              tile: "int | tuple | None" = None,
+              halo: int = 16) -> "ChainEngine":
+        """Load the chain's SR model on ``device``: the stock Compact role
+        for the empty chain, the Valar role for ``-m r`` (forcing 4x), or
+        with ``synthetic`` a random-weight stand-in of the same
+        architecture (for ``-m r`` the 23-RRDB ``make_rrdb_graph``).
+        ``tile=None`` takes the family's default (:func:`default_tile`)."""
+        if spec.anime or spec.denoise or spec.sr_file:
             raise NotImplementedError(
-                f"-m chain {spec.stage_names()} is not ported yet (only the "
-                "default Compact SR chain)")
+                f"-m chain {spec.stage_names()} is not ported yet (the "
+                "Compact SR chain and -m r only)")
         device = torch.device(device)
         scale = spec.effective_scale(scale)
         if scale == 1:
             raise NotImplementedError("scale 1 (no SR stage) is not ported yet")
-        if synthetic:
-            model = make_synthetic_model(scale=scale, device=device,
-                                         compute_dtype=compute_dtype)
+        if tile is None:
+            tile = default_tile(spec)
+        if tile and not spec.real_life:
+            raise NotImplementedError(
+                "tiling is ported for -m r only (Compact runs whole-frame)")
+        if residual_dtype is not None and not spec.real_life:
+            raise NotImplementedError(
+                "--precision mixed is ported for -m r only")
+        if spec.real_life:
+            model = (make_synthetic_rrdb_model(
+                        scale=scale, num_rrdb=23, device=device,
+                        compute_dtype=compute_dtype,
+                        residual_dtype=residual_dtype)
+                     if synthetic else
+                     load_model("valar", scale, device, model_path,
+                                compute_dtype, residual_dtype))
+            model.frames_forward("model")  # plan now
         else:
-            model = load_model("compact", scale, device, model_path,
-                               compute_dtype)
-        # plan now: an unsupported graph raises before any frame is read
-        model.frames_forward("planar")
-        return cls(spec=spec, scale=scale, sr_model=model, device=device)
+            model = (make_synthetic_model(scale=scale, device=device,
+                                          compute_dtype=compute_dtype)
+                     if synthetic else
+                     load_model("compact", scale, device, model_path,
+                                compute_dtype))
+            # plan now: an unsupported graph raises before any frame is read
+            model.frames_forward("planar")
+        return cls(spec=spec, scale=scale, sr_model=model, device=device,
+                   tile=tile, halo=halo)
 
     def _to_model(self, frames_u8: torch.Tensor) -> torch.Tensor:
         return frames_to_model(frames_u8.to(self.device), self.channel_order)
 
+    def _tiled_sr(self, x: torch.Tensor) -> torch.Tensor:
+        """Model-domain (N, H, W, 3) -> (N, sH, sW, 3) f32 over haloed
+        tiles; each frame's tiles go through the model in batches of
+        :data:`TILES_PER_STEP`."""
+        fwd = self.sr_model.frames_forward("model")
+        state = self.sr_model.state
+        tile_hw = (self.tile if isinstance(self.tile, tuple)
+                   else fit_tile_grid(int(x.shape[1]), int(x.shape[2]),
+                                      self.tile))
+        return torch.stack([
+            tiled_apply(lambda t: fwd(state, t), x[i], tile_hw, self.halo,
+                        self.scale, TILES_PER_STEP)
+            for i in range(x.shape[0])
+        ])
+
+    def _sr_frames(self, x: torch.Tensor) -> torch.Tensor:
+        """The SR stage emitting uint8 RGB frames, tiled or whole-frame."""
+        if self.tile:
+            return model_to_frames(self._tiled_sr(x), self.channel_order)
+        return self.sr_model.frames_forward("frames")(self.sr_model.state, x)
+
     @property
     def step(self) -> Callable:
         """uint8 RGB (N, H, W, 3) -> uint8 RGB (N, sH, sW, 3)."""
-        fwd = self.sr_model.frames_forward("frames")
-        return lambda f: fwd(self.sr_model.state, self._to_model(f))
+        return lambda f: self._sr_frames(self._to_model(f))
 
     @property
     def planar_scale(self) -> Optional[int]:
-        """Shuffle factor of the shuffle-planar contract.  The tail kernel
-        writes the planar layout directly, so every planned SRVGG model
-        has it (the JAX Pallas path turns it off instead, chain.py:431)."""
+        """Shuffle factor of the shuffle-planar contract, or None (tiled
+        path, RRDBNet's Interp tail).  The tail kernel writes the planar
+        layout directly, so every planned SRVGG model has it whole-frame
+        (the JAX Pallas path turns it off instead, chain.py:431)."""
+        if self.tile:
+            return None
         return self.sr_model.planar_scale
 
     @property
@@ -195,7 +262,6 @@ class ChainEngine:
         s = self.planar_scale
         if planar and (not s or s % 2):
             raise ValueError(f"planar yuv contract unavailable (planar_scale={s})")
-        fwd = self.sr_model.frames_forward("planar" if planar else "frames")
 
         def fn(x):
             x = x.to(self.device)
@@ -204,10 +270,11 @@ class ChainEngine:
             else:
                 src_h, src_w, in_full = i420_in
                 m = i420_to_model(x, src_h, src_w, in_full, order)
-            y = fwd(self.sr_model.state, m)
             if planar:
+                y = self.sr_model.frames_forward("planar")(
+                    self.sr_model.state, m)
                 return yuv420_from_planar(y, s, full_range)
-            return yuv420_from_frames(y, full_range)
+            return yuv420_from_frames(self._sr_frames(m), full_range)
 
         self._yuv_steps[key] = fn
         return fn

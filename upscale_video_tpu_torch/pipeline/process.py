@@ -92,6 +92,8 @@ def process_file(
     log_dir: Optional[str] = None,
     model_path: Optional[str] = None,
     precision: str = "auto",
+    tile_size: "int | tuple | None" = None,
+    halo: int = 16,
     frames_per_step: Optional[int] = None,
     global_quality: Optional[int] = 20,
     data_plane: str = "stream",
@@ -102,7 +104,11 @@ def process_file(
     engine: Optional[ChainEngine] = None,
 ) -> Optional[PipelineResult]:
     """Upscale a video file end to end on ``device``.  Returns a
-    PipelineResult, or None when the resume sentinel short-circuits."""
+    PipelineResult, or None when the resume sentinel short-circuits.
+
+    ``tile_size``/``halo`` tile the SR stage (None = the family's default:
+    whole-frame Compact, 544 for ``-m r``); ``precision`` ``auto`` is
+    ``mixed`` for ``-m r`` and bf16 otherwise."""
     if scale not in VALID_SCALES:
         raise ValueError(f"scale must be one of {VALID_SCALES}")
     if data_plane != "stream":
@@ -145,11 +151,10 @@ def process_file(
 
     if engine is None:
         compute_dtype, residual_dtype = precision_dtypes(precision, spec)
-        if residual_dtype is not None:
-            raise NotImplementedError("--precision mixed is not ported yet")
         engine = ChainEngine.build(
             spec, scale, dev, model_path=model_path,
             compute_dtype=compute_dtype, synthetic=synthetic_models,
+            residual_dtype=residual_dtype, tile=tile_size, halo=halo,
         )
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
