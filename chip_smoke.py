@@ -4,28 +4,36 @@
 
 Builds the port's CUDA kernels from ``upscale_video_tpu_torch/csrc/`` with
 nvcc, holds each against its plain PyTorch version on the card at its main
-path's shapes, and drives both ported paths end to end through
+path's shapes, and drives the ported paths end to end through
 ``upscale-video-torch`` on hermetic 1080p Y4M clips under both device
 contracts, counting kernel launches:
 
 - the default path: 2x Compact (K1 + K2), 4 frames per step, 1080p -> 4K;
 - ``-m r``: the 4x Valar RRDBNet at full width and depth (23 RRDBs, K5
   per dense block, K1 per other 3x3 conv), mixed precision, 544-budget
-  tiles with halo 16, 1 frame per step, 1080p -> 4K.
+  tiles with halo 16, 1 frame per step, 1080p -> 4K;
+- ``-m a,n=3``: NL-means at strength 3 (K6, one launch per step), the 1x
+  SubCompact anime deblur model (nf 24, one 10-layer K1 chain), then the
+  default 2x Compact (K1 + K2), 4 frames per step;
+- ``--tta`` on the default path: one 1080p frame through the 8 dihedral
+  transforms (K2's f32 layout).
 
 Weights are synthetic (seed 0).  K1 is held against its plain version at
-both paths' shapes (the Compact stack at 4x1080p; each of ``-m r``'s six
-convs on a 1080p frame's tiles at 1x, 2x or 4x), and the whole 1080p
-``-m r`` step against the same step on the plain versions.  It then times
-each step against its plain version.  Every phase prints one line; any failure raises and the script
-exits non-zero without printing a result.  The last three lines are a JSON
-object with each kernel's figures, the card's
+every path's shapes (the Compact stack and the anime chain at 4x1080p;
+each of ``-m r``'s six convs on a 1080p frame's tiles at 1x, 2x or 4x),
+K6 at 4x1080p, and the whole 1080p ``-m r`` and ``--tta`` steps against
+the same steps on the plain versions.  It then times each step against its
+plain version.  Every phase prints one line; any failure raises and the
+script exits non-zero without printing a result.  The last three lines are
+a JSON object with each kernel's figures (its bound computed from the
+card's published peaks), the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and then
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -54,11 +62,20 @@ K1_ATOL, K1_RTOL = 5e-2, 2e-2
 # K1 as one layer: the one rounding may land one bf16 ulp (<= 2**-7 * |v|)
 # away after an f32 sum in another order; atol for sums that cancel near 0
 K1_LAYER_ATOL, K1_LAYER_RTOL = 2.0 ** -10, 2.0 ** -7
+# K1 over the 10-layer anime chain: its output is small (the synthetic
+# N(0, 0.05) weights shrink the signal layer by layer), so the whole-chain
+# bound is a few bf16 ulps of the output scale: a flipped rounding cascades
+# through the later layers (measured at most 2**-11 on an NVIDIA H100 80GB
+# HBM3).  A layer that drops a channel or a tap moves this damped output by
+# little, so each layer is also held alone at unit-scale inputs to the
+# one-rounding class above.
+K1_ANIME_ATOL, K1_ANIME_RTOL = 2.0 ** -10, 2.0 ** -7
 K2_MAX_LSB = 1                 # u8: an ulp-level difference at a boundary
 E2E_MIN_PSNR = 40.0            # bf16 CUDA step vs the f32 plain path, dB
 # K5: a per-source piece may round one bf16 ulp away from the plain
 # version's (tensor-core vs cuDNN f32 summation order); through 0.2 * c5 it
-# moves the output by up to 2**-6 + 2**-7 * |out| (tests/test_torch_rdb.py)
+# moves the output by up to 2**-6 + 2**-7 * |out| at the synthetic Valar
+# weights (measured at most 0.015625 on an NVIDIA H100 80GB HBM3)
 K5_ATOL, K5_RTOL = 2.0 ** -6, 2.0 ** -7
 VALAR_MIN_PSNR = 36.0          # mixed -m r step vs the f32 plain path, dB
 # (37.15 dB measured on an NVIDIA H100 80GB HBM3 for the 1x64x96 frame at
@@ -71,6 +88,28 @@ VALAR_MIN_PSNR = 36.0          # mixed -m r step vs the f32 plain path, dB
 # RRDBs and 36.10 dB / 138 LSB at 23, where swapping K1 or K5 alone gives
 # the same 36 dB.  23 RRDBs take the model's bf16 quality class, 34 dB.
 VALAR_PLAIN_BOUNDS = {2: (50.0, 4), 23: (34.0, 255)}
+# K6: the box sum and channel mean in another f32 order than the plain
+# version, and reciprocal scales; weights exp(-d/h^2) amplify d's ulps by
+# d/h^2 (<= ~20 where a weight still counts), so a few f32 ulps of v
+K6_ATOL, K6_RTOL = 1e-5, 1e-5
+PRELUDE = "a,n=3"              # the pre-SR path: denoise at 3, anime deblur
+ANIME_LAYERS = 10              # 3->24, 8 x 24->24 (PReLU), 24->3: one chain
+TTA_MIN_PSNR = 45.0            # --tta step vs the same step on the plain versions
+# the card's published peaks (NVIDIA's H100 SXM data sheet, dense, at
+# 700 W): HBM bytes/s and
+# operations/s per type.  The SFU's exp rate is 16 per clock per SM
+# against FP32's 256 flops, so a sixteenth of the FP32 peak.
+PEAK_HBM = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "exp": 67e12 / 16}
+
+
+def roofline(nbytes: float, ops: dict):
+    """``(ms, "bytes" | "operations")``: the least time the card could
+    take, the larger of moving ``nbytes`` through HBM and doing the
+    operations of each type at its peak (units run concurrently)."""
+    t_bytes = nbytes / PEAK_HBM
+    t_ops = max(n / PEAK_OPS[kind] for kind, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def say(phase: str, **kv) -> None:
@@ -158,6 +197,7 @@ def main() -> int:
     say("build", seconds=f"{time.perf_counter() - t0:.1f}",
         nvcc_seconds=build.last_build_seconds, library=build.library_path().name)
 
+    from upscale_video_tpu_torch.models.executor import chain_layers
     from upscale_video_tpu_torch.models.zoo import make_synthetic_model
     from upscale_video_tpu_torch.ops.conv_chain import (
         conv3x3_chain, conv3x3_chain_plain,
@@ -169,7 +209,7 @@ def main() -> int:
 
     model = make_synthetic_model(scale=2, seed=0, device=dev)
     fwd = model.frames_forward("planar")
-    layers = fwd.chain_layers(model.state)
+    layers = chain_layers(fwd.items, model.state)
     tail = model.state[fwd.tail["conv"]]
     assert len(layers) == 17, len(layers)
     rng = np.random.default_rng(0)
@@ -200,9 +240,17 @@ def main() -> int:
     k1_ms = cuda_ms(lambda: conv3x3_chain(main_x, layers, crop=False), 5)
     k1_plain_ms = cuda_ms(
         lambda: conv3x3_chain_plain(main_x, layers, crop=False), 2)
+    k1_lib_ms = cuda_ms(lambda: cudnn_stack(main_x, layers), 5)
     flop = 2 * 9 * N * H * W * sum(l.cin * l.cout for l in layers)
+    wbytes = sum(l.wmat.numel() * 2 + l.bias.numel() * 4 + l.slope.numel() * 4
+                 for l in layers)
+    k1_bound = roofline(main_x.numel() * 2 + wbytes
+                        + N * (H + 2) * (W + 2) * layers[-1].cout * 2,
+                        {"bf16": flop})
     say("K1_time", ms=f"{k1_ms:.3f}", plain_ms=f"{k1_plain_ms:.3f}",
-        tflops=f"{flop / k1_ms / 1e9:.1f}", per="17-layer stack, 4x1080p")
+        cudnn_ms=f"{k1_lib_ms:.3f}", bound_ms=f"{k1_bound[0]:.3f}",
+        bound_by=k1_bound[1], tflops=f"{flop / k1_ms / 1e9:.1f}",
+        per="17-layer stack, 4x1080p")
 
     # K2 against its plain version on the same bordered K1 output
     for layout in ("planar", "frames"):
@@ -223,7 +271,12 @@ def main() -> int:
                                           tail.bias, 2, "planar"), 10)
     k2_plain_ms = cuda_ms(lambda: sr_tail_chain_plain(
         main_buf, main_x, tail.wmat, tail.bias, 2, "planar"), 3)
+    k2_bound = roofline(main_buf.numel() * 2 + main_x.numel() * 2
+                        + tail.wmat.numel() * 2 + tail.bias.numel() * 4
+                        + N * H * W * 12,
+                        {"bf16": 2 * 9 * main_buf.shape[-1] * 12 * N * H * W})
     say("K2_time", ms=f"{k2_ms:.3f}", plain_ms=f"{k2_plain_ms:.3f}",
+        bound_ms=f"{k2_bound[0]:.3f}", bound_by=k2_bound[1],
         per="one launch, 4x1080p -> planar u8")
     del main_buf
     torch.cuda.empty_cache()
@@ -248,6 +301,108 @@ def main() -> int:
 
     del eng, ref_eng
     torch.cuda.empty_cache()
+
+    # K6 against its plain version: the main-path batch (4x1080p) and a
+    # ragged one, at the path's strength 3 and at the strongest, 30
+    from upscale_video_tpu_torch.ops.nlmeans import (
+        FLOPS_PER_PAIR, nl_means_denoise, nl_means_denoise_plain,
+    )
+
+    for (n, h, w) in ((N, H, W), (2, 37, 53)):
+        x = image_like(n, h, w, seed=n * h, device=dev)
+        for strength in (3.0, 30.0):
+            got = nl_means_denoise(x, strength)
+            want = nl_means_denoise_plain(x, strength)
+            torch.cuda.synchronize()
+            worst, differ, ok = compare(got, want, K6_ATOL, K6_RTOL)
+            ok = ok and bool(torch.isfinite(got).all())
+            say("K6", shape=f"{n}x{h}x{w}x3", h=strength, max_abs_err=worst,
+                frac_differ=f"{differ:.3e}",
+                bound=f"atol={K6_ATOL},rtol={K6_RTOL}", ok=ok)
+            if not ok:
+                raise SystemExit(f"K6 disagrees with its plain version at "
+                                 f"{n}x{h}x{w}, h={strength}")
+            errs["K6"] = max(errs.get("K6", 0.0), worst)
+            del got, want
+        if (n, h, w) == (N, H, W):
+            k6_x = x
+    k6_ms = cuda_ms(lambda: nl_means_denoise(k6_x, 3.0), 10)
+    k6_plain_ms = cuda_ms(lambda: nl_means_denoise_plain(k6_x, 3.0), 2)
+    pairs = 81 * N * H * W
+    k6_bound = roofline(2 * k6_x.numel() * 4,
+                        {"f32": FLOPS_PER_PAIR * pairs, "exp": pairs})
+    say("K6_time", ms=f"{k6_ms:.3f}", plain_ms=f"{k6_plain_ms:.3f}",
+        bound_ms=f"{k6_bound[0]:.3f}", bound_by=k6_bound[1],
+        gpairs_per_s=f"{pairs / k6_ms / 1e6:.1f}",
+        per="one launch, 4x1080p, h=3")
+    del k6_x
+    torch.cuda.empty_cache()
+
+    # K1 at the anime chain's shapes: the 10-layer nf-24 stack at 4x1080p
+    anime = make_synthetic_model(scale=1, num_conv=8, num_feat=24, seed=0,
+                                 device=dev)
+    afwd = anime.frames_forward("model")
+    (achain,) = afwd.chains.values()
+    from upscale_video_tpu_torch.models.executor import chain_layers
+
+    alayers = chain_layers(achain["items"], anime.state)
+    if len(alayers) != ANIME_LAYERS:
+        raise SystemExit(f"anime chain has {len(alayers)} layers")
+    ax = frames_to_model(torch.from_numpy(
+        rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(dev)
+    ).to(torch.bfloat16)
+    got = conv3x3_chain(ax, alayers)
+    want = conv3x3_chain_plain(ax, alayers)
+    torch.cuda.synchronize()
+    worst, differ, ok = compare(got, want, K1_ANIME_ATOL, K1_ANIME_RTOL)
+    say("K1_anime", shape=f"{N}x{H}x{W}", layers=len(alayers),
+        widths="3->24,8x24->24,24->3", max_abs_err=worst,
+        mean_abs_want=want.float().abs().mean().item(),
+        frac_differ=f"{differ:.3e}", bound="atol=2**-10,rtol=2**-7", ok=ok)
+    if not ok:
+        raise SystemExit("K1 disagrees with its plain version on the anime chain")
+    errs["K1"] = max(errs["K1"], worst)
+    del got, want
+    # each anime layer alone at the same shape, unit-scale inputs
+    for i, layer in enumerate(alayers):
+        x = torch.randn((N, H, W, layer.cin), generator=torch.Generator(
+            device=dev).manual_seed(i), device=dev).to(torch.bfloat16)
+        got = conv3x3_chain(x, [layer])
+        want = conv3x3_chain_plain(x, [layer])
+        worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+        say("K1_anime_layer", layer=i, cin=layer.cin, cout=layer.cout,
+            act=layer.act, max_abs_err=worst,
+            mean_abs_want=want.float().abs().mean().item(),
+            frac_differ=f"{differ:.3e}", bound="atol=2**-10,rtol=2**-7", ok=ok)
+        if not ok:
+            raise SystemExit(f"K1 disagrees with its plain version at anime "
+                             f"layer {i}")
+        errs["K1"] = max(errs["K1"], worst)
+        del x, got, want
+    a_ms = cuda_ms(lambda: conv3x3_chain(ax, alayers), 5)
+    a_plain_ms = cuda_ms(lambda: conv3x3_chain_plain(ax, alayers), 2)
+    a_flop = 2 * 9 * N * H * W * sum(l.cin * l.cout for l in alayers)
+    say("K1_anime_time", ms=f"{a_ms:.3f}", plain_ms=f"{a_plain_ms:.3f}",
+        tflops=f"{a_flop / a_ms / 1e9:.1f}", per="10-layer nf-24 chain, 4x1080p")
+    del ax, anime
+    torch.cuda.empty_cache()
+
+    # the a,n=3 step is right: bf16 on the card vs the f32 plain path
+    peng = ChainEngine.build(ChainSpec.parse(PRELUDE), 2, dev, synthetic=True)
+    pref = ChainEngine.build(ChainSpec.parse(PRELUDE), 2, "cpu",
+                             compute_dtype=torch.float32, synthetic=True)
+    small = torch.from_numpy(np.stack(
+        [write_frame(64, 96, t, rng) for t in range(2)]))
+    out = peng.planar_step(small.to(dev)).cpu().numpy()
+    ref = pref.planar_step(small).numpy()
+    quality = psnr(out, ref)
+    say("prelude_vs_f32", chain=PRELUDE, shape=out.shape,
+        psnr_db=f"{quality:.2f}",
+        max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
+        bound=f">={E2E_MIN_PSNR}dB", ok=quality >= E2E_MIN_PSNR)
+    if not quality >= E2E_MIN_PSNR:
+        raise SystemExit("the a,n=3 CUDA step disagrees with the f32 plain path")
+    del pref
 
     # K5 against its plain version: the main-path shape (the 8 tiles of one
     # 1080p frame) and a ragged one, with the first dense block's weights
@@ -286,7 +441,10 @@ def main() -> int:
     k5_ms = cuda_ms(lambda: rdb_block(k5_x, wts), 5)
     k5_plain_ms = cuda_ms(lambda: rdb_block_plain(k5_x, wts), 2)
     flop = 2 * MACS_PER_PIXEL * int(np.prod(TILES))
+    k5_bound = roofline(2 * k5_x.numel() * 2 + wts.wpack.numel() * 2
+                        + wts.bpack.numel() * 4, {"bf16": flop})
     say("K5_time", ms=f"{k5_ms:.3f}", plain_ms=f"{k5_plain_ms:.3f}",
+        bound_ms=f"{k5_bound[0]:.3f}", bound_by=k5_bound[1],
         ms_per_frame=f"{k5_ms * VALAR_BLOCKS:.1f}",
         plain_ms_per_frame=f"{k5_plain_ms * VALAR_BLOCKS:.1f}",
         tflops=f"{flop / k5_ms / 1e9:.1f}",
@@ -346,7 +504,8 @@ def main() -> int:
         return concat(self, num_batches, output_file, workdir)
 
     HermeticBackend.concat = observe_concat
-    counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K5": rdb_block}
+    counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K5": rdb_block,
+                "K6": nl_means_denoise}
     launches = dict.fromkeys(counters, 0)
     e2e = {}
 
@@ -393,7 +552,7 @@ def main() -> int:
             ok, geom, cs, count, k, frags, left, wall = drive(
                 tmp, name, c420, CLIP_FRAMES, CLIP_RATE, [])
             ok = (ok and geom == (2 * W, 2 * H) and k["K1"] == 17 * steps
-                  and k["K2"] == steps and k["K5"] == 0)
+                  and k["K2"] == steps and k["K5"] == 0 and k["K6"] == 0)
             say("e2e", path="default", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=steps, k1_launches=k["K1"],
                 k2_launches=k["K2"], k5_launches=k["K5"],
@@ -410,7 +569,8 @@ def main() -> int:
                 ["-m", "r"])
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K5"] == VALAR_BLOCKS * vsteps
-                  and k["K1"] == VALAR_CONVS * vsteps and k["K2"] == 0)
+                  and k["K1"] == VALAR_CONVS * vsteps and k["K2"] == 0
+                  and k["K6"] == 0)
             say("e2e", path="-m r", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=vsteps,
                 k5_launches=k["K5"], k1_launches=k["K1"], k2_launches=k["K2"],
@@ -418,23 +578,56 @@ def main() -> int:
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
             if not ok:
                 raise SystemExit(f"end-to-end -m r run on the {name} clip failed")
+        # -m a,n=3: per step one K6 launch over the batch, the anime
+        # chain's 10 K1 launches and Compact's 17, one K2 launch
+        for name, c420 in (("prelude_c420jpeg", True), ("prelude_c444", False)):
+            ok, geom, cs, count, k, frags, left, wall = drive(
+                tmp, name, c420, CLIP_FRAMES, CLIP_RATE, ["-m", PRELUDE])
+            ok = (ok and geom == (2 * W, 2 * H) and k["K6"] == steps
+                  and k["K1"] == (ANIME_LAYERS + 17) * steps
+                  and k["K2"] == steps and k["K5"] == 0)
+            say("e2e", path=f"-m {PRELUDE}", clip=name,
+                out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
+                steps=steps, k6_launches=k["K6"], k1_launches=k["K1"],
+                k2_launches=k["K2"], k5_launches=k["K5"],
+                fragments_before_concat=frags, workdir_after=left,
+                wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
+            if not ok:
+                raise SystemExit(f"end-to-end -m {PRELUDE} run on the {name} "
+                                 "clip failed")
     HermeticBackend.concat = concat
 
-    # device throughput at 1080p -> 4K: the default step (4 frames) and
-    # the -m r step (1 frame), each beside its plain version
-    from upscale_video_tpu_torch.ops.yuv import yuv420_from_planar
-
+    # device throughput at 1080p -> 4K: the default and a,n=3 steps (4
+    # frames), the --tta and -m r steps (1 frame), beside plain versions
     eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True)
     frames = torch.from_numpy(
         rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(dev)
     flat = torch.from_numpy(
         rng.integers(0, 256, (N, H * W * 3 // 2), dtype=np.uint8)).to(dev)
     yuv = eng.yuv_step(True, planar=True, i420_in=(H, W, True))
+    pyuv = peng.yuv_step(True, planar=True, i420_in=(H, W, True))
 
-    def plain_planar(f):
-        x = frames_to_model(f).to(torch.bfloat16)
-        buf = conv3x3_chain_plain(x, layers, crop=False)
-        return sr_tail_chain_plain(buf, x, tail.wmat, tail.bias, 2, "planar")
+    # --tta: one 1080p frame of the default step, 8 dihedral passes (K1
+    # and K2's f32 layout at 1080x1920 and 1920x1080), against the same
+    # step on the plain versions
+    teng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True, tta=True)
+    for fn in counters.values():
+        fn.launches = 0
+    out = teng.step(frames[:1])
+    torch.cuda.synchronize()
+    k = {name: fn.launches for name, fn in counters.items()}
+    out = out.cpu().numpy()
+    ref = plain_call(teng.step, frames[:1]).cpu().numpy()
+    quality = psnr(out, ref)
+    ok = (quality >= TTA_MIN_PSNR and out.shape == (1, 2 * H, 2 * W, 3)
+          and k["K1"] == 8 * 17 and k["K2"] == 8)
+    say("tta", shape=out.shape, k1_launches=k["K1"], k2_launches=k["K2"],
+        psnr_vs_plain_db=f"{quality:.2f}",
+        max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
+        bound=f">={TTA_MIN_PSNR}dB", ok=ok)
+    if not ok:
+        raise SystemExit("the --tta step disagrees with its plain step")
+    del out, ref
 
     # the 1080p -m r step (K5 and K1 at every main-path shape, the tiling)
     # against the same step on the plain versions: same rounding points,
@@ -455,7 +648,7 @@ def main() -> int:
         torch.cuda.synchronize()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         out = out.cpu().numpy()
-        ref = plain_step(engine, frames[:1]).cpu().numpy()
+        ref = plain_call(engine.step, frames[:1]).cpu().numpy()
         quality = psnr(out, ref)
         lsb = np.abs(out.astype(int) - ref.astype(int))
         ok = quality >= min_db and lsb.max() <= max_lsb
@@ -473,11 +666,15 @@ def main() -> int:
     for name, fn, reps, per in (
         ("planar_step", lambda: eng.planar_step(frames), 5, N),
         ("yuv420_step_i420_in", lambda: yuv(flat), 5, N),
-        ("plain_planar_step", lambda: plain_planar(frames), 2, N),
-        ("plain_yuv420_step", lambda: yuv420_from_planar(
-            plain_planar(frames), 2, True), 2, N),
+        ("plain_planar_step", lambda: plain_call(eng.planar_step, frames), 2, N),
+        ("plain_yuv420_step", lambda: plain_call(yuv, flat), 2, N),
+        ("prelude_planar_step", lambda: peng.planar_step(frames), 5, N),
+        ("prelude_yuv420_step_i420_in", lambda: pyuv(flat), 5, N),
+        ("plain_prelude_planar_step",
+         lambda: plain_call(peng.planar_step, frames), 1, N),
+        ("tta_step", lambda: teng.step(frames[:1]), 2, 1),
         ("valar_step", lambda: veng.step(frames[:1]), 2, 1),
-        ("plain_valar_step", lambda: plain_step(veng, frames[:1]), 1, 1),
+        ("plain_valar_step", lambda: plain_call(veng.step, frames[:1]), 1, 1),
     ):
         ms = cuda_ms(fn, reps)
         rates[name] = per * 1000.0 / ms
@@ -485,27 +682,42 @@ def main() -> int:
             frames_per_step=per, frames_per_s=f"{rates[name]:.3f}",
             card=repr(smi))
 
+    # library_ms: K1's is cuDNN's bf16 conv (F.conv2d with bias, one call
+    # per layer, channels-last) over the same 17 layers, without the
+    # PReLUs; K2, K5 and K6 have no PyTorch call computing their function
     kernels = [
         {"name": "conv3x3_chain", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/conv3x3_chain.cu",
          "replaces": "upscale_video_tpu/ops/conv_chain.py:61",
          "launches": launches["K1"], "max_abs_err": errs["K1"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": k1_lib_ms},
         {"name": "sr_tail_chain", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/sr_tail.cu",
          "replaces": "upscale_video_tpu/ops/tail_pallas.py:155",
          "launches": launches["K2"], "max_abs_err": errs["K2"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "library_ms": None},
         {"name": "rdb_block", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/rdb_block.cu",
          "replaces": "upscale_video_tpu/ops/rdb_pallas.py:253",
          "launches": launches["K5"], "max_abs_err": errs["K5"],
-         "ms": k5_ms, "plain_ms": k5_plain_ms},
+         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound[0],
+         "bound_by": k5_bound[1], "library_ms": None},
+        {"name": "nl_means", "route": "cuda",
+         "source": "upscale_video_tpu_torch/csrc/nlmeans.cu",
+         "replaces": "upscale_video_tpu/ops/nlmeans_pallas.py:54",
+         "launches": launches["K6"], "max_abs_err": errs["K6"],
+         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
+         "bound_by": k6_bound[1], "library_ms": None},
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
     if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
         raise SystemExit("jax was imported on the port's path")
+    if any(m == "upscale_video_tpu" or m.startswith("upscale_video_tpu.")
+           for m in sys.modules):
+        raise SystemExit("the JAX package was imported on the port's path")
     print(json.dumps({"kernels": kernels, "frames_per_s": rates,
                       "e2e_wall_fps": e2e}), flush=True)
     print(smi, flush=True)
@@ -515,24 +727,77 @@ def main() -> int:
     return 0
 
 
-def plain_step(engine, frames):
-    """``engine.step`` with every kernel of the graph walk swapped for its
-    plain version (K5 -> rdb_block_plain, K1 -> conv3x3_chain_plain); the
-    launch counts must not move."""
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper the engines call swapped for its plain version
+    (K1 -> conv3x3_chain_plain, K2 -> sr_tail_chain_plain, K5 ->
+    rdb_block_plain, K6 -> nl_means_denoise_plain); fails if a kernel
+    launched inside."""
     from upscale_video_tpu_torch.models import executor, ops
-    from upscale_video_tpu_torch.ops.conv_chain import conv3x3_chain_plain
-    from upscale_video_tpu_torch.ops.rdb import rdb_block, rdb_block_plain
+    from upscale_video_tpu_torch.ops import conv_chain, nlmeans, rdb, tail
+    from upscale_video_tpu_torch.pipeline import chain
 
-    saved = executor.rdb_block, ops.conv3x3_chain
-    before = rdb_block.launches
-    executor.rdb_block, ops.conv3x3_chain = rdb_block_plain, conv3x3_chain_plain
+    swaps = [(executor, "conv3x3_chain", conv_chain.conv3x3_chain_plain),
+             (ops, "conv3x3_chain", conv_chain.conv3x3_chain_plain),
+             (executor, "sr_tail_chain", tail.sr_tail_chain_plain),
+             (executor, "rdb_block", rdb.rdb_block_plain),
+             (chain, "nl_means_denoise", nlmeans.nl_means_denoise_plain)]
+    wrappers = (conv_chain.conv3x3_chain, tail.sr_tail_chain, rdb.rdb_block,
+                nlmeans.nl_means_denoise)
+    before = [w.launches for w in wrappers]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
     try:
-        out = engine.step(frames)
+        yield
     finally:
-        executor.rdb_block, ops.conv3x3_chain = saved
-    if rdb_block.launches != before:
-        raise SystemExit("the plain step launched K5")
-    return out
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    if [w.launches for w in wrappers] != before:
+        raise SystemExit("a plain step launched a kernel")
+
+
+def plain_call(fn, *args):
+    """``fn(*args)`` with every kernel swapped for its plain version."""
+    with plain_kernels():
+        return fn(*args)
+
+
+def cudnn_stack(x, layers):
+    """The library yardstick for K1: each layer one cuDNN bf16 conv
+    (``F.conv2d`` with bias, channels-last), no activation."""
+    import torch
+    import torch.nn.functional as F
+
+    from upscale_video_tpu_torch.ops.conv_chain import oihw
+
+    y = x.permute(0, 3, 1, 2)
+    for l in layers:
+        w = oihw(l.wmat).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        y = F.conv2d(y, w, l.bias.to(torch.bfloat16), padding=1)
+    return y
+
+
+def image_like(n, h, w, seed, device):
+    """Model-domain f32 frames of a smooth gradient plus noise, on the
+    card: NL-means finds similar patches, so its weights are far from 0."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    yy = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    base = (0.5 + 0.3 * torch.sin(xx / 37.0 + yy / 53.0))[None, ..., None]
+    noise = torch.randn((n, h, w, 3), generator=g, device=device) * 0.03
+    return torch.clamp(base + noise, 0.0, 1.0).contiguous()
+
+
+def write_frame(h, w, t, rng):
+    """One small uint8 RGB frame like write_clip's: gradients plus noise."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = 128 + 60 * np.sin(xx / (9 + t) + yy / 13)
+    rgb = np.stack([base, base[::-1], 255 - base], -1)
+    return np.clip(rgb + rng.normal(0, 12, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
 if __name__ == "__main__":

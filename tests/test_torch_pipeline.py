@@ -117,11 +117,13 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-m", "n=3"], ["-m", "a"], ["--tta"], ["--tile_size", "480"],
+    ["-m", "n=3", "--data_plane", "png"], ["-m", "a,sr=x_Foo"],
+    ["--tta", "--tile_size", "480"], ["--tile_size", "480"],
     ["--conv_impl", "pallas"], ["-g", "0,1"], ["--parallel", "sp"],
     ["--trace_dir", "tr"], ["--data_plane", "png"], ["-x"],
     ["--precision", "mixed"], ["--precision", "f32", "--device", "cuda"],
-    ["-m", "r,a"], ["-m", "sr=x_Foo"], ["-m", "r", "--tta"],
+    ["-m", "r,a", "--conv_impl", "xla"], ["-m", "sr=x_Foo"],
+    ["-m", "a,n=3", "--precision", "mixed"],
     ["-m", "r", "--conv_impl", "xla"], ["--conv_impl", "rdb"],
     ["-m", "r", "--precision", "f32", "--device", "cuda"],
 ])

@@ -2,16 +2,21 @@
 
 - ``rdb_block_plain`` against the JAX fused RDB kernel (``rdb_apply`` and
   ``rdb_apply_canvas`` with the Valar hooks, Pallas in interpret mode) on
-  the same numpy-seeded inputs and weights.  Tolerance: ``2**-6 +
-  2**-7 * |want|``, on under 20% of the elements.  Both round each
-  per-source piece to bf16 after an f32 sum whose order differs (XLA's dot
-  vs ``F.conv2d``), so a piece on a rounding boundary may land one bf16
-  ulp away.  Pieces reach |4| here (ulp ``2**-6``); through ``0.2 * c5``
-  that moves the output by up to a fifth of it, which can flip the
-  output's own rounding by one of its ulps (``2**-7 * |want|``).  A flip
+  the same numpy-seeded inputs and weights.  Both round each per-source
+  piece to bf16 after an f32 sum whose order differs (XLA's dot vs
+  ``F.conv2d``, whose order also differs from host to host), so a piece on
+  a rounding boundary may land one bf16 ulp away.  The bound follows that
+  flip through the block.  Pieces reach |32| (31.6 for c4 into c5 at
+  32x40), where one ulp is ``2**-3``.  A flipped piece of c5 moves c5 by
+  ``2**-3``; a flipped piece of c1..c4 moves that stage's rounded value,
+  which feeds c5 through weights below 1 and may tip one more c5 piece
+  over a rounding boundary: at most two c5 ulps, ``2 * 2**-3``.  Through
+  ``0.2 * c5`` that is ``0.05``, and the output's own rounding can add one
+  of its ulps (``2**-7 * |want|``): ``0.05 + 2**-7 * |want|``.  A flip
   spreads through the later stages, so the share of differing elements
   (0.1-9% observed) is far larger than the share of flipped pieces; a
-  wrong rounding point (one f32 sum over all sources) moves most of them.
+  wrong rounding point (one f32 sum over all sources) moves most of them
+  (65% at 32x40), and the share cap of 20% catches it.
 - ``_plan_rdb_blocks`` against the JAX planner on the synthetic graphs,
   with ncnn Split bookkeeping inserted, with an interior blob leaked to an
   outside consumer, and with convs of the wrong geometry.
@@ -55,7 +60,7 @@ def _assert_piece_ulp(got, want):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape
     d = np.abs(got - want)
-    assert (d <= 2.0 ** -6 + 2.0 ** -7 * np.abs(want)).all(), d.max()
+    assert (d <= 0.2 * 2 * 2.0 ** -3 + 2.0 ** -7 * np.abs(want)).all(), d.max()
     assert (d > 0).mean() < 0.2
 
 

@@ -277,7 +277,7 @@ def test_engine_build_defaults_for_m_r():
     assert eng.planar_scale is None
     assert len(eng.sr_model.frames_forward("model").rdb_triggers) == 69
     with pytest.raises(NotImplementedError):
-        ChainEngine.build(ChainSpec.parse("a,r"), 2, "cpu", synthetic=True)
+        ChainEngine.build(ChainSpec.parse("a,sr=x_Foo"), 2, "cpu", synthetic=True)
     with pytest.raises(NotImplementedError, match="mixed"):
         ChainEngine.build(ChainSpec(), 2, "cpu", synthetic=True,
                           residual_dtype=torch.float32)

@@ -1,16 +1,16 @@
 """``upscale-video-torch``: the full-pipeline CLI on the PyTorch/CUDA port.
 
-Same flags as ``upscale-video`` (the argparse option groups are the JAX
-package's jax-free ``upscale_video_tpu.cli.common``), plus ``--device``.
-Flags outside the ported slice raise ``NotImplementedError`` instead of
-silently doing something else.
+Same flags as ``upscale-video`` (the argparse option groups are
+:mod:`upscale_video_tpu_torch.cli.common`, a copy of the JAX package's),
+plus ``--device``.  Flags outside the ported slice raise
+``NotImplementedError`` instead of silently doing something else.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from upscale_video_tpu.cli.common import (
+from upscale_video_tpu_torch.cli.common import (
     add_compute_args,
     add_io_args,
     add_logging_args,
@@ -70,20 +70,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_slice(args) -> None:
     """Raise ``NotImplementedError`` for every flag outside the port: the
-    default chain and ``-m r`` are ported, with ``--tile_size`` for ``-m r``
-    only, ``--precision mixed`` for ``-m r`` only, f32 on the CPU only, and
-    ``--conv_impl auto`` (or ``rdb``, what auto is for ``-m r``)."""
+    ``-m`` chains of ``a``, ``n=K`` and ``r`` (not ``sr=``) at scales 1, 2
+    and 4, with or without ``--tta``; ``--tile_size`` and ``--precision
+    mixed`` for ``-m r`` only; f32 on the CPU only; ``--conv_impl auto``
+    (or ``rdb``, what auto is for ``-m r``)."""
     bad = []
     real_life = False
     try:
         spec = ChainSpec.parse(args.models)
         real_life = spec.real_life
-        if spec.anime or spec.denoise or spec.sr_file:
+        if spec.sr_file:
             bad.append(f"-m {args.models}")
     except ValueError:
         bad.append(f"-m {args.models}")
-    if args.tta:
-        bad.append("--tta")
     if args.tile_size not in (None, 0) and not real_life:
         bad.append(f"--tile_size {args.tile_size} without -m r")
     on_cpu = str(args.device).startswith("cpu")
@@ -140,6 +139,7 @@ def main(argv=None) -> int:
         copy_audio=args.copy_audio,
         pipe_pix=args.pipe_pix,
         device=args.device,
+        tta=args.tta,
     )
     return 0
 

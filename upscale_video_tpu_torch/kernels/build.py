@@ -31,7 +31,7 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("conv3x3_chain.cu", "sr_tail.cu", "rdb_block.cu")
+SOURCES = ("conv3x3_chain.cu", "sr_tail.cu", "rdb_block.cu", "nlmeans.cu")
 HEADERS = ("conv3x3_core.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +47,8 @@ _SIGNATURES = {
     "uvt_sr_tail": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # x, out, wpack, bpack, n, h, w, slope, stream
     "uvt_rdb_block": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
+    # x, out, n, h, w, inv_h2, two_s2, stream
+    "uvt_nl_means": ([_P] * 2 + [_I] * 3 + [ctypes.c_float] * 2 + [_P], _I),
     "uvt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,5 +1,6 @@
-"""Graph planners + forward modules: the SRVGG (Compact) family and the
-RRDBNet (Valar) family.
+"""Graph planners + forward modules: the SRVGG (Compact) family with its
+shuffle tail, and the graph walk for everything else (the RRDBNet / Valar
+family, and the 1x SRVGG anime deblur model).
 
 SRVGG: port of the parts of ``upscale_video_tpu/models/executor.py`` that
 the Compact graph reaches with ``--conv_impl pallas``: ``_match_srvgg_tail``
@@ -11,14 +12,19 @@ and the tail one fused tail launch (kernel K2,
 :mod:`upscale_video_tpu_torch.ops.tail`).  The JAX planner's TPU lane gate
 (``_pallas_fusable``'s ``cin >= 32``, executor.py:723-730) is not copied.
 
-RRDBNet: port of ``_plan_rdb_blocks`` (:539-702, with ``_dense_conv_class``
-:383) and of ``build_forward``'s graph walk (:1001-1570) for the generic
-ops in :mod:`upscale_video_tpu_torch.models.ops`: every matched dense
-block is one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`), every
-other layer one op, blobs are freed at their last use, and ``mixed``
-keeps the residual spine (Eltwise/BinaryOp) in f32.
+Graph walk: port of ``_plan_rdb_blocks`` (:539-702, with
+``_dense_conv_class`` :383), of the bordered-chain assembly
+(``_assemble_chains`` :814) and of ``build_forward``'s graph walk
+(:1001-1570) for the generic ops in
+:mod:`upscale_video_tpu_torch.models.ops`: every matched dense block is
+one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`), every run of two or
+more linearly linked SAME 3x3 convs one K1 chain, every other layer one
+op; blobs are freed at their last use, and ``mixed`` keeps the residual
+spine (Eltwise/BinaryOp) in f32.  A 1x SRVGG graph (``PixelShuffle(1)``,
+``Interp(1)``: no tail for K2) is one K1 chain plus three generic ops.
 
-Any other graph raises ``NotImplementedError``; nothing falls back.
+A layer type outside the op set raises ``NotImplementedError``; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -214,6 +220,72 @@ def _act_code(item: dict) -> int:
     return ACT_NONE
 
 
+def chain_layers(items: List[dict], state) -> List[ChainLayer]:
+    """A planned conv chain's items (``{"name", "prelu", "act",
+    "slope_attr"}``) -> K1's layers from the model state: PReLU slopes from
+    the PReLU layer's weights, a fused leaky slope from the graph."""
+    layers = []
+    for it in items:
+        lw = state[it["name"]]
+        cout = lw.wmat.shape[1]
+        act = _act_code(it)
+        if act == ACT_PRELU:
+            slope = state[it["prelu"]].slope
+        else:
+            value = float(it["slope_attr"][0]) if act == ACT_LEAKY else 0.0
+            slope = torch.full((cout,), value, dtype=torch.float32,
+                               device=lw.wmat.device)
+        layers.append(ChainLayer(lw.wmat, lw.bias, slope, act))
+    return layers
+
+
+def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
+                 exclude=frozenset()):
+    """Maximal runs of two or more linearly linked chain-eligible convs,
+    each conv with no fused activation absorbing a PReLU that alone
+    consumes it (``_plan_pallas_fusion`` + ``_assemble_chains``,
+    executor.py:757-864, without the solo-conv plans).  Returns ``({first
+    conv name: {"items", "out"}}, absorbed layer names)``; ``exclude``
+    holds convs another plan claims."""
+    links = {}  # conv name -> (chain item, blob the item ends in)
+    for layer in graph.layers:
+        if (layer.type != "Convolution" or layer.name in exclude
+                or not _chain_eligible(layer)):
+            continue
+        item = {"name": layer.name, "prelu": None, "act": layer.attr_i(9, 0),
+                "slope_attr": layer.attr(10, [0.0])}
+        out = layer.outputs[0]
+        cons = consumers.get(out, [])
+        if item["act"] == 0 and len(cons) == 1 \
+                and graph.layers[cons[0]].type == "PReLU":
+            item["prelu"] = graph.layers[cons[0]].name
+            out = graph.layers[cons[0]].outputs[0]
+        links[layer.name] = (item, out)
+    chains: Dict[str, dict] = {}
+    absorbed: set = set()
+    used: set = set()
+    for layer in graph.layers:
+        if layer.name not in links or layer.name in used:
+            continue
+        seq = [layer.name]
+        while True:
+            cons = consumers.get(links[seq[-1]][1], [])
+            if len(cons) != 1:
+                break
+            nxt = graph.layers[cons[0]].name
+            if nxt not in links or nxt in used or nxt in seq:
+                break
+            seq.append(nxt)
+        if len(seq) < 2:
+            continue
+        items = [links[n][0] for n in seq]
+        chains[seq[0]] = {"items": items, "out": links[seq[-1]][1]}
+        used.update(seq)
+        absorbed.update(seq[1:])
+        absorbed.update(it["prelu"] for it in items if it["prelu"])
+    return chains, absorbed
+
+
 class SRVGGForward(nn.Module):
     """Stateless forward of a planned SRVGG graph: ``fwd(state, x)`` runs
     K1 over the whole body then K2 once.
@@ -238,28 +310,6 @@ class SRVGGForward(nn.Module):
         self.compute_dtype = compute_dtype
         self.emit = emit
         self.device = torch.device(device)
-        # fused leaky slopes come from the graph, not the weights
-        self._leaky = {
-            it["name"]: float(it["slope_attr"][0]) for it in self.items
-            if it["prelu"] is None and it["act"] == 2
-        }
-
-    def chain_layers(self, state) -> List[ChainLayer]:
-        layers = []
-        for it in self.items:
-            lw = state[it["name"]]
-            cout = lw.wmat.shape[1]
-            act = _act_code(it)
-            if act == ACT_PRELU:
-                slope = state[it["prelu"]].slope
-            elif act == ACT_LEAKY:
-                slope = torch.full((cout,), self._leaky[it["name"]],
-                                   dtype=torch.float32, device=lw.wmat.device)
-            else:
-                slope = torch.zeros((cout,), dtype=torch.float32,
-                                    device=lw.wmat.device)
-            layers.append(ChainLayer(lw.wmat, lw.bias, slope, act))
-        return layers
 
     def forward(self, state, x: torch.Tensor) -> torch.Tensor:
         squeeze = x.ndim == 3
@@ -268,7 +318,7 @@ class SRVGGForward(nn.Module):
         # the skip reads the input rounded to the compute dtype, as the
         # JAX executor's blobs[input] = x.astype(compute_dtype)
         x = x.to(device=self.device, dtype=self.compute_dtype).contiguous()
-        buf = conv3x3_chain(x, self.chain_layers(state), crop=False)
+        buf = conv3x3_chain(x, chain_layers(self.items, state), crop=False)
         tw = state[self.tail["conv"]]
         y = sr_tail_chain(buf, x, tw.wmat, tw.bias, self.scale, self.emit)
         return y[0] if squeeze else y
@@ -442,9 +492,15 @@ def _plan_rdb_blocks(graph: NcnnGraph, consumers: Dict[str, List[int]]):
 
 
 class GraphForward(nn.Module):
-    """Stateless forward of an RRDBNet (Valar) graph: ``fwd(state, x)``
+    """Stateless forward of a graph without the SRVGG shuffle tail (the
+    RRDBNet / Valar family, the 1x SRVGG anime model): ``fwd(state, x)``
     walks the layers in order, as the JAX ``build_forward`` does.
 
+    - Every run of two or more linearly linked SAME 3x3 convs (with their
+      PReLUs) is one K1 chain over the run's input cast to the compute
+      dtype (:func:`_plan_chains`; on the CPU K1's plain version, in the
+      compute dtype).  The 1x anime model's whole conv stack is one chain;
+      its ``PixelShuffle(1)``, ``Interp(1)`` and skip add run as generic ops.
     - Under a bf16 compute dtype every matched dense block is one K5
       launch on the block's input cast to bf16; its output comes back in
       bf16.  Its packed weights live in ``state`` under the trigger's name,
@@ -480,8 +536,8 @@ class GraphForward(nn.Module):
                 f"{graph.input_blobs} / {graph.output_blobs}")
         consumers = _consumers(graph)
         blocks, absorbed = _plan_rdb_blocks(graph, consumers)
-        if not blocks:
-            raise NotImplementedError("graph has no Valar dense block")
+        self.chains, self.chain_absorbed = _plan_chains(graph, consumers,
+                                                        absorbed)
         self.graph = graph
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
@@ -543,7 +599,15 @@ class GraphForward(nn.Module):
                     RDBWeights(pw.wpack, pw.bpack, block["slope"]))
                 free(i, layer)
                 continue
-            if layer.name in self.rdb_absorbed:
+            chain = self.chains.get(layer.name)
+            if chain is not None:
+                blobs[chain["out"]] = conv3x3_chain(
+                    blobs[layer.inputs[0]].to(cd).contiguous(),
+                    chain_layers(chain["items"], state))
+                free(i, layer)
+                continue
+            if layer.name in self.rdb_absorbed or \
+                    layer.name in self.chain_absorbed:
                 free(i, layer)
                 continue
             ins = [blobs[b] for b in layer.inputs]
@@ -567,25 +631,28 @@ class GraphForward(nn.Module):
 def build_forward(graph: NcnnGraph, device: "torch.device | str",
                   compute_dtype: torch.dtype = torch.bfloat16,
                   emit: str = "model", residual_dtype=None):
-    """Plan ``graph`` and return its forward module: an SRVGG graph gets
-    :class:`SRVGGForward` (K1 then K2), a graph with Valar dense blocks
-    :class:`GraphForward` (K5 per block); anything else raises.
+    """Plan ``graph`` and return its forward module: a graph ending in the
+    SRVGG shuffle tail gets :class:`SRVGGForward` (K1 then K2), any other
+    :class:`GraphForward` (K5 per Valar dense block, K1 per conv chain,
+    generic ops between); a layer type outside the op set raises.
 
     ``compute_dtype`` bf16 runs the kernels on CUDA (held to the JAX
     Pallas path); float32 is accepted only on the CPU, where the plain
     versions and generic ops run (held to the JAX XLA f32 path).
     ``residual_dtype=torch.float32`` is ``--precision mixed`` and applies
-    to :class:`GraphForward` only."""
+    to :class:`GraphForward` only: its Eltwise/BinaryOp adds run in f32
+    (the JAX package gives the 1x anime model the same residual dtype
+    under ``-m a,r``, chain.py:248)."""
     device = torch.device(device)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {compute_dtype}")
     if device.type == "cuda" and compute_dtype != torch.bfloat16:
         raise NotImplementedError(
             "the CUDA kernels compute in bf16; float32 runs on the CPU only")
-    if probe_srvgg_tail(graph) is not None or not any(
-            l.type == "Concat" for l in graph.layers):
+    if probe_srvgg_tail(graph) is not None:
         if residual_dtype is not None:
             raise NotImplementedError(
-                "--precision mixed is ported for the RRDBNet (-m r) only")
+                "--precision mixed is ported for graphs without the "
+                "SRVGG shuffle tail only (-m r and its pre-SR stages)")
         return SRVGGForward(plan_srvgg(graph), device, compute_dtype, emit)
     return GraphForward(graph, device, compute_dtype, residual_dtype, emit)

@@ -1,6 +1,8 @@
-"""The generic ncnn op set the Valar graph needs outside its dense blocks.
+"""The generic ncnn op set the graph walk runs outside its kernels' plans
+(the Valar graph outside its dense blocks; the 1x anime model's shuffle,
+resize and skip add).
 
-Port of ``upscale_video_tpu/models/executor.py:42-104, 180-267``: each op
+Port of ``upscale_video_tpu/models/executor.py:42-104, 151-267``: each op
 takes ``(layer, inputs, p, compute_dtype)`` as its JAX counterpart does,
 with NHWC tensors, and ``p`` is the layer's weight module from
 :func:`upscale_video_tpu_torch.models.zoo.params_from_jax` (``wmat`` in
@@ -94,6 +96,30 @@ def op_convolution(layer: NcnnLayer, inputs, p, compute_dtype):
     return y.to(compute_dtype)
 
 
+def op_prelu(layer: NcnnLayer, inputs, p, compute_dtype):
+    """Per-channel PReLU in the input's dtype (``_op_prelu``, executor.py:151)."""
+    (x,) = inputs
+    slope = p.slope.to(x.dtype)
+    return torch.where(x >= 0, x, x * slope)
+
+
+def op_pixelshuffle(layer: NcnnLayer, inputs, p, compute_dtype):
+    """ncnn PixelShuffle (attr 0 factor r, attr 1 mode) over NHWC: mode 0
+    takes channel ``c*r*r + i*r + j`` to pixel ``(y*r + i, x*r + j)``,
+    mode 1 channel ``(i*r + j)*c_out + c`` (``_op_pixelshuffle``, :157)."""
+    (x,) = inputs
+    r = layer.attr_i(0, 1)
+    if r == 1:
+        return x
+    n, h, w, c_in = x.shape
+    c_out = c_in // (r * r)
+    if layer.attr_i(1, 0) == 0:
+        x = x.reshape(n, h, w, c_out, r, r).permute(0, 1, 4, 2, 5, 3)
+    else:
+        x = x.reshape(n, h, w, r, r, c_out).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * r, w * r, c_out)
+
+
 def op_interp(layer: NcnnLayer, inputs, p, compute_dtype):
     """Nearest ncnn Interp: integer scales as a repeat, else the floor map
     ``src = (dst * h) // out_h`` (``_op_interp``, executor.py:180)."""
@@ -164,6 +190,8 @@ OP_REGISTRY: Dict[str, Callable] = {
     "Split": op_split,
     "Noop": op_identity,
     "Convolution": op_convolution,
+    "PReLU": op_prelu,
+    "PixelShuffle": op_pixelshuffle,
     "Interp": op_interp,
     "BinaryOp": op_binaryop,
     "Eltwise": op_eltwise,

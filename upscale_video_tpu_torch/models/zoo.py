@@ -87,9 +87,11 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
 
 
 class Model(nn.Module):
-    """A loaded model on one device: an SRVGG (K1 + K2) or an RRDBNet
-    (K5 per dense block).  ``residual_dtype=torch.float32`` is
-    ``--precision mixed`` (RRDBNet only)."""
+    """A loaded model on one device: an SRVGG with its shuffle tail (K1 +
+    K2), a 1x SRVGG (one K1 chain + generic ops) or an RRDBNet (K5 per
+    dense block).  ``residual_dtype=torch.float32`` is ``--precision
+    mixed``: the graph walk's residual adds run in f32 (not the SRVGG
+    tail's)."""
 
     def __init__(self, name: str, scale: int, graph: NcnnGraph,
                  params: Dict[str, Dict[str, np.ndarray]],
@@ -132,7 +134,7 @@ def load_model(model_file: str, scale: int, device: "torch.device | str",
                residual_dtype: Optional[torch.dtype] = None) -> Model:
     """Load ``{scale}{model_file}.param/.bin`` from a model directory;
     ``model_file`` is a role of :data:`MODEL_FILES` (``"compact"``,
-    ``"valar"``) or a raw stem suffix."""
+    ``"valar"``, ``"anime"`` at scale 1) or a raw stem suffix."""
     stem_suffix = MODEL_FILES.get(model_file, model_file)
     base = resolve_model_path(model_path)
     if base is None:
@@ -202,13 +204,16 @@ def make_synthetic_model(
     seed: int = 0,
     device: "torch.device | str" = "cpu",
     compute_dtype: torch.dtype = torch.bfloat16,
+    residual_dtype: Optional[torch.dtype] = None,
 ) -> Model:
     """A Compact-architecture model with random weights (the JAX
-    ``make_synthetic_model``'s graph and, byte for byte, its weights)."""
+    ``make_synthetic_model``'s graph and, byte for byte, its weights).
+    ``scale=1, num_conv=8, num_feat=24`` stands in for the anime deblur
+    model (the JAX chain's synthetic ``a`` stage, chain.py:241)."""
     graph = make_srvgg_graph(scale=scale, num_conv=num_conv, num_feat=num_feat)
     params = synthesize_weights(graph, seed=seed)
     return Model(f"synthetic_{scale}x_compact", scale, graph, params, device,
-                 compute_dtype)
+                 compute_dtype, residual_dtype)
 
 
 def make_rrdb_graph(

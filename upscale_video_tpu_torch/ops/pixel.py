@@ -48,7 +48,7 @@ def planar_to_frames(p: np.ndarray, s: int,
     ``p`` is uint8 ``(H, W, 3*s*s)`` (or batched ``(N, H, W, 3*s*s)``) in
     ``(i, j, c)`` plane order — what the tail kernel's ``planar`` layout
     writes.  Returns ``(H*s, W*s, c)``.  Uses the repo's native threaded
-    interleave (``upscale_video_tpu.native.imgproc``, jax-free) where it
+    interleave (:mod:`upscale_video_tpu_torch.native.imgproc`) where it
     builds, else one numpy transpose-copy.
     """
     p = np.asarray(p)
@@ -63,7 +63,7 @@ def planar_to_frames(p: np.ndarray, s: int,
         raise ValueError(f"{c} planes not divisible by s*s for s={s}")
     co = c // (s * s)
     if p.dtype == np.uint8 and s > 1:
-        from upscale_video_tpu.native.imgproc import (
+        from upscale_video_tpu_torch.native.imgproc import (
             native_available, planar_interleave,
         )
 

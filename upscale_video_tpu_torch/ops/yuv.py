@@ -92,7 +92,7 @@ def packed_to_i420(packed: np.ndarray, s: int,
                    out: Optional[np.ndarray] = None) -> np.ndarray:
     """Host side: one packed frame ``(H, W, s*s + 2*(s//2)**2)`` ->
     contiguous I420 bytes ``(H*s*W*s*3//2,)`` (Y plane, Cb, Cr)."""
-    from upscale_video_tpu.native.imgproc import (
+    from upscale_video_tpu_torch.native.imgproc import (
         native_available, planar_interleave_view,
     )
 

@@ -1,15 +1,21 @@
 """Model-chain engine over the port's kernels, and the batched stepper.
 
 Port of ``upscale_video_tpu/pipeline/chain.py:35-162, 166-522, 747-822``,
-restricted to the chains the port covers, on one device:
+restricted to the chains the port covers, on one device.  A step is
+uint8 frames -> model domain -> the pre-SR stages -> the SR stage -> the
+contract's uint8 layout (-> optional 4:2:0 pack):
 
-- the empty ``-m`` chain (the 2x — or 4x — SRVGG Compact model),
-  whole-frame: uint8 frames -> model domain -> K1 (the 17-layer body for
-  2x Compact) -> K2 (the fused tail, emitting the step's output layout)
-  -> optional 4:2:0 pack;
-- ``-m r`` (the 4x Valar RRDBNet), tiled: uint8 frames -> model domain ->
-  haloed tiles -> the graph walk (K5 per dense block, K1 per other 3x3
-  conv) -> scaled-halo crop -> u8 frames -> optional 4:2:0 pack.
+- pre-SR stages (``_prelude``, in the JAX order): ``n=K``, NL-means at
+  strength K over the frame batch (one K6 launch), then ``a``, the 1x
+  SRVGG anime deblur model (one K1 chain + its skip add);
+- SR, the empty chain's 2x (or 4x) SRVGG Compact model, whole-frame: K1
+  (the 17-layer body for 2x Compact) -> K2 (the fused tail, emitting the
+  step's output layout);
+- SR, ``-m r``'s 4x Valar RRDBNet, tiled: haloed tiles -> the graph walk
+  (K5 per dense block, K1 per other 3x3 conv) -> scaled-halo crop;
+- ``--tta`` averages the SR stage's model-domain output over the 8
+  dihedral transforms (K2's f32 layout for Compact);
+- scale 1 has no SR stage: the pre-SR stages' output is quantized.
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ import torch
 from upscale_video_tpu_torch.models.zoo import (
     Model, load_model, make_synthetic_model, make_synthetic_rrdb_model,
 )
+from upscale_video_tpu_torch.ops.nlmeans import nl_means_denoise
 from upscale_video_tpu_torch.ops.pixel import frames_to_model, model_to_frames
 from upscale_video_tpu_torch.ops.tiling import fit_tile_grid, tiled_apply
+from upscale_video_tpu_torch.ops.tta import tta_apply
 from upscale_video_tpu_torch.ops.yuv import (
     i420_to_model, yuv420_from_frames, yuv420_from_planar,
 )
@@ -138,20 +146,24 @@ def parse_chips(chips: Optional[str]) -> Tuple[List[int], int]:
 
 @dataclass
 class ChainEngine:
-    """Executes the SR chain on batches of uint8 frames on one device.
+    """Executes the model chain on batches of uint8 frames on one device.
 
     Step callables take and return device tensors: uint8 ``(N, H, W, 3)``
     frames (or flat I420 ``(N, h*w*3//2)`` under ``i420_in``) in, the
-    contract's uint8 layout out.  ``tile`` is 0 (whole frame), a budget
-    (:func:`~upscale_video_tpu_torch.ops.tiling.fit_tile_grid`) or an
-    exact ``(th, tw)`` pair; ``halo`` is the tiles' context border."""
+    contract's uint8 layout out.  ``sr_model`` is None at scale 1;
+    ``anime_model`` is the ``a`` stage or None.  ``tile`` is 0 (whole
+    frame), a budget (:func:`~upscale_video_tpu_torch.ops.tiling.fit_tile_grid`)
+    or an exact ``(th, tw)`` pair; ``halo`` is the tiles' context border;
+    ``tta`` averages the SR stage over the 8 dihedral transforms."""
 
     spec: ChainSpec
     scale: int
-    sr_model: Model
+    sr_model: Optional[Model]
     device: torch.device
+    anime_model: Optional[Model] = None
     tile: "int | tuple" = 0
     halo: int = 16
+    tta: bool = False
     channel_order: str = "bgr"
     _yuv_steps: dict = field(default=None, repr=False)
 
@@ -162,20 +174,22 @@ class ChainEngine:
               synthetic: bool = False,
               residual_dtype: Optional[torch.dtype] = None,
               tile: "int | tuple | None" = None,
-              halo: int = 16) -> "ChainEngine":
-        """Load the chain's SR model on ``device``: the stock Compact role
-        for the empty chain, the Valar role for ``-m r`` (forcing 4x), or
-        with ``synthetic`` a random-weight stand-in of the same
-        architecture (for ``-m r`` the 23-RRDB ``make_rrdb_graph``).
-        ``tile=None`` takes the family's default (:func:`default_tile`)."""
-        if spec.anime or spec.denoise or spec.sr_file:
+              halo: int = 16, tta: bool = False) -> "ChainEngine":
+        """Load the chain's models on ``device``: the anime role (scale 1)
+        for ``a``; for the SR stage (none at scale 1) the stock Compact
+        role, or the Valar role for ``-m r`` (forcing 4x).  ``synthetic``
+        takes random-weight stand-ins of the same architectures (for ``a``
+        the JAX chain's ``make_synthetic_model(scale=1, num_conv=8,
+        num_feat=24)``, for ``-m r`` the 23-RRDB ``make_rrdb_graph``).
+        ``tile=None`` takes the family's default (:func:`default_tile`).
+        ``residual_dtype`` (``mixed``) reaches the anime model too, as in
+        the JAX chain (chain.py:248)."""
+        if spec.sr_file:
             raise NotImplementedError(
-                f"-m chain {spec.stage_names()} is not ported yet (the "
-                "Compact SR chain and -m r only)")
+                f"-m chain {spec.stage_names()} is not ported yet (sr= "
+                "imports need the generic op registry)")
         device = torch.device(device)
         scale = spec.effective_scale(scale)
-        if scale == 1:
-            raise NotImplementedError("scale 1 (no SR stage) is not ported yet")
         if tile is None:
             tile = default_tile(spec)
         if tile and not spec.real_life:
@@ -184,7 +198,18 @@ class ChainEngine:
         if residual_dtype is not None and not spec.real_life:
             raise NotImplementedError(
                 "--precision mixed is ported for -m r only")
-        if spec.real_life:
+        anime = None
+        if spec.anime:
+            anime = (make_synthetic_model(
+                        scale=1, num_conv=8, num_feat=24, device=device,
+                        compute_dtype=compute_dtype,
+                        residual_dtype=residual_dtype)
+                     if synthetic else
+                     load_model("anime", 1, device, model_path,
+                                compute_dtype, residual_dtype))
+            anime.frames_forward("model")  # plan now
+        model = None
+        if scale > 1 and spec.real_life:
             model = (make_synthetic_rrdb_model(
                         scale=scale, num_rrdb=23, device=device,
                         compute_dtype=compute_dtype,
@@ -193,7 +218,7 @@ class ChainEngine:
                      load_model("valar", scale, device, model_path,
                                 compute_dtype, residual_dtype))
             model.frames_forward("model")  # plan now
-        else:
+        elif scale > 1:
             model = (make_synthetic_model(scale=scale, device=device,
                                           compute_dtype=compute_dtype)
                      if synthetic else
@@ -202,10 +227,25 @@ class ChainEngine:
             # plan now: an unsupported graph raises before any frame is read
             model.frames_forward("planar")
         return cls(spec=spec, scale=scale, sr_model=model, device=device,
-                   tile=tile, halo=halo)
+                   anime_model=anime, tile=tile, halo=halo, tta=tta)
 
     def _to_model(self, frames_u8: torch.Tensor) -> torch.Tensor:
         return frames_to_model(frames_u8.to(self.device), self.channel_order)
+
+    def _denoise(self, x: torch.Tensor) -> torch.Tensor:
+        """NL-means at strength ``n=K`` over the whole frame batch: one K6
+        launch on the card."""
+        return nl_means_denoise(x.contiguous(), float(self.spec.denoise))
+
+    def _prelude(self, x: torch.Tensor) -> torch.Tensor:
+        """The pre-SR stages on model-domain frames, denoise then anime
+        (JAX chain.py:328-335): the one place their order lives."""
+        if self.spec.denoise:
+            x = self._denoise(x)
+        if self.anime_model is not None:
+            x = self.anime_model.frames_forward("model")(
+                self.anime_model.state, x)
+        return x
 
     def _tiled_sr(self, x: torch.Tensor) -> torch.Tensor:
         """Model-domain (N, H, W, 3) -> (N, sH, sW, 3) f32 over haloed
@@ -223,23 +263,38 @@ class ChainEngine:
         ])
 
     def _sr_frames(self, x: torch.Tensor) -> torch.Tensor:
-        """The SR stage emitting uint8 RGB frames, tiled or whole-frame."""
+        """The SR stage emitting uint8 RGB frames: tiled or whole-frame,
+        averaged over the dihedral transforms under ``tta``."""
+        if self.tta:
+            if self.tile:
+                apply = self._tiled_sr
+            else:
+                fwd = self.sr_model.frames_forward("model")
+                apply = lambda v: fwd(self.sr_model.state, v)  # noqa: E731
+            return model_to_frames(tta_apply(apply, x), self.channel_order)
         if self.tile:
             return model_to_frames(self._tiled_sr(x), self.channel_order)
         return self.sr_model.frames_forward("frames")(self.sr_model.state, x)
 
+    def _frames(self, x: torch.Tensor) -> torch.Tensor:
+        """Pre-SR output -> uint8 RGB frames (the SR stage, if any)."""
+        if self.sr_model is None:
+            return model_to_frames(x, self.channel_order)
+        return self._sr_frames(x)
+
     @property
     def step(self) -> Callable:
         """uint8 RGB (N, H, W, 3) -> uint8 RGB (N, sH, sW, 3)."""
-        return lambda f: self._sr_frames(self._to_model(f))
+        return lambda f: self._frames(self._prelude(self._to_model(f)))
 
     @property
     def planar_scale(self) -> Optional[int]:
-        """Shuffle factor of the shuffle-planar contract, or None (tiled
-        path, RRDBNet's Interp tail).  The tail kernel writes the planar
-        layout directly, so every planned SRVGG model has it whole-frame
-        (the JAX Pallas path turns it off instead, chain.py:431)."""
-        if self.tile:
+        """Shuffle factor of the shuffle-planar contract, or None (scale 1,
+        ``tta``, the tiled path, RRDBNet's Interp tail).  The tail kernel
+        writes the planar layout directly, so every planned SRVGG model has
+        it whole-frame (the JAX Pallas path turns it off instead,
+        chain.py:431)."""
+        if self.sr_model is None or self.tile or self.tta:
             return None
         return self.sr_model.planar_scale
 
@@ -247,7 +302,8 @@ class ChainEngine:
     def planar_step(self) -> Callable:
         """uint8 RGB (N, H, W, 3) -> uint8 planar (N, H, W, 3*s*s)."""
         fwd = self.sr_model.frames_forward("planar")
-        return lambda f: fwd(self.sr_model.state, self._to_model(f))
+        return lambda f: fwd(self.sr_model.state,
+                             self._prelude(self._to_model(f)))
 
     def yuv_step(self, full_range: bool, planar: bool,
                  i420_in: Optional[Tuple[int, int, bool]] = None) -> Callable:
@@ -270,11 +326,12 @@ class ChainEngine:
             else:
                 src_h, src_w, in_full = i420_in
                 m = i420_to_model(x, src_h, src_w, in_full, order)
+            m = self._prelude(m)
             if planar:
                 y = self.sr_model.frames_forward("planar")(
                     self.sr_model.state, m)
                 return yuv420_from_planar(y, s, full_range)
-            return yuv420_from_frames(self._sr_frames(m), full_range)
+            return yuv420_from_frames(self._frames(m), full_range)
 
         self._yuv_steps[key] = fn
         return fn

@@ -2,11 +2,12 @@
 
 Port of ``upscale_video_tpu/pipeline/process.py:55-264, 302-504`` over the
 port's :class:`~upscale_video_tpu_torch.pipeline.chain.ChainEngine`.  The
-video layer (``upscale_video_tpu.video``: backends, Y4M/PNG/ffmpeg I/O,
-batch math, sentinels) and the logging/timing helpers are the JAX
-package's own jax-free modules, reused as they are, so the temp dir,
-``metadata.json``, fragments and ``completed.txt`` are laid out exactly as
-the JAX package lays them out.
+video layer (:mod:`upscale_video_tpu_torch.video`: backends, Y4M/PNG/ffmpeg
+I/O, batch math, sentinels) and the logging/timing helpers
+(:mod:`upscale_video_tpu_torch.utils`) are the port's copies of the JAX
+package's jax-free modules, so the temp dir, ``metadata.json``, fragments
+and ``completed.txt`` are laid out exactly as the JAX package lays them
+out.
 
 Not ported yet (each raises ``NotImplementedError``): the PNG data plane,
 ``--extract_only`` (both need the stage passes), and multi-host runs.
@@ -24,15 +25,15 @@ from typing import Optional
 
 import numpy as np
 
-from upscale_video_tpu.utils.logsetup import setup_logging
-from upscale_video_tpu.utils.profiling import StageTimer
-from upscale_video_tpu.utils.wake import keep_awake
 from upscale_video_tpu_torch.device import resolve_device
 from upscale_video_tpu_torch.parallel.executor import AsyncSink, PrefetchSource
 from upscale_video_tpu_torch.pipeline.chain import (
     BatchedStepper, ChainEngine, ChainSpec, default_frames_per_step,
     precision_dtypes,
 )
+from upscale_video_tpu_torch.utils.logsetup import setup_logging
+from upscale_video_tpu_torch.utils.profiling import StageTimer
+from upscale_video_tpu_torch.utils.wake import keep_awake
 from upscale_video_tpu_torch.video import (
     SENTINEL_COMPLETED,
     calc_batches,
@@ -101,6 +102,7 @@ def process_file(
     copy_audio: bool = False,
     pipe_pix: str = "auto",
     device: str = "cuda",
+    tta: bool = False,
     engine: Optional[ChainEngine] = None,
 ) -> Optional[PipelineResult]:
     """Upscale a video file end to end on ``device``.  Returns a
@@ -108,7 +110,8 @@ def process_file(
 
     ``tile_size``/``halo`` tile the SR stage (None = the family's default:
     whole-frame Compact, 544 for ``-m r``); ``precision`` ``auto`` is
-    ``mixed`` for ``-m r`` and bf16 otherwise."""
+    ``mixed`` for ``-m r`` and bf16 otherwise; ``tta`` averages the SR
+    stage over the 8 dihedral transforms of each frame."""
     if scale not in VALID_SCALES:
         raise ValueError(f"scale must be one of {VALID_SCALES}")
     if data_plane != "stream":
@@ -155,6 +158,7 @@ def process_file(
             spec, scale, dev, model_path=model_path,
             compute_dtype=compute_dtype, synthetic=synthetic_models,
             residual_dtype=residual_dtype, tile=tile_size, halo=halo,
+            tta=tta,
         )
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
