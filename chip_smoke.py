@@ -10,23 +10,31 @@ contracts, counting kernel launches:
 
 - the default path: 2x Compact (K1 + K2), 4 frames per step, 1080p -> 4K;
 - ``-m r``: the 4x Valar RRDBNet at full width and depth (23 RRDBs, K5
-  per dense block, K1 per other 3x3 conv), mixed precision, 544-budget
-  tiles with halo 16, 1 frame per step, 1080p -> 4K;
+  per dense block, K4 for conv_first, conv_trunk and conv_up1, one K1
+  chain for the last three convs), mixed precision, 544-budget tiles with
+  halo 16, 1 frame per step, 1080p -> 4K;
 - ``-m a,n=3``: NL-means at strength 3 (K6, one launch per step), the 1x
   SubCompact anime deblur model (nf 24, one 10-layer K1 chain), then the
   default 2x Compact (K1 + K2), 4 frames per step;
 - ``--tta`` on the default path: one 1080p frame through the 8 dihedral
-  transforms (K2's f32 layout).
+  transforms (K2's f32 layout);
+- ``-m sr=x_RealESRGAN_x4plus``: RealESRGAN_x4plus's architecture (basicsr
+  RRDBNet, 23 RRDBs, nf 64, gc 32) as a state dict made from a seed,
+  converted by ``vsr-import-torch``, whole-frame, bf16, 1 frame per step:
+  348 K4 launches per frame and one 3-layer K1 chain;
+- ``-m sr=`` of a wide SRVGGNetCompact (nf 160, 4x), converted the same
+  way: K4 per body conv (PReLU fused), one K3 launch per step.
 
 Weights are synthetic (seed 0).  K1 is held against its plain version at
 every path's shapes (the Compact stack and the anime chain at 4x1080p;
-each of ``-m r``'s six convs on a 1080p frame's tiles at 1x, 2x or 4x),
-K6 at 4x1080p, and the whole 1080p ``-m r`` and ``--tta`` steps against
-the same steps on the plain versions.  It then times each step against its
-plain version.  Every phase prints one line; any failure raises and the
-script exits non-zero without printing a result.  The last three lines are
-a JSON object with each kernel's figures (its bound computed from the
-card's published peaks), the card's
+``-m r``'s last three convs on a 1080p frame's tiles at 4x), K4 at every
+ESRGAN conv shape at 1080p (and ``-m r``'s three solo convs), K3 at
+4x1080p, K6 at 4x1080p, and the whole 1080p ``-m r``, ESRGAN and ``--tta``
+steps against the same steps on the plain versions.  It then times each
+step against its plain version.  Every phase prints one line; any failure
+raises and the script exits non-zero without printing a result.  The last
+three lines are a JSON object with each kernel's figures (its bound
+computed from the card's published peaks), the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and then
 ``{"ok": true, "device": {...}}``.
 """
@@ -50,17 +58,48 @@ CLIP_RATE = "1:10"             # 0.1 fps: -b 1 (one minute) = 6 frames
 VALAR_CLIP_FRAMES = 3          # 3 steps of 1 frame; fragments of 2 + 1
 VALAR_CLIP_RATE = "1:30"       # -b 1 (one minute) = 2 frames
 VALAR_BLOCKS = 69              # 23 RRDBs x 3 dense blocks: K5 launches/step
-VALAR_CONVS = 6                # first, trunk, up1, up2, hr, last: K1 launches
-# each K1 conv of -m r with the factor its 1080p tiles are upscaled by there
-VALAR_K1_LAYERS = (("conv_first", 1), ("conv_trunk", 1), ("conv_up1", 2),
-                   ("conv_up2", 4), ("conv_hr", 4), ("conv_last", 4))
+VALAR_SOLOS = 3                # first, trunk, up1: K4 launches per step
+VALAR_CHAIN = 3                # up2 -> hr -> last: one K1 chain per step
+# each 3x3 conv of -m r with the factor its 1080p tiles are upscaled by
+# there: the three solo convs run on K4, the last three on K1
+VALAR_K4_LAYERS = (("conv_first", 1), ("conv_trunk", 1), ("conv_up1", 2))
+VALAR_K1_LAYERS = (("conv_up2", 4), ("conv_hr", 4), ("conv_last", 4))
+ESRGAN_RRDBS = 23              # RealESRGAN_x4plus: 23 RRDBs, nf 64, gc 32
+ESRGAN_STEM = "x_RealESRGAN_x4plus"
+ESRGAN_CLIP_FRAMES = 3         # 3 steps of 1 frame; fragments of 2 + 1
+# the 1080p sr=RealESRGAN_x4plus step (bf16) vs the same step on the
+# plain versions, per RRDB count: (min dB, max u8 LSB).  Same rounding
+# points, so only f32 summation order differs; a K4 output one bf16 ulp
+# apart propagates and grows with depth through the synthetic weights.
+# Measured on an NVIDIA H100 80GB HBM3: 63.52 dB / 1 LSB at 2 RRDBs,
+# 48.77 dB / 7 LSB at 23 (22% of the output clips); both paths are
+# deterministic, so the bounds keep ~7 dB of margin
+ESRGAN_PLAIN_BOUNDS = {2: (55.0, 4), ESRGAN_RRDBS: (42.0, 32)}
+WIDE_NF, WIDE_CONVS = 160, 8   # the wide SRVGG: 9 body convs of nf 160, 4x
+WIDE_STEM = "x_wide_srvgg_nf160"
+WIDE_CLIP_FRAMES = 4           # 2 fragments of 2 frames: 2 padded steps
+# its planar step vs the same step on the plain versions (74.93 dB, 1 LSB
+# measured on an NVIDIA H100 80GB HBM3)
+WIDE_MIN_PSNR = 60.0
+# K3's f32 layout: the same f32 value summed in another order
+K3_MODEL_ATOL = 1e-4
+# K4 at the ESRGAN conv shapes on one 1080p frame, (cin, cout, act, h, w):
+# conv_first, the five dense convs, conv_up1 at 4K, a wide SRVGG body
+# layer, and the x2plus conv_first at a ragged shape
+K4_SHAPES = ((3, 64, "none", H, W), (64, 32, "leaky", H, W),
+             (96, 32, "leaky", H, W), (128, 32, "leaky", H, W),
+             (160, 32, "leaky", H, W), (192, 64, "none", H, W),
+             (64, 64, "leaky", 2 * H, 2 * W), (160, 160, "prelu", H, W),
+             (12, 64, "none", 37, 53))
+K4_DENSE = ((64, 32), (96, 32), (128, 32), (160, 32), (192, 64))
+K3_CASES = ((64, 2), (64, 4), (160, 2), (160, 4))  # (Cf, s) at 4x1080p
 TILES = (8, 576, 512)          # one 1080p frame: 2x4 tiles of 544x480 + halo
 # K1 after 17 layers: each layer rounds once to bf16 after an f32 sum whose
 # order differs from cuDNN's, so a value may land one bf16 ulp apart and
 # the ulp propagates through later layers (tests/test_conv_chain.py:70).
 K1_ATOL, K1_RTOL = 5e-2, 2e-2
-# K1 as one layer: the one rounding may land one bf16 ulp (<= 2**-7 * |v|)
-# away after an f32 sum in another order; atol for sums that cancel near 0
+# K1 or K4 as one layer: the one rounding may land one bf16 ulp (<= 2**-7
+# * |v|) away after an f32 sum in another order; atol for sums near 0
 K1_LAYER_ATOL, K1_LAYER_RTOL = 2.0 ** -10, 2.0 ** -7
 # K1 over the 10-layer anime chain: its output is small (the synthetic
 # N(0, 0.05) weights shrink the signal layer by layer), so the whole-chain
@@ -185,6 +224,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = smi_line()
     dev = torch.device("cuda", 0)
     say("device", nvidia_smi=repr(smi), cuda=torch.version.cuda,
@@ -199,12 +239,16 @@ def main() -> int:
 
     from upscale_video_tpu_torch.models.executor import chain_layers
     from upscale_video_tpu_torch.models.zoo import make_synthetic_model
+    from upscale_video_tpu_torch.ops.conv3x3 import (
+        conv3x3_fused, conv3x3_fused_plain,
+    )
     from upscale_video_tpu_torch.ops.conv_chain import (
         conv3x3_chain, conv3x3_chain_plain,
     )
     from upscale_video_tpu_torch.ops.pixel import frames_to_model
     from upscale_video_tpu_torch.ops.tail import (
-        sr_tail_chain, sr_tail_chain_plain,
+        LAYOUTS, sr_tail_chain, sr_tail_chain_plain, sr_tail_fused,
+        sr_tail_fused_plain,
     )
 
     model = make_synthetic_model(scale=2, seed=0, device=dev)
@@ -452,26 +496,38 @@ def main() -> int:
     del k5_x
     torch.cuda.empty_cache()
 
-    # K1 at the -m r path's six 3x3 convs, each with its activation at the
-    # shape the 1080p step gives it (the frame's 8 tiles at 1x, 2x, 4x):
-    # 3->64 and 64->64 none, 64->64 leaky, and 64->3 none (cout % 8 != 0)
-    from upscale_video_tpu_torch.models.ops import k1_layer
+    # the -m r path's six 3x3 convs, each with its activation at the shape
+    # the 1080p step gives it (the frame's 8 tiles at 1x, 2x, 4x): K4 for
+    # the solo 3->64 and 64->64 none and 64->64 leaky, K1 for the chain's
+    # 64->64 leaky twice and 64->3 none (cout % 8 != 0), each layer alone
+    from upscale_video_tpu_torch.models.executor import _solo_args
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    by_name = {l.name: l for l in veng.sr_model.graph.layers}
-    for name, f in VALAR_K1_LAYERS:
-        layer = k1_layer(by_name[name], veng.sr_model.state[name])
-        shape = (TILES[0], TILES[1] * f, TILES[2] * f, layer.cin)
+    (vchain,) = vfwd.chains.values()
+    vlayers = dict(zip([it["name"] for it in vchain["items"]],
+                       chain_layers(vchain["items"], veng.sr_model.state)))
+    for name, f in VALAR_K4_LAYERS + VALAR_K1_LAYERS:
+        if name in vfwd.solos:
+            wmat, bias, slope, act = _solo_args(vfwd.solos[name],
+                                                veng.sr_model.state)
+            kernel, cin, cout = "K4", wmat.shape[0] // 9, wmat.shape[1]
+            run = lambda x: conv3x3_fused(x, wmat, bias, slope, act)  # noqa: E731
+            run_plain = lambda x: conv3x3_fused_plain(x, wmat, bias, slope, act)  # noqa: E731
+        else:
+            layer = vlayers[name]
+            kernel, cin, cout, act = "K1", layer.cin, layer.cout, layer.act
+            run = lambda x: conv3x3_chain(x, [layer])  # noqa: E731
+            run_plain = lambda x: conv3x3_chain_plain(x, [layer])  # noqa: E731
+        shape = (TILES[0], TILES[1] * f, TILES[2] * f, cin)
         x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        got = conv3x3_chain(x, [layer])
-        want = conv3x3_chain_plain(x, [layer])
+        got, want = run(x), run_plain(x)
         worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
-        say("K1", path="-m r", conv=name, shape="x".join(map(str, shape)),
-            cout=layer.cout, act=layer.act, max_abs_err=worst,
+        say(kernel, path="-m r", conv=name, shape="x".join(map(str, shape)),
+            cout=cout, act=act, max_abs_err=worst,
             frac_differ=f"{differ:.3e}", bound="atol=2**-10,rtol=2**-7", ok=ok)
         if not ok:
-            raise SystemExit(f"K1 disagrees with its plain version at {name}")
-        errs["K1"] = max(errs["K1"], worst)
+            raise SystemExit(f"{kernel} disagrees with its plain version at {name}")
+        errs[kernel] = max(errs.get(kernel, 0.0), worst)
         del x, got, want
         torch.cuda.empty_cache()
 
@@ -490,6 +546,218 @@ def main() -> int:
         raise SystemExit("the -m r step disagrees with the f32 plain path")
     del vref
 
+    # K4 against its plain version at each ESRGAN conv shape on one 1080p
+    # frame (conv_up1 at 2x), a wide SRVGG body layer and the x2plus
+    # conv_first on a ragged batch, unit-scale inputs; then each shape's
+    # time beside the plain version, cuDNN's bf16 conv and the bound
+    from upscale_video_tpu_torch.ops.common import (
+        ACT_LEAKY, ACT_NONE, ACT_PRELU,
+    )
+
+    acts = {"none": ACT_NONE, "leaky": ACT_LEAKY, "prelu": ACT_PRELU}
+    dense = {}
+    for cin, cout, act_name, h, w in K4_SHAPES:
+        n = 2 if (h, w) == (37, 53) else 1
+        g = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+        x = torch.randn((n, h, w, cin), generator=g, device=dev).to(torch.bfloat16)
+        wmat = (torch.randn((9 * cin, cout), generator=g, device=dev)
+                / (9 * cin) ** 0.5).to(torch.bfloat16)
+        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+        act = acts[act_name]
+        slope = (torch.rand((cout,), generator=g, device=dev) * 0.2 + 0.1
+                 if act == ACT_PRELU else 0.2 if act == ACT_LEAKY else None)
+        args = (wmat, bias, slope, act)
+        got = conv3x3_fused(x, *args)
+        want = conv3x3_fused_plain(x, *args)
+        torch.cuda.synchronize()
+        worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+        shape = f"{n}x{h}x{w}x{cin}"
+        say("K4_layer", shape=shape, cout=cout, act=act_name,
+            max_abs_err=worst, frac_differ=f"{differ:.3e}",
+            bound="atol=2**-10,rtol=2**-7", ok=ok)
+        if not ok:
+            raise SystemExit(f"K4 disagrees with its plain version at {shape}->{cout}")
+        errs["K4"] = max(errs.get("K4", 0.0), worst)
+        del got, want
+        w_cl = conv_weight_cl(wmat)
+        b16 = bias.to(torch.bfloat16)
+        ms = cuda_ms(lambda: conv3x3_fused(x, *args), 5)
+        plain_ms = cuda_ms(lambda: conv3x3_fused_plain(x, *args), 2)
+        lib_ms = cuda_ms(lambda: cudnn_conv(x, w_cl, b16), 5)
+        nbytes, flop = conv_work(n, h, w, cin, cout)
+        bound = roofline(nbytes, {"bf16": flop})
+        say("K4_time", shape=shape, cout=cout, ms=f"{ms:.3f}",
+            plain_ms=f"{plain_ms:.3f}", cudnn_ms=f"{lib_ms:.3f}",
+            bound_ms=f"{bound[0]:.3f}", bound_by=bound[1],
+            tflops=f"{flop / ms / 1e9:.1f}")
+        if (cin, cout) in K4_DENSE and (h, w) == (H, W):
+            dense[cin] = (x, args, w_cl, b16, nbytes, flop)
+        else:
+            del x
+        torch.cuda.empty_cache()
+    # the kernels line's K4 row: one ESRGAN dense block's five convs on a
+    # 1080p frame (its sources concatenated beforehand)
+    parts = [dense[cin] for cin, _ in K4_DENSE]
+    k4_ms = cuda_ms(lambda: [conv3x3_fused(p[0], *p[1]) for p in parts], 5)
+    k4_plain_ms = cuda_ms(
+        lambda: [conv3x3_fused_plain(p[0], *p[1]) for p in parts], 2)
+    k4_lib_ms = cuda_ms(lambda: [cudnn_conv(p[0], p[2], p[3]) for p in parts], 5)
+    k4_flop = sum(p[5] for p in parts)
+    k4_bound = roofline(sum(p[4] for p in parts), {"bf16": k4_flop})
+    say("K4_time", shape=f"1x{H}x{W}", convs="64,96,128,160->32;192->64",
+        ms=f"{k4_ms:.3f}", plain_ms=f"{k4_plain_ms:.3f}",
+        cudnn_ms=f"{k4_lib_ms:.3f}", bound_ms=f"{k4_bound[0]:.3f}",
+        bound_by=k4_bound[1], tflops=f"{k4_flop / k4_ms / 1e9:.1f}",
+        per="one ESRGAN dense block's five convs, 1080p")
+    del parts, dense
+    torch.cuda.empty_cache()
+
+    # K3 against its plain version at 4x1080p in all three layouts: the
+    # wide SRVGG's tail (Cf 160) and a 64-wide one, at 2x and 4x
+    for cf, s in K3_CASES:
+        g = torch.Generator(device=dev).manual_seed(cf + s)
+        u = (torch.randn((N, H, W, cf), generator=g, device=dev) * 0.5
+             ).to(torch.bfloat16)
+        skip = torch.rand((N, H, W, 3), generator=g, device=dev).to(torch.bfloat16)
+        wmat = (torch.randn((9 * cf, 3 * s * s), generator=g, device=dev)
+                * 0.3 / (9 * cf) ** 0.5).to(torch.bfloat16)
+        bias = torch.randn((3 * s * s,), generator=g, device=dev) * 0.05
+        for layout in LAYOUTS:
+            got = sr_tail_fused(u, skip, wmat, bias, s, layout)
+            want = sr_tail_fused_plain(u, skip, wmat, bias, s, layout)
+            torch.cuda.synchronize()
+            worst = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, want))
+            bound = K3_MODEL_ATOL if layout == "model" else K2_MAX_LSB
+            say("K3", shape=f"{N}x{H}x{W}x{cf}", scale=s, layout=layout,
+                max_abs_err=worst, bound=bound, ok=worst <= bound)
+            if worst > bound:
+                raise SystemExit(f"K3 ({layout}, Cf {cf}, s {s}) disagrees "
+                                 "with its plain version")
+            if layout != "model":
+                errs["K3"] = max(errs.get("K3", 0.0), worst)
+            del got, want
+        if (cf, s) == K3_CASES[-1]:
+            k3_args = (u, skip, wmat, bias, s, "planar")
+        else:
+            del u, skip
+        torch.cuda.empty_cache()
+    k3_ms = cuda_ms(lambda: sr_tail_fused(*k3_args), 10)
+    k3_plain_ms = cuda_ms(lambda: sr_tail_fused_plain(*k3_args), 2)
+    cf, s = K3_CASES[-1]
+    k3_bound = roofline(N * H * W * (2 * cf + 2 * 3 + 3 * s * s)
+                        + 9 * cf * 3 * s * s * 2 + 3 * s * s * 4,
+                        {"bf16": 2 * 9 * cf * 3 * s * s * N * H * W})
+    say("K3_time", ms=f"{k3_ms:.3f}", plain_ms=f"{k3_plain_ms:.3f}",
+        bound_ms=f"{k3_bound[0]:.3f}", bound_by=k3_bound[1],
+        per=f"one launch, {N}x1080p, Cf {cf}, 4x -> planar u8")
+    del k3_args, u, skip
+    torch.cuda.empty_cache()
+
+    # sr= imports: RealESRGAN_x4plus's architecture at full depth and at 2
+    # RRDBs, and a wide SRVGGNetCompact, as state dicts made from a seed,
+    # each converted by vsr-import-torch
+    from upscale_video_tpu_torch.cli.import_model import main as import_main
+
+    model_dir = tempfile.TemporaryDirectory()
+    mdir = os.path.join(model_dir.name, "models")
+    for name, sd in ((ESRGAN_STEM[2:], esrgan_state_dict(0, ESRGAN_RRDBS)),
+                     (f"{ESRGAN_STEM[2:]}_rrdb2", esrgan_state_dict(0, 2)),
+                     (WIDE_STEM[2:], srvgg_state_dict(0, WIDE_CONVS, WIDE_NF, 4))):
+        pth = os.path.join(model_dir.name, name + ".pth")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, pth)
+        t0 = time.perf_counter()
+        rc = import_main(["-i", pth, "-o", mdir])
+        say("import", checkpoint=name + ".pth", tensors=len(sd), rc=rc,
+            seconds=f"{time.perf_counter() - t0:.2f}", ok=rc == 0)
+        if rc != 0:
+            raise SystemExit(f"vsr-import-torch failed on {name}.pth")
+
+    # the 1080p sr=RealESRGAN_x4plus step (whole-frame, bf16: K4 per solo
+    # 3x3 conv, one K1 chain) against the same step on the plain versions,
+    # at 2 RRDBs and at full depth; bounds per depth as for -m r
+    esr_engines = {}
+    frame1 = torch.from_numpy(
+        rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8)).to(dev)
+    for rrdbs in (2, ESRGAN_RRDBS):
+        stem = ESRGAN_STEM + ("" if rrdbs == ESRGAN_RRDBS else f"_rrdb{rrdbs}")
+        engine = ChainEngine.build(ChainSpec.parse(f"sr={stem}"), 4, dev,
+                                   model_path=mdir)
+        efwd = engine.sr_model.frames_forward("frames")
+        if (len(efwd.solos) != esrgan_k4(rrdbs) or len(efwd.chains) != 1
+                or efwd.rdb_triggers or engine.tile or engine.planar_scale):
+            raise SystemExit(f"sr={stem}: {len(efwd.solos)} K4 convs, "
+                             f"{len(efwd.chains)} chains planned")
+        esr_engines[rrdbs] = engine
+        min_db, max_lsb = ESRGAN_PLAIN_BOUNDS[rrdbs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = engine.step(frame1)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        out = out.cpu().numpy()
+        ref = plain_call(engine.step, frame1).cpu().numpy()
+        quality = psnr(out, ref)
+        lsb = np.abs(out.astype(int) - ref.astype(int))
+        ok = quality >= min_db and lsb.max() <= max_lsb
+        say("esrgan_step_vs_plain", shape=out.shape, rrdbs=rrdbs,
+            precision="bf16", psnr_db=f"{quality:.2f}", max_lsb=int(lsb.max()),
+            frac_differ=f"{(lsb > 0).mean():.3e}",
+            out_mean=f"{out.mean():.1f}", out_std=f"{out.std():.1f}",
+            clipped=f"{np.mean((out == 0) | (out == 255)):.3f}",
+            bound=f">={min_db}dB,max_lsb<={max_lsb}",
+            peak_device_gb=f"{peak_gb:.2f}", ok=ok)
+        if not ok:
+            raise SystemExit(f"the 1080p sr= ESRGAN step at {rrdbs} RRDBs "
+                             "disagrees with its plain step")
+        del out, ref
+    eeng = esr_engines[ESRGAN_RRDBS]
+    del esr_engines
+    torch.cuda.empty_cache()
+
+    # where the ESRGAN step's device time goes: one step under
+    # torch.profiler, kernel time by K4, K1, torch.cat and the rest; the
+    # step's bound is its convs' bounds summed (each at its resolution)
+    step_ms = cuda_ms(lambda: eeng.step(frame1), 1)
+    up = {"conv_up1": 2, "conv_up2": 4, "conv_hr": 4, "conv_last": 4}
+    step_bound = 0.0
+    for name, p in eeng.sr_model.state.items():
+        if hasattr(p, "wmat"):
+            f = up.get(name, 1)
+            nbytes, flop = conv_work(1, H * f, W * f, p.wmat.shape[0] // 9,
+                                     p.wmat.shape[1])
+            step_bound += roofline(nbytes, {"bf16": flop})[0]
+    say("esrgan_profile", step_ms=f"{step_ms:.2f}",
+        bound_ms=f"{step_bound:.2f}",
+        **profile_shares(lambda: eeng.step(frame1)))
+
+    # the wide SRVGG import: K4 per body conv (PReLU fused), its tail one
+    # K3 launch writing the planar layout; against its plain step
+    weng = ChainEngine.build(ChainSpec.parse(f"sr={WIDE_STEM}"), 4, dev,
+                             model_path=mdir)
+    wfwd = weng.sr_model.frames_forward("planar")
+    if len(wfwd.solos) != WIDE_CONVS + 1 or wfwd.tail is None \
+            or weng.planar_scale != 4:
+        raise SystemExit(f"sr={WIDE_STEM}: {len(wfwd.solos)} K4 convs planned")
+    small = torch.from_numpy(np.stack(
+        [write_frame(270, 480, t, rng) for t in range(N)])).to(dev)
+    k4, k3 = conv3x3_fused.launches, sr_tail_fused.launches
+    out = weng.planar_step(small)
+    torch.cuda.synchronize()
+    launched = (conv3x3_fused.launches - k4, sr_tail_fused.launches - k3)
+    out = out.cpu().numpy()
+    ref = plain_call(weng.planar_step, small).cpu().numpy()
+    quality = psnr(out, ref)
+    ok = quality >= WIDE_MIN_PSNR and launched == (WIDE_CONVS + 1, 1)
+    say("wide_srvgg_step_vs_plain", shape=out.shape, nf=WIDE_NF,
+        k4_launches=launched[0], k3_launches=launched[1],
+        psnr_db=f"{quality:.2f}",
+        max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
+        bound=f">={WIDE_MIN_PSNR}dB", ok=ok)
+    if not ok:
+        raise SystemExit("the wide SRVGG planar step disagrees with its plain step")
+    del out, ref
+
     # end to end through the CLI, both contracts, counting kernel launches
     from upscale_video_tpu_torch.cli.upscale_video import main as cli_main
     from upscale_video_tpu_torch.video import (
@@ -504,12 +772,12 @@ def main() -> int:
         return concat(self, num_batches, output_file, workdir)
 
     HermeticBackend.concat = observe_concat
-    counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K5": rdb_block,
-                "K6": nl_means_denoise}
+    counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K3": sr_tail_fused,
+                "K4": conv3x3_fused, "K5": rdb_block, "K6": nl_means_denoise}
     launches = dict.fromkeys(counters, 0)
     e2e = {}
 
-    def drive(tmp, name, c420, frames, rate, extra):
+    def drive(tmp, name, c420, frames, rate, extra, synthetic=True):
         """One CLI run; its kernel launch counts from zero."""
         src = os.path.join(tmp, f"{name}.y4m")
         out_path = os.path.join(tmp, f"{name}.out.y4m")
@@ -518,8 +786,8 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        rc = cli_main(["-i", src, "-o", out_path, "-t", work,
-                       "--synthetic_models", "-b", "1", "-r", *extra])
+        rc = cli_main(["-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
+                       *(["--synthetic_models"] if synthetic else []), *extra])
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
         for k, v in counts.items():
@@ -552,7 +820,8 @@ def main() -> int:
             ok, geom, cs, count, k, frags, left, wall = drive(
                 tmp, name, c420, CLIP_FRAMES, CLIP_RATE, [])
             ok = (ok and geom == (2 * W, 2 * H) and k["K1"] == 17 * steps
-                  and k["K2"] == steps and k["K5"] == 0 and k["K6"] == 0)
+                  and k["K2"] == steps
+                  and k["K3"] == k["K4"] == k["K5"] == k["K6"] == 0)
             say("e2e", path="default", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=steps, k1_launches=k["K1"],
                 k2_launches=k["K2"], k5_launches=k["K5"],
@@ -561,7 +830,8 @@ def main() -> int:
             if not ok:
                 raise SystemExit(f"end-to-end run on the {name} clip failed")
         # -m r: one frame per step, every dense block one K5 launch over
-        # the frame's 8 tiles, the six other 3x3 convs one K1 launch each
+        # the frame's 8 tiles, the three solo 3x3 convs one K4 launch each,
+        # the last three one K1 chain
         vsteps = steps_of(VALAR_CLIP_FRAMES, VALAR_CLIP_RATE, 1)
         for name, c420 in (("valar_c420jpeg", True), ("valar_c444", False)):
             ok, geom, cs, count, k, frags, left, wall = drive(
@@ -569,12 +839,14 @@ def main() -> int:
                 ["-m", "r"])
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K5"] == VALAR_BLOCKS * vsteps
-                  and k["K1"] == VALAR_CONVS * vsteps and k["K2"] == 0
-                  and k["K6"] == 0)
+                  and k["K4"] == VALAR_SOLOS * vsteps
+                  and k["K1"] == VALAR_CHAIN * vsteps
+                  and k["K2"] == k["K3"] == k["K6"] == 0)
             say("e2e", path="-m r", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=vsteps,
-                k5_launches=k["K5"], k1_launches=k["K1"], k2_launches=k["K2"],
-                fragments_before_concat=frags, workdir_after=left,
+                k5_launches=k["K5"], k4_launches=k["K4"], k1_launches=k["K1"],
+                k2_launches=k["K2"], fragments_before_concat=frags,
+                workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
             if not ok:
                 raise SystemExit(f"end-to-end -m r run on the {name} clip failed")
@@ -585,7 +857,7 @@ def main() -> int:
                 tmp, name, c420, CLIP_FRAMES, CLIP_RATE, ["-m", PRELUDE])
             ok = (ok and geom == (2 * W, 2 * H) and k["K6"] == steps
                   and k["K1"] == (ANIME_LAYERS + 17) * steps
-                  and k["K2"] == steps and k["K5"] == 0)
+                  and k["K2"] == steps and k["K3"] == k["K4"] == k["K5"] == 0)
             say("e2e", path=f"-m {PRELUDE}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=steps, k6_launches=k["K6"], k1_launches=k["K1"],
@@ -594,6 +866,49 @@ def main() -> int:
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
             if not ok:
                 raise SystemExit(f"end-to-end -m {PRELUDE} run on the {name} "
+                                 "clip failed")
+        # sr=RealESRGAN_x4plus from the files vsr-import-torch wrote: one
+        # frame per step, whole-frame, every solo 3x3 conv one K4 launch,
+        # conv_up2 -> conv_hr -> conv_last one K1 chain
+        esteps = steps_of(ESRGAN_CLIP_FRAMES, VALAR_CLIP_RATE, 1)
+        for name, c420 in (("esrgan_c420jpeg", True), ("esrgan_c444", False)):
+            ok, geom, cs, count, k, frags, left, wall = drive(
+                tmp, name, c420, ESRGAN_CLIP_FRAMES, VALAR_CLIP_RATE,
+                ["-m", f"sr={ESRGAN_STEM}", "-s", "4", "--model_path", mdir,
+                 "--frames_per_step", "1"], synthetic=False)
+            ok = (ok and geom == (4 * W, 4 * H)
+                  and k["K4"] == esrgan_k4(ESRGAN_RRDBS) * esteps
+                  and k["K1"] == 3 * esteps
+                  and k["K2"] == k["K3"] == k["K5"] == k["K6"] == 0)
+            say("e2e", path=f"-m sr={ESRGAN_STEM}", clip=name,
+                out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
+                steps=esteps, k4_launches=k["K4"], k1_launches=k["K1"],
+                k2_launches=k["K2"], k3_launches=k["K3"], k5_launches=k["K5"],
+                fragments_before_concat=frags, workdir_after=left,
+                wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
+            if not ok:
+                raise SystemExit(f"end-to-end sr= ESRGAN run on the {name} "
+                                 "clip failed")
+        # the wide SRVGG import, 4 frames per step: 9 K4 launches (PReLU
+        # fused) and one K3 launch per step, shuffle-planar and 4:2:0
+        wsteps = steps_of(WIDE_CLIP_FRAMES, VALAR_CLIP_RATE, N)
+        for name, c420 in (("wide_c420jpeg", True), ("wide_c444", False)):
+            ok, geom, cs, count, k, frags, left, wall = drive(
+                tmp, name, c420, WIDE_CLIP_FRAMES, VALAR_CLIP_RATE,
+                ["-m", f"sr={WIDE_STEM}", "-s", "4", "--model_path", mdir],
+                synthetic=False)
+            ok = (ok and geom == (4 * W, 4 * H)
+                  and k["K4"] == (WIDE_CONVS + 1) * wsteps
+                  and k["K3"] == wsteps
+                  and k["K1"] == k["K2"] == k["K5"] == k["K6"] == 0)
+            say("e2e", path=f"-m sr={WIDE_STEM}", clip=name,
+                out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
+                steps=wsteps, k4_launches=k["K4"], k3_launches=k["K3"],
+                k1_launches=k["K1"], k2_launches=k["K2"],
+                fragments_before_concat=frags, workdir_after=left,
+                wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
+            if not ok:
+                raise SystemExit(f"end-to-end sr= wide SRVGG run on the {name} "
                                  "clip failed")
     HermeticBackend.concat = concat
 
@@ -675,6 +990,11 @@ def main() -> int:
         ("tta_step", lambda: teng.step(frames[:1]), 2, 1),
         ("valar_step", lambda: veng.step(frames[:1]), 2, 1),
         ("plain_valar_step", lambda: plain_call(veng.step, frames[:1]), 1, 1),
+        ("esrgan_step", lambda: eeng.step(frames[:1]), 2, 1),
+        ("plain_esrgan_step", lambda: plain_call(eeng.step, frames[:1]), 1, 1),
+        ("wide_srvgg_planar_step", lambda: weng.planar_step(frames), 3, N),
+        ("plain_wide_srvgg_planar_step",
+         lambda: plain_call(weng.planar_step, frames), 1, N),
     ):
         ms = cuda_ms(fn, reps)
         rates[name] = per * 1000.0 / ms
@@ -684,7 +1004,10 @@ def main() -> int:
 
     # library_ms: K1's is cuDNN's bf16 conv (F.conv2d with bias, one call
     # per layer, channels-last) over the same 17 layers, without the
-    # PReLUs; K2, K5 and K6 have no PyTorch call computing their function
+    # PReLUs; K4's the same over one ESRGAN dense block's five convs,
+    # without the leaky ReLUs; K2, K3, K5 and K6 have no PyTorch call
+    # computing their function
+    model_dir.cleanup()
     kernels = [
         {"name": "conv3x3_chain", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/conv3x3_chain.cu",
@@ -698,6 +1021,18 @@ def main() -> int:
          "launches": launches["K2"], "max_abs_err": errs["K2"],
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
+        {"name": "sr_tail_fused", "route": "cuda",
+         "source": "upscale_video_tpu_torch/csrc/sr_tail.cu",
+         "replaces": "upscale_video_tpu/ops/tail_pallas.py:31",
+         "launches": launches["K3"], "max_abs_err": errs["K3"],
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
+         "bound_by": k3_bound[1], "library_ms": None},
+        {"name": "conv3x3_fused", "route": "cuda",
+         "source": "upscale_video_tpu_torch/csrc/conv3x3_fused.cu",
+         "replaces": "upscale_video_tpu/ops/conv_pallas.py:56",
+         "launches": launches["K4"], "max_abs_err": errs["K4"],
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": k4_lib_ms},
         {"name": "rdb_block", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/rdb_block.cu",
          "replaces": "upscale_video_tpu/ops/rdb_pallas.py:253",
@@ -718,6 +1053,7 @@ def main() -> int:
     if any(m == "upscale_video_tpu" or m.startswith("upscale_video_tpu.")
            for m in sys.modules):
         raise SystemExit("the JAX package was imported on the port's path")
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels, "frames_per_s": rates,
                       "e2e_wall_fps": e2e}), flush=True)
     print(smi, flush=True)
@@ -730,19 +1066,23 @@ def main() -> int:
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper the engines call swapped for its plain version
-    (K1 -> conv3x3_chain_plain, K2 -> sr_tail_chain_plain, K5 ->
-    rdb_block_plain, K6 -> nl_means_denoise_plain); fails if a kernel
-    launched inside."""
-    from upscale_video_tpu_torch.models import executor, ops
-    from upscale_video_tpu_torch.ops import conv_chain, nlmeans, rdb, tail
+    (K1 -> conv3x3_chain_plain, K2 -> sr_tail_chain_plain, K3 ->
+    sr_tail_fused_plain, K4 -> conv3x3_fused_plain, K5 -> rdb_block_plain,
+    K6 -> nl_means_denoise_plain); fails if a kernel launched inside."""
+    from upscale_video_tpu_torch.models import executor
+    from upscale_video_tpu_torch.ops import (
+        conv3x3, conv_chain, nlmeans, rdb, tail,
+    )
     from upscale_video_tpu_torch.pipeline import chain
 
     swaps = [(executor, "conv3x3_chain", conv_chain.conv3x3_chain_plain),
-             (ops, "conv3x3_chain", conv_chain.conv3x3_chain_plain),
              (executor, "sr_tail_chain", tail.sr_tail_chain_plain),
+             (executor, "sr_tail_fused", tail.sr_tail_fused_plain),
+             (executor, "conv3x3_fused", conv3x3.conv3x3_fused_plain),
              (executor, "rdb_block", rdb.rdb_block_plain),
              (chain, "nl_means_denoise", nlmeans.nl_means_denoise_plain)]
-    wrappers = (conv_chain.conv3x3_chain, tail.sr_tail_chain, rdb.rdb_block,
+    wrappers = (conv_chain.conv3x3_chain, tail.sr_tail_chain,
+                tail.sr_tail_fused, conv3x3.conv3x3_fused, rdb.rdb_block,
                 nlmeans.nl_means_denoise)
     before = [w.launches for w in wrappers]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
@@ -777,6 +1117,121 @@ def cudnn_stack(x, layers):
             memory_format=torch.channels_last)
         y = F.conv2d(y, w, l.bias.to(torch.bfloat16), padding=1)
     return y
+
+
+def conv_weight_cl(wmat):
+    """A ``(9*cin, cout)`` weight matrix as cuDNN's bf16 OIHW weight,
+    channels-last."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.conv_chain import oihw
+
+    return oihw(wmat).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+
+
+def cudnn_conv(x, w_cl, bias):
+    """The library yardstick for K4: one cuDNN bf16 SAME conv with bias
+    (``F.conv2d``, channels-last), no activation, over NHWC ``x``."""
+    import torch.nn.functional as F
+
+    return F.conv2d(x.permute(0, 3, 1, 2), w_cl, bias, padding=1)
+
+
+def conv_work(n, h, w, cin, cout):
+    """``(bytes, flop)`` of one SAME 3x3 conv in bf16: the input read and
+    the output written once, the weights and bias read once."""
+    return (n * h * w * (cin + cout) * 2 + 9 * cin * cout * 2 + cout * 4,
+            2 * 9 * cin * cout * n * h * w)
+
+
+def esrgan_k4(rrdbs: int) -> int:
+    """K4 launches per frame of a basicsr RRDBNet: conv_first, five per
+    dense block (three per RRDB), conv_body, conv_up1."""
+    return 1 + 15 * rrdbs + 2
+
+
+def _conv_param(rng, cout, cin):
+    w = rng.normal(0, 0.6 / np.sqrt(9 * cin), (cout, cin, 3, 3))
+    return w.astype(np.float32), (rng.normal(0, 0.06, cout)).astype(np.float32)
+
+
+def esrgan_state_dict(seed: int, num_rrdb: int, nf: int = 64, gc: int = 32):
+    """A basicsr RRDBNet state dict with RealESRGAN_x4plus's keys and
+    shapes (nf 64, gc 32, 4x), weights N(0, 0.6/sqrt(fan_in)) and biases
+    N(0, 0.06) from ``seed``, conv_last's bias centred on 0.5: image-like
+    output (at 23 RRDBs about a fifth of the u8 values clip)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def put(name, cout, cin):
+        sd[name + ".weight"], sd[name + ".bias"] = _conv_param(rng, cout, cin)
+
+    put("conv_first", nf, 3)
+    for i in range(num_rrdb):
+        for j in (1, 2, 3):
+            for k in range(1, 6):
+                put(f"body.{i}.rdb{j}.conv{k}", nf if k == 5 else gc,
+                    nf + (k - 1) * gc)
+    for name in ("conv_body", "conv_up1", "conv_up2", "conv_hr"):
+        put(name, nf, nf)
+    put("conv_last", 3, nf)
+    sd["conv_last.bias"] += 0.5
+    return sd
+
+
+def srvgg_state_dict(seed: int, num_conv: int, nf: int, scale: int):
+    """An SRVGGNetCompact state dict (``body.{2i}`` conv, ``body.{2i+1}``
+    PReLU, num_conv + 1 pairs, then the tail conv) from ``seed``."""
+    rng = np.random.default_rng(seed)
+    sd, cin = {}, 3
+    for i in range(num_conv + 1):
+        sd[f"body.{2 * i}.weight"], sd[f"body.{2 * i}.bias"] = \
+            _conv_param(rng, nf, cin)
+        sd[f"body.{2 * i + 1}.weight"] = rng.uniform(0.05, 0.3, nf).astype(np.float32)
+        cin = nf
+    w, b = _conv_param(rng, 3 * scale * scale, nf)
+    sd[f"body.{2 * num_conv + 2}.weight"] = w * 0.3
+    sd[f"body.{2 * num_conv + 2}.bias"] = b
+    return sd
+
+
+def profile_shares(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its device kernel time
+    summed for K4, K1, torch.cat and the rest (with the three largest of
+    the rest), or ``device_ms="not measured"`` where the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {"k4": "conv3x3_fused_kernel", "k1": "chain_layer_kernel",
+              "cat": "CatArray"}
+    sums, rest = dict.fromkeys(groups, 0.0), {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        group = next((g for g, pat in groups.items() if pat in e.key), None)
+        if group:
+            sums[group] += us
+        else:
+            rest[e.key] = rest.get(e.key, 0.0) + us
+    total = sum(sums.values()) + sum(rest.values())
+    if total <= 0:
+        return {"device_ms": "not measured"}
+    out = {"device_ms": f"{total / 1e3:.2f}"}
+    for g, us in list(sums.items()) + [("other", sum(rest.values()))]:
+        out[f"{g}_ms"] = f"{us / 1e3:.2f}"
+        out[f"{g}_share"] = f"{us / total:.3f}"
+    top = sorted(rest.items(), key=lambda kv: -kv[1])[:3]
+    out["top_other"] = repr([(k[:48], round(us / 1e3, 2)) for k, us in top])
+    return out
 
 
 def image_like(n, h, w, seed, device):

@@ -17,6 +17,9 @@ output by ``2**-6 + 2**-7 * |want|`` at these weights (N(0, 0.05), whose
 pieces stay under |4|).  K6 sums the 5x5 box and the channel mean in f32 in
 another order than the plain version and scales by reciprocals, so its
 outputs agree within ``1e-5 + 1e-5 * |want|`` (measured: a few 1e-7).
+K4 rounds once to bf16 after an f32 sum in another order than the plain
+version's: ``2**-10 + 2**-7 * |want|``.  K3's f32 layout differs by f32
+sum order (``1e-4``), its u8 layouts by 1 LSB at a rounding boundary.
 """
 
 import numpy as np
@@ -27,6 +30,9 @@ from upscale_video_tpu_torch.ops.common import (
     ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
 )
 from upscale_video_tpu_torch.kernels import build
+from upscale_video_tpu_torch.ops.conv3x3 import (
+    conv3x3_fused, conv3x3_fused_plain,
+)
 from upscale_video_tpu_torch.ops.conv_chain import (
     conv3x3_chain, conv3x3_chain_plain, make_layer,
 )
@@ -36,7 +42,9 @@ from upscale_video_tpu_torch.ops.nlmeans import (
 from upscale_video_tpu_torch.ops.rdb import (
     GC, NF, pack_rdb_weights, rdb_block, rdb_block_plain,
 )
-from upscale_video_tpu_torch.ops.tail import sr_tail_chain, sr_tail_chain_plain
+from upscale_video_tpu_torch.ops.tail import (
+    sr_tail_chain, sr_tail_chain_plain, sr_tail_fused, sr_tail_fused_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -232,3 +240,89 @@ def test_prelude_step_launches_each_kernel(dev):
     assert nl_means_denoise.launches - k6 == 1
     assert conv3x3_chain.launches - k1 == 10 + 17
     assert sr_tail_chain.launches - k2 == 1
+
+
+@pytest.mark.parametrize("cin", [3, 12, 64, 96, 160, 192])
+@pytest.mark.parametrize("cout", [3, 32, 64])
+@pytest.mark.parametrize("act", [ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU])
+def test_conv3x3_kernel_matches_plain(dev, cin, cout, act):
+    rng = np.random.default_rng(cin * 1000 + cout * 10 + act)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 37, 53, cin)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    wmat = torch.from_numpy(rng.normal(0, 1 / np.sqrt(9 * cin), (9 * cin, cout))
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(0, 0.1, (cout,)).astype(np.float32)).to(dev)
+    slope = (torch.from_numpy(rng.uniform(0.1, 0.3, (cout,)).astype(np.float32)
+                              ).to(dev) if act == ACT_PRELU
+             else 0.2 if act == ACT_LEAKY else None)
+    before = conv3x3_fused.launches
+    got = conv3x3_fused(x, wmat, bias, slope, act)
+    torch.cuda.synchronize()
+    assert conv3x3_fused.launches - before == 1
+    want = conv3x3_fused_plain(x, wmat, bias, slope, act)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 2.0 ** -10 + 2.0 ** -7 * want.float().abs()).all())
+
+
+@pytest.mark.parametrize("cf", [64, 160, 512])
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("layout", ["planar", "frames", "model"])
+def test_plain_input_tail_kernel_matches_plain(dev, cf, s, layout):
+    rng = np.random.default_rng(cf + s)
+    u = torch.from_numpy(rng.normal(0, 0.5, (2, 37, 53, cf)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    skip = torch.from_numpy(rng.uniform(0, 1, (2, 37, 53, 3)).astype(np.float32)
+                            ).to(dev, torch.bfloat16)
+    wmat = torch.from_numpy(rng.normal(0, 0.3 / np.sqrt(9 * cf), (9 * cf, 3 * s * s))
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(0, 0.05, (3 * s * s,)).astype(np.float32)
+                            ).to(dev)
+    before = sr_tail_fused.launches
+    got = sr_tail_fused(u, skip, wmat, bias, s, layout)
+    torch.cuda.synchronize()
+    assert sr_tail_fused.launches - before == 1
+    want = sr_tail_fused_plain(u, skip, wmat, bias, s, layout)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    diff = (got.float() - want.float()).abs().max().item()
+    assert diff <= (1e-4 if layout == "model" else 1.0)
+
+
+def test_esrgan_forward_runs_every_solo_3x3_conv_on_k4(dev, monkeypatch):
+    """A 1-RRDB basicsr RRDBNet on the card: its 18 solo 3x3 convs are K4
+    launches, its last three one K1 chain, and no SAME 3x3 conv reaches
+    ``F.conv2d``."""
+    import torch.nn.functional as F
+
+    from upscale_video_tpu_torch.models import ops
+    from upscale_video_tpu_torch.models.zoo import make_synthetic_rrdb_model
+
+    seen = []
+    real = F.conv2d
+
+    def spy(x, w, *a, **k):
+        seen.append((tuple(w.shape), x.device.type))
+        return real(x, w, *a, **k)
+
+    monkeypatch.setattr(ops.F, "conv2d", spy)
+    model = make_synthetic_rrdb_model(num_rrdb=1, device=dev, variant="esrgan")
+    k4, k1 = conv3x3_fused.launches, conv3x3_chain.launches
+    out = model(torch.rand(1, 12, 16, 3, device=dev), "frames")
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (1, 48, 64, 3)
+    assert conv3x3_fused.launches - k4 == 1 + 15 + 2
+    assert conv3x3_chain.launches - k1 == 3
+    assert not [s for s, d in seen if d == "cuda" and s[2:] == (3, 3)]
+
+
+def test_wide_srvgg_step_launches_k4_and_k3(dev):
+    from upscale_video_tpu_torch.models.zoo import Model, make_srvgg_graph
+    from upscale_video_tpu_torch.models.bin_loader import synthesize_weights
+
+    g = make_srvgg_graph(scale=4, num_conv=2, num_feat=160)
+    model = Model("wide", 4, g, synthesize_weights(g, seed=0), dev)
+    k4, k3 = conv3x3_fused.launches, sr_tail_fused.launches
+    out = model(torch.rand(2, 12, 16, 3, device=dev), "planar")
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (2, 12, 16, 48) and out.dtype == torch.uint8
+    assert conv3x3_fused.launches - k4 == 3 and sr_tail_fused.launches - k3 == 1

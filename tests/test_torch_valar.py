@@ -139,8 +139,9 @@ def test_nearest_interp_equals_jax(attrs, hw):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_generic_ops_equal_jax(dtype):
     """Eltwise with coefficients (bf16 coefficients on bf16 operands),
-    BinaryOp, Concat, and the 3x3 (K1) and 1x1 convs with bias and leaky
-    activation, one rounding each."""
+    BinaryOp, Eltwise max, Concat, and the 3x3 and 1x1 generic convs (the
+    graph walk's route for convs outside its kernel plans) with bias and
+    leaky activation, one rounding each."""
     jd, td = (jnp.float32, torch.float32) if dtype == "f32" else \
         (jnp.bfloat16, torch.bfloat16)
     rng = np.random.default_rng(4)
@@ -163,8 +164,8 @@ def test_generic_ops_equal_jax(dtype):
          jax_executor._op_binaryop(add, [ja, jb], {}, jd))
     for layer in (NcnnLayer("BinaryOp", "o", ["a", "b"], ["c"], {0: 2}),
                   NcnnLayer("Eltwise", "e", ["a", "b"], ["c"], {0: 2})):
-        with pytest.raises(NotImplementedError):
-            port_ops.OP_REGISTRY[layer.type](layer, [ta, tb], None, td)
+        same(port_ops.OP_REGISTRY[layer.type](layer, [ta, tb], None, td),
+             jax_executor.OP_REGISTRY[layer.type](layer, [ja, jb], {}, jd))
     cat = NcnnLayer("Concat", "k", ["a", "b"], ["c"], {0: 0})
     same(port_ops.op_concat(cat, [ta, tb], None, td),
          jax_executor._op_concat(cat, [ja, jb], {}, jd))
@@ -276,8 +277,10 @@ def test_engine_build_defaults_for_m_r():
     assert eng.describe() == "valar-4x (scale 4x)"
     assert eng.planar_scale is None
     assert len(eng.sr_model.frames_forward("model").rdb_triggers) == 69
-    with pytest.raises(NotImplementedError):
-        ChainEngine.build(ChainSpec.parse("a,sr=x_Foo"), 2, "cpu", synthetic=True)
+    with pytest.raises(NotImplementedError, match="mixed"):
+        # sr= with --synthetic_models builds the Compact, on K1 + K2
+        ChainEngine.build(ChainSpec.parse("a,sr=x_Foo"), 2, "cpu",
+                          synthetic=True, residual_dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="mixed"):
         ChainEngine.build(ChainSpec(), 2, "cpu", synthetic=True,
                           residual_dtype=torch.float32)

@@ -70,27 +70,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_slice(args) -> None:
     """Raise ``NotImplementedError`` for every flag outside the port: the
-    ``-m`` chains of ``a``, ``n=K`` and ``r`` (not ``sr=``) at scales 1, 2
+    ``-m`` chains of ``a``, ``n=K``, ``r`` and ``sr=<stem>`` at scales 1, 2
     and 4, with or without ``--tta``; ``--tile_size`` and ``--precision
-    mixed`` for ``-m r`` only; f32 on the CPU only; ``--conv_impl auto``
-    (or ``rdb``, what auto is for ``-m r``)."""
+    mixed`` for ``-m r`` and ``sr=`` only (an ``sr=`` SRVGG on K1 + K2
+    refuses mixed when its model is planned); f32 on the CPU only;
+    ``--conv_impl auto`` (or ``rdb``, what auto is for ``-m r``)."""
     bad = []
-    real_life = False
+    real_life = tiled = False
     try:
         spec = ChainSpec.parse(args.models)
         real_life = spec.real_life
-        if spec.sr_file:
-            bad.append(f"-m {args.models}")
+        tiled = spec.real_life or bool(spec.sr_file)
     except ValueError:
         bad.append(f"-m {args.models}")
-    if args.tile_size not in (None, 0) and not real_life:
-        bad.append(f"--tile_size {args.tile_size} without -m r")
+    if args.tile_size not in (None, 0) and not tiled:
+        bad.append(f"--tile_size {args.tile_size} without -m r or sr=")
     on_cpu = str(args.device).startswith("cpu")
-    allowed = {"auto", "bf16"} | ({"mixed"} if real_life else set()) \
+    allowed = {"auto", "bf16"} | ({"mixed"} if tiled else set()) \
         | ({"f32"} if on_cpu else set())
     if args.precision not in allowed:
         bad.append(f"--precision {args.precision} on {args.device}"
-                   + ("" if real_life else " without -m r"))
+                   + ("" if tiled else " without -m r or sr="))
     if args.conv_impl not in ("auto", "rdb") or (
             args.conv_impl == "rdb" and not real_life):
         bad.append(f"--conv_impl {args.conv_impl}")

@@ -24,37 +24,31 @@
 // separate shuffle, skip-add or quantize pass over the 4K output).  The
 // conv core is shared with K1 (one 16-wide N fragment for s = 2, of which
 // 12 columns are used); one launch covers the whole frame batch.
+//
+// K3 (uvt_sr_tail_plain) is the same tail from a plain bf16 activation
+// (N, H, W, Cf), Cf up to 512: it replaces tail_pallas.py:_tail_kernel
+// (reached via sr_tail_fused / sr_tail_fused_batch), which returns the f32
+// model layout only; here it writes K2's three layouts with K2's epilogue.
+// Its mainloop is K4's (conv3x3_plain.cuh: the frame border predicated,
+// the input channels staged in chunks).  Bound: bytes, as K2's; a 160 ->
+// 12 tail reads 320 bytes per low-res pixel for 34,560 FLOP.
 
-#include "conv3x3_core.cuh"
+#include "conv3x3_plain.cuh"
 
 namespace uvt {
 
+// The tail's epilogue for one block of 16x16 low-res pixels at (y0, x0) of
+// frame n: each accumulator fragment goes through the warp's 16x16 f32
+// stage, + bias + the skip, then the layout's store.  Shared by K2 and K3.
 template <int NF>
-__global__ void __launch_bounds__(kThreads)
-sr_tail_kernel(const __nv_bfloat16* __restrict__ src,
-               const __nv_bfloat16* __restrict__ skip,
-               const __nv_bfloat16* __restrict__ wmat,
-               const float* __restrict__ bias, void* __restrict__ out,
-               int h, int w, int cin, int scale, int layout) {
-  extern __shared__ __align__(128) unsigned char smem[];
+__device__ inline void tail_epilogue(AccFrag (&acc)[2][NF], float* stage,
+                                     const __nv_bfloat16* __restrict__ skip,
+                                     const float* __restrict__ bias,
+                                     void* __restrict__ out, int n, int h,
+                                     int w, int scale, int layout, int y0,
+                                     int x0, int warp, int lane) {
   const int s2 = scale * scale;
   const int cout = 3 * s2;
-  const SmemPlan p = smem_plan(cin, cout);
-  __nv_bfloat16* in_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem + p.in_bytes);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* stage = reinterpret_cast<float*>(smem + p.in_bytes + p.w_bytes) +
-                 warp * 256;
-
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
-
-  load_halo(in_s, src, n, h + 2, w + 2, cin, p, y0, x0);
-  AccFrag acc[2][NF];
-  conv_tile<NF>(acc, in_s, w_s, wmat, cin, cout, p, warp);
-
   const int px = lane >> 1;
   const int t0 = (lane & 1) * 8;
   const size_t sh = (size_t)h * scale;
@@ -100,6 +94,59 @@ sr_tail_kernel(const __nv_bfloat16* __restrict__ src,
 }
 
 template <int NF>
+__global__ void __launch_bounds__(kThreads)
+sr_tail_kernel(const __nv_bfloat16* __restrict__ src,
+               const __nv_bfloat16* __restrict__ skip,
+               const __nv_bfloat16* __restrict__ wmat,
+               const float* __restrict__ bias, void* __restrict__ out,
+               int h, int w, int cin, int scale, int layout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const SmemPlan p = smem_plan(cin, 3 * scale * scale);
+  __nv_bfloat16* in_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem + p.in_bytes);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* stage = reinterpret_cast<float*>(smem + p.in_bytes + p.w_bytes) +
+                 warp * 256;
+
+  const int n = blockIdx.z;
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+
+  load_halo(in_s, src, n, h + 2, w + 2, cin, p, y0, x0);
+  AccFrag acc[2][NF];
+  conv_tile<NF>(acc, in_s, w_s, wmat, cin, 3 * scale * scale, p, warp);
+  tail_epilogue<NF>(acc, stage, skip, bias, out, n, h, w, scale, layout, y0,
+                    x0, warp, lane);
+}
+
+// K3: the same tail from a plain (N, h, w, cin) activation; the SAME
+// border is predicated in the mainloop (conv3x3_plain.cuh), whose channel
+// chunks take cin up to 512.
+template <int NF>
+__global__ void __launch_bounds__(kThreads)
+sr_tail_plain_kernel(const __nv_bfloat16* __restrict__ u,
+                     const __nv_bfloat16* __restrict__ skip,
+                     const __nv_bfloat16* __restrict__ wmat,
+                     const float* __restrict__ bias, void* __restrict__ out,
+                     int h, int w, int cin, int scale, int layout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const PlainPlan p = plain_plan(cin, NF);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.z;
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+
+  AccFrag acc[2][NF];
+  conv_tile_plain<NF>(acc, smem, u, wmat, n, h, w, cin, 3 * scale * scale,
+                      0, y0, x0, p, warp);
+  __syncthreads();  // every warp is done with the window: reuse it as stage
+  tail_epilogue<NF>(acc, reinterpret_cast<float*>(smem) + warp * 256, skip,
+                    bias, out, n, h, w, scale, layout, y0, x0, warp, lane);
+}
+
+template <int NF>
 static int launch_sr_tail(const void* src, const void* skip, const void* wmat,
                           const void* bias, void* out, int n, int h, int w,
                           int cin, int scale, int layout,
@@ -112,6 +159,25 @@ static int launch_sr_tail(const void* src, const void* skip, const void* wmat,
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
   sr_tail_kernel<NF><<<grid, kThreads, p.total, stream>>>(
       static_cast<const __nv_bfloat16*>(src),
+      static_cast<const __nv_bfloat16*>(skip),
+      static_cast<const __nv_bfloat16*>(wmat), static_cast<const float*>(bias),
+      out, h, w, cin, scale, layout);
+  return (int)cudaGetLastError();
+}
+
+template <int NF>
+static int launch_sr_tail_plain(const void* u, const void* skip,
+                                const void* wmat, const void* bias, void* out,
+                                int n, int h, int w, int cin, int scale,
+                                int layout, cudaStream_t stream) {
+  const PlainPlan p = plain_plan(cin, NF);
+  cudaError_t err = cudaFuncSetAttribute(
+      sr_tail_plain_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.total);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
+  sr_tail_plain_kernel<NF><<<grid, kThreads, p.total, stream>>>(
+      static_cast<const __nv_bfloat16*>(u),
       static_cast<const __nv_bfloat16*>(skip),
       static_cast<const __nv_bfloat16*>(wmat), static_cast<const float*>(bias),
       out, h, w, cin, scale, layout);
@@ -142,6 +208,29 @@ int uvt_sr_tail(const void* src, const void* skip, const void* wmat,
     case 5: return uvt::launch_sr_tail<5>(src, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
     case 6: return uvt::launch_sr_tail<6>(src, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
     default: return uvt::launch_sr_tail<7>(src, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
+  }
+}
+
+// K3, the tail from a plain activation.  Pointers: u (N, h, w, cin) bf16,
+// skip (N, h, w, 3) bf16, wmat (9*cin, 3*scale^2) bf16, bias (3*scale^2,)
+// f32, out per layout (see above).  Returns a cudaError_t code.
+int uvt_sr_tail_plain(const void* u, const void* skip, const void* wmat,
+                      const void* bias, void* out, int n, int h, int w,
+                      int cin, int scale, int layout, void* stream) {
+  if (n < 1 || h < 1 || w < 1 || cin < 1 || cin > 512 || scale < 1 ||
+      scale > 6 || layout < 0 || layout > 2 || n > 65535 ||
+      (h + uvt::kTileH - 1) / uvt::kTileH > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((3 * scale * scale + 15) / 16) {
+    case 1: return uvt::launch_sr_tail_plain<1>(u, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
+    case 2: return uvt::launch_sr_tail_plain<2>(u, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
+    case 3: return uvt::launch_sr_tail_plain<3>(u, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
+    case 4: return uvt::launch_sr_tail_plain<4>(u, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
+    case 5: return uvt::launch_sr_tail_plain<5>(u, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
+    case 6: return uvt::launch_sr_tail_plain<6>(u, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
+    default: return uvt::launch_sr_tail_plain<7>(u, skip, wmat, bias, out, n, h, w, cin, scale, layout, s);
   }
 }
 

@@ -31,8 +31,9 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("conv3x3_chain.cu", "sr_tail.cu", "rdb_block.cu", "nlmeans.cu")
-HEADERS = ("conv3x3_core.cuh",)
+SOURCES = ("conv3x3_chain.cu", "sr_tail.cu", "rdb_block.cu", "nlmeans.cu",
+           "conv3x3_fused.cu")
+HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -45,6 +46,10 @@ _SIGNATURES = {
     "uvt_conv3x3_chain_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # src, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream
     "uvt_sr_tail": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # u, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream
+    "uvt_sr_tail_plain": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # x, out, wmat, bias, slope, leaky, n, h, w, cin, cout, act, out_f32, stream
+    "uvt_conv3x3_fused": ([_P] * 5 + [ctypes.c_float] + [_I] * 7 + [_P], _I),
     # x, out, wpack, bpack, n, h, w, slope, stream
     "uvt_rdb_block": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
     # x, out, n, h, w, inv_h2, two_s2, stream

@@ -1,27 +1,30 @@
 """Graph planners + forward modules: the SRVGG (Compact) family with its
-shuffle tail, and the graph walk for everything else (the RRDBNet / Valar
-family, and the 1x SRVGG anime deblur model).
+shuffle tail, and the graph walk for everything else (the RRDBNet family,
+Valar and ESRGAN; the 1x SRVGG anime deblur model; SRVGG imports whose
+body is not one chain).
 
 SRVGG: port of the parts of ``upscale_video_tpu/models/executor.py`` that
 the Compact graph reaches with ``--conv_impl pallas``: ``_match_srvgg_tail``
 (:884), ``probe_srvgg_tail`` (:935) and the chain assembly
-(``_plan_pallas_fusion`` / ``_assemble_chains``, :705-881).  In the port
-this plan is the only one for the family: the whole body becomes one
-bordered conv chain (kernel K1, :mod:`upscale_video_tpu_torch.ops.conv_chain`)
-and the tail one fused tail launch (kernel K2,
-:mod:`upscale_video_tpu_torch.ops.tail`).  The JAX planner's TPU lane gate
-(``_pallas_fusable``'s ``cin >= 32``, executor.py:723-730) is not copied.
+(``_plan_pallas_fusion`` / ``_assemble_chains``, :705-881).  A graph whose
+body is one run of two or more chain-eligible convs becomes one bordered
+conv chain (kernel K1, :mod:`upscale_video_tpu_torch.ops.conv_chain`) and
+the tail one fused tail launch (kernel K2, :mod:`upscale_video_tpu_torch.ops.tail`).
+The JAX planner's TPU lane gate (``_pallas_fusable``'s ``cin >= 32``,
+executor.py:723-730) is not copied.
 
 Graph walk: port of ``_plan_rdb_blocks`` (:539-702, with
-``_dense_conv_class`` :383), of the bordered-chain assembly
-(``_assemble_chains`` :814) and of ``build_forward``'s graph walk
-(:1001-1570) for the generic ops in
-:mod:`upscale_video_tpu_torch.models.ops`: every matched dense block is
-one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`), every run of two or
-more linearly linked SAME 3x3 convs one K1 chain, every other layer one
-op; blobs are freed at their last use, and ``mixed`` keeps the residual
-spine (Eltwise/BinaryOp) in f32.  A 1x SRVGG graph (``PixelShuffle(1)``,
-``Interp(1)``: no tail for K2) is one K1 chain plus three generic ops.
+``_dense_conv_class`` :383), of ``_plan_pallas_fusion`` (:757-811) and the
+bordered-chain assembly (``_assemble_chains`` :814), of the Reorg mod-pad
+(:1222-1241) and of ``build_forward``'s graph walk (:1001-1570) for the
+generic ops in :mod:`upscale_video_tpu_torch.models.ops`: every matched
+dense block is one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`), every
+run of two or more linearly linked SAME 3x3 convs one K1 chain, every other
+SAME 3x3 stride-1 conv one K4 launch (:mod:`upscale_video_tpu_torch.ops.conv3x3`,
+with a PReLU that alone consumes it fused in), an SRVGG tail one K3 launch
+(:func:`~upscale_video_tpu_torch.ops.tail.sr_tail_fused`), every other
+layer one op; blobs are freed at their last use, and ``mixed`` keeps the
+residual spine (Eltwise/BinaryOp) in f32.
 
 A layer type outside the op set raises ``NotImplementedError``; nothing
 falls back.
@@ -34,16 +37,19 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
 from upscale_video_tpu_torch.models.bin_loader import _infer_conv_in_channels
 from upscale_video_tpu_torch.models.ops import OP_REGISTRY, conv_geometry
 from upscale_video_tpu_torch.models.param_parser import NcnnGraph, NcnnLayer
 from upscale_video_tpu_torch.ops.common import (
     ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
 )
+from upscale_video_tpu_torch.ops.conv3x3 import conv3x3_fused
 from upscale_video_tpu_torch.ops.conv_chain import ChainLayer, conv3x3_chain
 from upscale_video_tpu_torch.ops.pixel import model_to_frames
 from upscale_video_tpu_torch.ops.rdb import RDBWeights, pack_rdb_weights, rdb_block
-from upscale_video_tpu_torch.ops.tail import LAYOUTS, sr_tail_chain
+from upscale_video_tpu_torch.ops.tail import LAYOUTS, sr_tail_chain, sr_tail_fused
 
 SUPPORTED_OPS = frozenset({
     "Input", "Split", "Convolution", "PReLU", "PixelShuffle", "Interp",
@@ -116,28 +122,49 @@ def _match_srvgg_tail(graph: NcnnGraph, consumers, conv_idx: int):
     }
 
 
-def probe_srvgg_tail(graph: NcnnGraph) -> Optional[int]:
-    """The SRVGG tail's shuffle factor when ``graph`` ends in it, else None
-    (executor.py:935)."""
+def _find_tail(graph: NcnnGraph, consumers) -> Optional[dict]:
+    """The SRVGG tail that ends ``graph`` (its one output, consumed by no
+    layer): :func:`_match_srvgg_tail`'s plan plus ``"conv"``, the tail
+    conv's name; None where the graph does not end in one."""
     outputs = graph.output_blobs
-    if len(graph.input_blobs) != 1 or len(outputs) != 1:
+    if len(graph.input_blobs) != 1 or len(outputs) != 1 \
+            or consumers.get(outputs[0]):
         return None
-    consumers = _consumers(graph)
     for idx, layer in enumerate(graph.layers):
-        if layer.type != "Convolution":
-            continue
-        t = _match_srvgg_tail(graph, consumers, idx)
-        if t is not None and t["out"] == outputs[0] \
-                and not consumers.get(t["out"]):
-            return t["scale"]
+        if layer.type == "Convolution":
+            t = _match_srvgg_tail(graph, consumers, idx)
+            if t is not None and t["out"] == outputs[0]:
+                return dict(t, conv=layer.name)
     return None
 
 
-def plan_srvgg(graph: NcnnGraph) -> dict:
-    """Plan ``graph`` as one conv chain + one fused tail.
+def probe_srvgg_tail(graph: NcnnGraph) -> Optional[int]:
+    """The SRVGG tail's shuffle factor when ``graph`` ends in it, else None
+    (executor.py:935)."""
+    tail = _find_tail(graph, _consumers(graph))
+    return tail["scale"] if tail is not None else None
 
-    Returns ``{"items": [{"name", "prelu", "act", "slope_attr"}, ...],
-    "tail": {"conv", "scale", "skip_blob", "out"}}``.  Raises
+
+def _conv_item(graph: NcnnGraph, consumers, layer: NcnnLayer) -> dict:
+    """A conv as a plan item ``{"name", "prelu", "act", "slope_attr",
+    "out"}``: a conv with no fused activation takes in a PReLU that alone
+    consumes it, and ``out`` is the blob the item ends in."""
+    item = {"name": layer.name, "prelu": None, "act": layer.attr_i(9, 0),
+            "slope_attr": layer.attr(10, [0.0]), "out": layer.outputs[0]}
+    cons = consumers.get(item["out"], [])
+    if item["act"] == 0 and len(cons) == 1 \
+            and graph.layers[cons[0]].type == "PReLU":
+        item["prelu"] = graph.layers[cons[0]].name
+        item["out"] = graph.layers[cons[0]].outputs[0]
+    return item
+
+
+def plan_srvgg(graph: NcnnGraph) -> dict:
+    """Plan ``graph`` as one conv chain of two or more layers + one fused
+    tail.
+
+    Returns ``{"items": [{"name", "prelu", "act", "slope_attr", "out"},
+    ...], "tail": {"conv", "scale", "skip_blob", "out"}}``.  Raises
     ``NotImplementedError`` for any graph that is not exactly that."""
     unsupported = sorted({l.type for l in graph.layers}
                          - SUPPORTED_OPS)
@@ -149,13 +176,7 @@ def plan_srvgg(graph: NcnnGraph) -> dict:
         raise NotImplementedError(
             f"one input and one output expected, got {inputs} / {outputs}")
     consumers = _consumers(graph)
-    tail = None
-    for idx, layer in enumerate(graph.layers):
-        if layer.type == "Convolution":
-            t = _match_srvgg_tail(graph, consumers, idx)
-            if t is not None and t["out"] == outputs[0]:
-                tail = dict(t, conv=layer.name)
-                break
+    tail = _find_tail(graph, consumers)
     if tail is None:
         raise NotImplementedError(
             "graph does not end in the SRVGG tail (conv -> PixelShuffle -> "
@@ -188,26 +209,28 @@ def plan_srvgg(graph: NcnnGraph) -> dict:
                 "stride-1 conv the chain kernel takes")
         if layer.name == tail["conv"]:
             break
-        item = {"name": layer.name, "prelu": None,
-                "act": layer.attr_i(9, 0),
-                "slope_attr": layer.attr(10, [0.0])}
-        claimed.add(layer.name)
-        blob = layer.outputs[0]
-        nxt = consumers.get(blob, [])
-        if item["act"] == 0 and len(nxt) == 1 \
-                and graph.layers[nxt[0]].type == "PReLU":
-            prelu = graph.layers[nxt[0]]
-            item["prelu"] = prelu.name
-            claimed.add(prelu.name)
-            blob = prelu.outputs[0]
+        item = _conv_item(graph, consumers, layer)
+        claimed.update(n for n in (item["name"], item["prelu"]) if n)
+        blob = item["out"]
         items.append(item)
-    if not items:
-        raise NotImplementedError("SRVGG graph with no body convolution")
+    if len(items) < 2:
+        raise NotImplementedError(
+            f"SRVGG body of {len(items)} conv(s): no chain to run on K1")
     left = [l.name for l in graph.layers
             if l.type != "Input" and l.name not in claimed]
     if left:
         raise NotImplementedError(f"layers outside the chain + tail plan: {left}")
     return {"items": items, "tail": tail}
+
+
+def _solo_args(item: dict, state):
+    """A solo conv item -> K4's ``(wmat, bias, slope, act)``: the PReLU's
+    slope tensor, the leaky slope as a float (no device read), else None."""
+    lw = state[item["name"]]
+    act = _act_code(item)
+    slope = (state[item["prelu"]].slope if act == ACT_PRELU
+             else float(item["slope_attr"][0]) if act == ACT_LEAKY else None)
+    return lw.wmat, lw.bias, slope, act
 
 
 def _act_code(item: dict) -> int:
@@ -247,20 +270,10 @@ def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
     executor.py:757-864, without the solo-conv plans).  Returns ``({first
     conv name: {"items", "out"}}, absorbed layer names)``; ``exclude``
     holds convs another plan claims."""
-    links = {}  # conv name -> (chain item, blob the item ends in)
-    for layer in graph.layers:
-        if (layer.type != "Convolution" or layer.name in exclude
-                or not _chain_eligible(layer)):
-            continue
-        item = {"name": layer.name, "prelu": None, "act": layer.attr_i(9, 0),
-                "slope_attr": layer.attr(10, [0.0])}
-        out = layer.outputs[0]
-        cons = consumers.get(out, [])
-        if item["act"] == 0 and len(cons) == 1 \
-                and graph.layers[cons[0]].type == "PReLU":
-            item["prelu"] = graph.layers[cons[0]].name
-            out = graph.layers[cons[0]].outputs[0]
-        links[layer.name] = (item, out)
+    links = {layer.name: _conv_item(graph, consumers, layer)
+             for layer in graph.layers
+             if layer.type == "Convolution" and layer.name not in exclude
+             and _chain_eligible(layer)}
     chains: Dict[str, dict] = {}
     absorbed: set = set()
     used: set = set()
@@ -269,7 +282,7 @@ def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
             continue
         seq = [layer.name]
         while True:
-            cons = consumers.get(links[seq[-1]][1], [])
+            cons = consumers.get(links[seq[-1]]["out"], [])
             if len(cons) != 1:
                 break
             nxt = graph.layers[cons[0]].name
@@ -278,8 +291,8 @@ def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
             seq.append(nxt)
         if len(seq) < 2:
             continue
-        items = [links[n][0] for n in seq]
-        chains[seq[0]] = {"items": items, "out": links[seq[-1]][1]}
+        items = [links[n] for n in seq]
+        chains[seq[0]] = {"items": items, "out": items[-1]["out"]}
         used.update(seq)
         absorbed.update(seq[1:])
         absorbed.update(it["prelu"] for it in items if it["prelu"])
@@ -491,35 +504,57 @@ def _plan_rdb_blocks(graph: NcnnGraph, consumers: Dict[str, List[int]]):
     return blocks, absorbed
 
 
+def _plan_solos(graph: NcnnGraph, consumers: Dict[str, List[int]],
+                claimed) -> Dict[str, dict]:
+    """Every SAME 3x3 stride-1 conv with a none/relu/leaky activation that
+    no other plan claims, as one K4 launch; a PReLU that alone consumes a
+    conv with no fused activation joins it (``_plan_pallas_fusion``'s
+    per-layer plans, executor.py:786-798, without the ``cin >= 32`` gate).
+    Returns ``{conv name: {"name", "prelu", "act", "slope_attr", "out"}}``."""
+    return {layer.name: _conv_item(graph, consumers, layer)
+            for layer in graph.layers
+            if layer.name not in claimed and _dense_conv_class(layer) == "3x3"}
+
+
 class GraphForward(nn.Module):
-    """Stateless forward of a graph without the SRVGG shuffle tail (the
-    RRDBNet / Valar family, the 1x SRVGG anime model): ``fwd(state, x)``
-    walks the layers in order, as the JAX ``build_forward`` does.
+    """Stateless forward of a graph that is not one K1 chain + K2 tail (the
+    RRDBNet family, the 1x SRVGG anime model, wide or one-conv SRVGG
+    imports): ``fwd(state, x)`` walks the layers in order, as the JAX
+    ``build_forward`` does.
 
     - Every run of two or more linearly linked SAME 3x3 convs (with their
       PReLUs) is one K1 chain over the run's input cast to the compute
       dtype (:func:`_plan_chains`; on the CPU K1's plain version, in the
       compute dtype).  The 1x anime model's whole conv stack is one chain;
       its ``PixelShuffle(1)``, ``Interp(1)`` and skip add run as generic ops.
-    - Under a bf16 compute dtype every matched dense block is one K5
+    - Under a bf16 compute dtype every matched Valar dense block is one K5
       launch on the block's input cast to bf16; its output comes back in
       bf16.  Its packed weights live in ``state`` under the trigger's name,
-      put there once by :meth:`prepare`.  Under f32 (the CPU parity path) the blocks run as
-      generic ops, as the JAX package's f32 path does.
+      put there once by :meth:`prepare`.  Under f32 (the CPU parity path) the
+      blocks run as generic ops, as the JAX package's f32 path does.
+    - Under bf16 every other SAME 3x3 stride-1 conv is one K4 launch
+      (:func:`_plan_solos`), a PReLU that alone consumes it fused in; under
+      f32 such convs are generic ops (``F.conv2d`` in f32).
+    - A graph ending in the SRVGG tail (``probe_srvgg_tail``) runs its tail
+      conv, shuffle, skip Interp and add as one K3 launch, which writes the
+      ``emit`` layout itself (``planar`` too).
     - ``residual_dtype=torch.float32`` with bf16 compute is ``mixed``: the
       inputs of every Eltwise and BinaryOp are upcast to f32 and their
       results flow on in f32 (``_spine_cast``, executor.py:1214); the next
       conv or dense block rounds its own input to bf16.
+    - A graph with a Reorg of stride r edge-pads the input's H and W to
+      multiples of r and crops the output back (executor.py:1222-1241).
     - The JAX executor's canvas-eltwise branch (executor.py:1492) needs a
       canvas on every combine operand; an RRDB's skip operand never has
       one, so on the Valar graph every combine takes the generic path,
       which is the one ported (pinned by tests/test_torch_valar.py).
 
     ``x``: model-domain ``(N, H, W, 3)`` (BGR, [0, 1]).  ``emit="model"``
-    returns float32 ``(N, sH, sW, 3)``; ``"frames"`` uint8 RGB.
+    returns float32 ``(N, sH, sW, 3)``; ``"frames"`` uint8 RGB;
+    ``"planar"`` (SRVGG tail only) uint8 ``(N, H, W, 3*s*s)``.
     """
 
-    EMITS = ("model", "frames")
+    EMITS = LAYOUTS
 
     def __init__(self, graph: NcnnGraph, device: torch.device,
                  compute_dtype: torch.dtype, residual_dtype, emit: str):
@@ -535,9 +570,14 @@ class GraphForward(nn.Module):
                 f"one input and one output expected, got "
                 f"{graph.input_blobs} / {graph.output_blobs}")
         consumers = _consumers(graph)
+        self.tail = _find_tail(graph, consumers)
+        if emit == "planar" and self.tail is None:
+            raise ValueError("emit 'planar' needs the SRVGG shuffle tail")
+        tail_names = (self.tail["absorbed"] | {self.tail["conv"]}
+                      if self.tail else set())
         blocks, absorbed = _plan_rdb_blocks(graph, consumers)
-        self.chains, self.chain_absorbed = _plan_chains(graph, consumers,
-                                                        absorbed)
+        self.chains, self.chain_absorbed = _plan_chains(
+            graph, consumers, absorbed | tail_names)
         self.graph = graph
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
@@ -547,10 +587,27 @@ class GraphForward(nn.Module):
         fused = compute_dtype != torch.float32
         self.rdb_triggers = {b["trigger"]: b for b in blocks} if fused else {}
         self.rdb_absorbed = absorbed if fused else set()
+        self.solos = (_plan_solos(graph, consumers,
+                                  self.rdb_absorbed | set(self.chains)
+                                  | self.chain_absorbed | tail_names)
+                      if fused else {})
+        self.absorbed = (self.rdb_absorbed | self.chain_absorbed
+                         | (tail_names - {self.tail["conv"]} if self.tail
+                            else set())
+                         | {s["prelu"] for s in self.solos.values()
+                            if s["prelu"]})
+        self.reorg_mod = max([l.attr_i(0, 1) for l in graph.layers
+                              if l.type == "Reorg"] or [1])
         self.last_use: Dict[str, int] = {}
         for i, layer in enumerate(graph.layers):
             for b in layer.inputs:
                 self.last_use[b] = i
+        if self.tail:
+            # the skip is read at the tail conv, wherever its Interp sits
+            conv_idx = next(i for i, l in enumerate(graph.layers)
+                            if l.name == self.tail["conv"])
+            blob = self.tail["skip_blob"]
+            self.last_use[blob] = max(self.last_use.get(blob, -1), conv_idx)
 
     def prepare(self, state: nn.ModuleDict) -> None:
         """Add each dense block's packed K5 weights to ``state`` under its
@@ -580,8 +637,13 @@ class GraphForward(nn.Module):
                 f"this state (first: {unpacked[0]}): call prepare(state)")
         cd = self.compute_dtype
         graph = self.graph
-        blobs: Dict[str, torch.Tensor] = {
-            graph.input_blobs[0]: x.to(device=self.device, dtype=cd)}
+        x = x.to(self.device)
+        in_h, in_w = x.shape[1], x.shape[2]
+        mod_h, mod_w = (-in_h) % self.reorg_mod, (-in_w) % self.reorg_mod
+        if mod_h or mod_w:
+            x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
+                      mode="replicate").permute(0, 2, 3, 1)
+        blobs: Dict[str, torch.Tensor] = {graph.input_blobs[0]: x.to(cd)}
 
         def free(i, layer):
             for b in layer.inputs:
@@ -597,44 +659,54 @@ class GraphForward(nn.Module):
                 blobs[block["out"]] = rdb_block(
                     blobs[layer.inputs[1]].to(cd).contiguous(),
                     RDBWeights(pw.wpack, pw.bpack, block["slope"]))
-                free(i, layer)
-                continue
-            chain = self.chains.get(layer.name)
-            if chain is not None:
+            elif layer.name in self.chains:
+                chain = self.chains[layer.name]
                 blobs[chain["out"]] = conv3x3_chain(
                     blobs[layer.inputs[0]].to(cd).contiguous(),
                     chain_layers(chain["items"], state))
-                free(i, layer)
-                continue
-            if layer.name in self.rdb_absorbed or \
-                    layer.name in self.chain_absorbed:
-                free(i, layer)
-                continue
-            ins = [blobs[b] for b in layer.inputs]
-            if self.residual_f32 and layer.type in ("Eltwise", "BinaryOp"):
-                ins = [t.to(torch.float32) if t.is_floating_point() else t
-                       for t in ins]
-            p = state[layer.name] if layer.name in state else None
-            out = OP_REGISTRY[layer.type](layer, ins, p, cd)
-            if isinstance(out, list):
-                for name, t in zip(layer.outputs, out):
-                    blobs[name] = t
-            else:
-                blobs[layer.outputs[0]] = out
+            elif layer.name in self.solos:
+                solo = self.solos[layer.name]
+                blobs[solo["out"]] = conv3x3_fused(
+                    blobs[layer.inputs[0]].to(cd).contiguous(),
+                    *_solo_args(solo, state), out_dtype=cd)
+            elif self.tail is not None and layer.name == self.tail["conv"]:
+                tw = state[layer.name]
+                blobs[self.tail["out"]] = sr_tail_fused(
+                    blobs[layer.inputs[0]].to(cd).contiguous(),
+                    blobs[self.tail["skip_blob"]].to(cd).contiguous(),
+                    tw.wmat, tw.bias, self.tail["scale"], self.emit)
+            elif layer.name not in self.absorbed:
+                ins = [blobs[b] for b in layer.inputs]
+                if self.residual_f32 and layer.type in ("Eltwise", "BinaryOp"):
+                    ins = [t.to(torch.float32) if t.is_floating_point() else t
+                           for t in ins]
+                p = state[layer.name] if layer.name in state else None
+                out = OP_REGISTRY[layer.type](layer, ins, p, cd)
+                if isinstance(out, list):
+                    for name, t in zip(layer.outputs, out):
+                        blobs[name] = t
+                else:
+                    blobs[layer.outputs[0]] = out
             free(i, layer)
-        y = blobs[graph.output_blobs[0]].to(torch.float32)
-        if self.emit == "frames":
-            y = model_to_frames(y)
+        y = blobs[graph.output_blobs[0]]
+        if self.tail is None:
+            y = y.to(torch.float32)
+            if mod_h or mod_w:
+                r = y.shape[1] // (in_h + mod_h)
+                y = y[:, :in_h * r, :in_w * r]
+            if self.emit == "frames":
+                y = model_to_frames(y)
         return y[0] if squeeze else y
 
 
 def build_forward(graph: NcnnGraph, device: "torch.device | str",
                   compute_dtype: torch.dtype = torch.bfloat16,
                   emit: str = "model", residual_dtype=None):
-    """Plan ``graph`` and return its forward module: a graph ending in the
-    SRVGG shuffle tail gets :class:`SRVGGForward` (K1 then K2), any other
-    :class:`GraphForward` (K5 per Valar dense block, K1 per conv chain,
-    generic ops between); a layer type outside the op set raises.
+    """Plan ``graph`` and return its forward module: a graph that is one
+    conv chain ending in the SRVGG shuffle tail gets :class:`SRVGGForward`
+    (K1 then K2), any other :class:`GraphForward` (K5 per Valar dense
+    block, K1 per conv chain, K4 per other SAME 3x3 conv, K3 for an SRVGG
+    tail, generic ops between); a layer type outside the op set raises.
 
     ``compute_dtype`` bf16 runs the kernels on CUDA (held to the JAX
     Pallas path); float32 is accepted only on the CPU, where the plain
@@ -649,10 +721,16 @@ def build_forward(graph: NcnnGraph, device: "torch.device | str",
     if device.type == "cuda" and compute_dtype != torch.bfloat16:
         raise NotImplementedError(
             "the CUDA kernels compute in bf16; float32 runs on the CPU only")
+    plan = None
     if probe_srvgg_tail(graph) is not None:
+        try:
+            plan = plan_srvgg(graph)
+        except NotImplementedError:
+            pass  # no single K1 chain: the graph walk, the tail on K3
+    if plan is not None:
         if residual_dtype is not None:
             raise NotImplementedError(
-                "--precision mixed is ported for graphs without the "
-                "SRVGG shuffle tail only (-m r and its pre-SR stages)")
-        return SRVGGForward(plan_srvgg(graph), device, compute_dtype, emit)
+                "--precision mixed is ported for the graph walk only, not "
+                "for an SRVGG graph on K1 + K2")
+        return SRVGGForward(plan, device, compute_dtype, emit)
     return GraphForward(graph, device, compute_dtype, residual_dtype, emit)

@@ -1,51 +1,57 @@
 """The generic ncnn op set the graph walk runs outside its kernels' plans
-(the Valar graph outside its dense blocks; the 1x anime model's shuffle,
-resize and skip add).
+(the RRDBNet graphs outside their dense blocks and conv plans; the 1x anime
+model's shuffle, resize and skip add; whatever else a ``vsr-import`` graph
+holds).
 
-Port of ``upscale_video_tpu/models/executor.py:42-104, 151-267``: each op
-takes ``(layer, inputs, p, compute_dtype)`` as its JAX counterpart does,
-with NHWC tensors, and ``p`` is the layer's weight module from
-:func:`upscale_video_tpu_torch.models.zoo.params_from_jax` (``wmat`` in
-the compute dtype, ``bias`` f32).
+Port of ``upscale_video_tpu/models/executor.py:42-333`` (``OP_REGISTRY``):
+each op takes ``(layer, inputs, p, compute_dtype)`` as its JAX counterpart
+does, with NHWC tensors, and ``p`` is the layer's weight module from
+:func:`upscale_video_tpu_torch.models.zoo.params_from_jax` (``wmat`` in the
+compute dtype, ``bias`` f32; ``wflat`` for a ConvolutionDepthWise).
 
-A Convolution computes in f32 from compute-dtype operands, adds the f32
-bias, applies its fused activation in f32 and rounds once to the compute
-dtype (``_op_convolution``).  A SAME 3x3 stride-1 conv goes through K1's
-single-layer launch (:func:`~upscale_video_tpu_torch.ops.conv_chain.conv3x3_chain`),
-which computes exactly that; any other conv is an ``F.conv2d`` in f32
-with TF32 off.  Neither path rounds anywhere the JAX path does not.
+A Convolution here is an ``F.conv2d`` in f32 (TF32 off) from compute-dtype
+operands, + the f32 bias and its fused activation in f32, rounded once to
+the compute dtype (``_op_convolution``).  The graph walk reaches it only
+for convs no kernel plan claims: 1x1 and strided convs, and under f32 (the
+CPU parity path) every conv; under bf16 every SAME 3x3 stride-1 conv is a
+K4 launch planned in :mod:`upscale_video_tpu_torch.models.executor`.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from upscale_video_tpu_torch.models.param_parser import NcnnLayer
-from upscale_video_tpu_torch.ops.common import ACT_LEAKY, ACT_NONE, ACT_RELU
-from upscale_video_tpu_torch.ops.conv_chain import (
-    ChainLayer, conv3x3_chain, no_tf32,
-)
+from upscale_video_tpu_torch.ops.conv_chain import no_tf32
 
 # CHW axis -> NHWC axis (Concat attribute 0)
 _CHW_TO_NHWC = {0: 3, 1: 1, 2: 2}
-_ACT_CODES = {0: ACT_NONE, 1: ACT_RELU, 2: ACT_LEAKY}
 
 
 def apply_activation(x: torch.Tensor, act_type: int,
                      act_params: Sequence[float]) -> torch.Tensor:
-    """ncnn fused conv activations 0 none, 1 relu, 2 leaky(slope)
-    (``_apply_activation``, executor.py:42)."""
+    """ncnn fused conv activations: 0 none, 1 relu, 2 leaky(slope), 3
+    clip(min, max), 4 sigmoid, 5 mish, 6 hardswish (``_apply_activation``,
+    executor.py:42)."""
     if act_type == 0:
         return x
     if act_type == 1:
         return torch.clamp_min(x, 0)
     if act_type == 2:
-        slope = torch.tensor(act_params[0], dtype=x.dtype, device=x.device)
-        return torch.where(x >= 0, x, x * slope)
-    raise NotImplementedError(f"activation type {act_type} is not ported")
+        return torch.where(x >= 0, x, x * _scalar(act_params[0], x))
+    if act_type == 3:
+        return torch.clamp(x, act_params[0], act_params[1])
+    if act_type == 4:
+        return torch.sigmoid(x)
+    if act_type == 5:
+        return x * torch.tanh(F.softplus(x))
+    if act_type == 6:
+        return x * torch.clamp(x * act_params[0] + act_params[1], 0.0, 1.0)
+    raise NotImplementedError(f"activation type {act_type}")
 
 
 def conv_geometry(layer: NcnnLayer):
@@ -63,37 +69,42 @@ def conv_geometry(layer: NcnnLayer):
     return kh, kw, (sh, sw), (dh, dw), (pad_t, pad_b, pad_l, pad_r)
 
 
-def k1_layer(layer: NcnnLayer, p) -> ChainLayer:
-    """A SAME 3x3 conv's weights and fused activation as K1's one layer."""
-    act = layer.attr_i(9, 0)
-    slope = torch.full((p.wmat.shape[1],), float(layer.attr(10, [0.0])[0])
-                       if act == 2 else 0.0,
-                       dtype=torch.float32, device=p.wmat.device)
-    return ChainLayer(p.wmat, p.bias, slope, _ACT_CODES[act])
+def _conv(layer, x, w_oihw, bias, compute_dtype, groups=1):
+    """f32 conv over compute-dtype operands + bias + activation, rounded
+    once to the compute dtype."""
+    kh, kw, stride, dil, pads = conv_geometry(layer)
+    if pads[0] == -233:
+        raise NotImplementedError(f"{layer.name}: SAME_UPPER auto-pad")
+    xin = x.to(compute_dtype).to(torch.float32).permute(0, 3, 1, 2)
+    xin = F.pad(xin, (pads[2], pads[3], pads[0], pads[1]))
+    with no_tf32():
+        y = F.conv2d(xin, w_oihw.to(compute_dtype).to(torch.float32),
+                     stride=stride, dilation=dil, groups=groups)
+    y = y.permute(0, 2, 3, 1)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    y = apply_activation(y, layer.attr_i(9, 0), layer.attr(10, []))
+    return y.to(compute_dtype)
 
 
 def op_convolution(layer: NcnnLayer, inputs, p, compute_dtype):
     (x,) = inputs
-    kh, kw, stride, dil, pads = conv_geometry(layer)
-    act = layer.attr_i(9, 0)
-    if act not in _ACT_CODES:
-        raise NotImplementedError(f"{layer.name}: activation type {act}")
+    kh, kw = conv_geometry(layer)[:2]
     cin, cout = p.wmat.shape[0] // (kh * kw), p.wmat.shape[1]
-    if (kh, kw, stride, dil, pads) == (3, 3, (1, 1), (1, 1), (1, 1, 1, 1)) \
-            and cin <= 128 and cout <= 128 and p.wmat.dtype == compute_dtype:
-        return conv3x3_chain(x.to(compute_dtype).contiguous(),
-                             [k1_layer(layer, p)])
-    if pads[0] == -233:
-        raise NotImplementedError(f"{layer.name}: SAME_UPPER auto-pad")
-    w = (p.wmat.to(torch.float32).reshape(kh, kw, cin, cout)
-         .permute(3, 2, 0, 1))
-    xin = x.to(compute_dtype).to(torch.float32).permute(0, 3, 1, 2)
-    xin = F.pad(xin, (pads[2], pads[3], pads[0], pads[1]))
-    with no_tf32():
-        y = F.conv2d(xin, w, stride=stride, dilation=dil)
-    y = y.permute(0, 2, 3, 1) + p.bias.to(torch.float32)
-    y = apply_activation(y, act, layer.attr(10, []))
-    return y.to(compute_dtype)
+    w = p.wmat.reshape(kh, kw, cin, cout).permute(3, 2, 0, 1)
+    return _conv(layer, x, w, p.bias, compute_dtype)
+
+
+def op_convolution_depthwise(layer: NcnnLayer, inputs, p, compute_dtype):
+    """ncnn ConvolutionDepthWise: ``group`` blocks of (out/g, in/g, kh, kw)
+    weights, which is ``F.conv2d``'s grouped OIHW layout
+    (``_op_convolution_depthwise``, executor.py:107)."""
+    (x,) = inputs
+    group = layer.attr_i(7, 1)
+    kh, kw = conv_geometry(layer)[:2]
+    cout, cin = layer.attr_i(0), x.shape[-1]
+    w = p.wflat.reshape(cout, cin // group, kh, kw)
+    return _conv(layer, x, w, getattr(p, "bias", None), compute_dtype, group)
 
 
 def op_prelu(layer: NcnnLayer, inputs, p, compute_dtype):
@@ -120,9 +131,66 @@ def op_pixelshuffle(layer: NcnnLayer, inputs, p, compute_dtype):
     return x.reshape(n, h * r, w * r, c_out)
 
 
+def op_reorg(layer: NcnnLayer, inputs, p, compute_dtype):
+    """ncnn Reorg (attr 0 stride r), space-to-depth in torch
+    ``pixel_unshuffle`` order: channel ``c`` at pixel ``(y*r + i, x*r + j)``
+    lands in channel ``c*r*r + i*r + j`` (``_op_reorg``, executor.py:299)."""
+    (x,) = inputs
+    r = layer.attr_i(0, 1)
+    if r == 1:
+        return x
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(n, h // r, w // r, c * r * r)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic kernel with a = -0.5 (``jax.image``'s; torch's bicubic
+    takes -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(np.float32)
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - np.abs(x)).astype(np.float32)
+
+
+def resize_weights(size_in: int, size_out: int, kernel) -> np.ndarray:
+    """The (size_in, size_out) f32 sampling matrix of ``jax.image.resize``
+    along one axis (``compute_weight_mat`` with no translation and
+    antialiasing on): half-pixel centres, the kernel widened by the
+    downscale factor, columns normalised, samples outside the input zero."""
+    f32 = np.float32
+    inv = f32(1.0 / (size_out / size_in))
+    sample = (np.arange(size_out, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    dist = np.abs(sample[None, :] - np.arange(size_in, dtype=f32)[:, None])
+    w = kernel(dist / max(inv, f32(1.0)))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= size_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(f32)
+
+
+def _resize(x: torch.Tensor, out_h: int, out_w: int, kernel) -> torch.Tensor:
+    """``jax.image.resize`` with a separable kernel: one f32 contraction
+    per resized axis, in the input's dtype at the end."""
+    n, h, w, c = x.shape
+    y = x.to(torch.float32)
+    if out_h != h:
+        wh = torch.from_numpy(resize_weights(h, out_h, kernel)).to(x.device)
+        y = torch.einsum("nhwc,ho->nowc", y, wh)
+    if out_w != w:
+        ww = torch.from_numpy(resize_weights(w, out_w, kernel)).to(x.device)
+        y = torch.einsum("nhwc,wo->nhoc", y, ww)
+    return y.to(x.dtype)
+
+
 def op_interp(layer: NcnnLayer, inputs, p, compute_dtype):
-    """Nearest ncnn Interp: integer scales as a repeat, else the floor map
-    ``src = (dst * h) // out_h`` (``_op_interp``, executor.py:180)."""
+    """ncnn Interp (``_op_interp``, executor.py:180).  Nearest: integer
+    scales as a repeat, else the floor map ``src = (dst * h) // out_h``;
+    bilinear (2) and bicubic (3) as ``jax.image.resize``."""
     (x,) = inputs
     rtype = layer.attr_i(0, 0)
     n, h, w, c = x.shape
@@ -130,8 +198,12 @@ def op_interp(layer: NcnnLayer, inputs, p, compute_dtype):
     out_w = layer.attr_i(4, 0) or int(w * layer.attr_f(2, 1.0))
     if (out_h, out_w) == (h, w):
         return x
+    if rtype == 2:
+        return _resize(x, out_h, out_w, _triangle)
+    if rtype == 3:
+        return _resize(x, out_h, out_w, _keys_cubic)
     if rtype not in (0, 1):
-        raise NotImplementedError(f"Interp resize_type {rtype} is not ported")
+        raise NotImplementedError(f"Interp resize_type {rtype}")
     if out_h % h == 0 and out_w % w == 0:
         return (x.repeat_interleave(out_h // h, dim=1)
                 .repeat_interleave(out_w // w, dim=2))
@@ -146,23 +218,45 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
+_BINARY_OPS = {
+    0: torch.add,
+    1: torch.sub,
+    2: torch.mul,
+    3: torch.div,
+    4: torch.maximum,
+    5: torch.minimum,
+    6: torch.pow,
+    7: lambda a, b: b - a,
+    8: lambda a, b: b / a,
+}
+
+
 def op_binaryop(layer: NcnnLayer, inputs, p, compute_dtype):
-    """ncnn BinaryOp add of two blobs (``_op_binaryop`` op 0)."""
-    if layer.attr_i(0, 0) != 0 or layer.attr_i(1, 0):
-        raise NotImplementedError(
-            f"{layer.name}: BinaryOp op {layer.attr_i(0, 0)} "
-            f"(with_scalar={layer.attr_i(1, 0)}) is not ported")
+    """ncnn BinaryOp (attr 0 op, attr 1 with_scalar, attr 2 the scalar)
+    (``_op_binaryop``, executor.py:226)."""
+    op = _BINARY_OPS[layer.attr_i(0, 0)]
+    if layer.attr_i(1, 0):
+        return op(inputs[0], _scalar(layer.attr_f(2), inputs[0]))
     a, b = inputs
-    return a + b
+    return op(a, b)
 
 
 def op_eltwise(layer: NcnnLayer, inputs, p, compute_dtype):
-    """ncnn Eltwise sum, with optional coefficients (``_op_eltwise`` op 1)."""
-    if layer.attr_i(0, 0) != 1:
-        raise NotImplementedError(
-            f"{layer.name}: Eltwise op {layer.attr_i(0, 0)} is not ported")
+    """ncnn Eltwise: 0 prod, 1 sum (optional coefficients), 2 max
+    (``_op_eltwise``, executor.py:234)."""
+    op = layer.attr_i(0, 0)
     coeffs = layer.attr(1, [])
     out = inputs[0]
+    if op == 0:
+        for t in inputs[1:]:
+            out = out * t
+        return out
+    if op == 2:
+        for t in inputs[1:]:
+            out = torch.maximum(out, t)
+        return out
+    if op != 1:
+        raise NotImplementedError(f"Eltwise op {op}")
     if coeffs:
         out = out * _scalar(coeffs[0], out)
         for t, c in zip(inputs[1:], coeffs[1:]):
@@ -185,15 +279,43 @@ def op_identity(layer: NcnnLayer, inputs, p, compute_dtype):
     return inputs[0]
 
 
+def op_relu(layer: NcnnLayer, inputs, p, compute_dtype):
+    """ReLU, leaky when attr 0 (the slope) is set (``_op_relu``, :278)."""
+    (x,) = inputs
+    slope = layer.attr_f(0, 0.0)
+    if slope:
+        return torch.where(x >= 0, x, x * _scalar(slope, x))
+    return torch.clamp_min(x, 0)
+
+
+def op_clip(layer: NcnnLayer, inputs, p, compute_dtype):
+    return torch.clamp(inputs[0], layer.attr_f(0, -3.4e38), layer.attr_f(1, 3.4e38))
+
+
+def op_sigmoid(layer: NcnnLayer, inputs, p, compute_dtype):
+    return torch.sigmoid(inputs[0])
+
+
+def op_dropout(layer: NcnnLayer, inputs, p, compute_dtype):
+    scale = layer.attr_f(0, 1.0)
+    return inputs[0] if scale == 1.0 else inputs[0] * scale
+
+
 OP_REGISTRY: Dict[str, Callable] = {
     "Input": op_identity,
     "Split": op_split,
-    "Noop": op_identity,
     "Convolution": op_convolution,
+    "ConvolutionDepthWise": op_convolution_depthwise,
     "PReLU": op_prelu,
     "PixelShuffle": op_pixelshuffle,
     "Interp": op_interp,
     "BinaryOp": op_binaryop,
     "Eltwise": op_eltwise,
     "Concat": op_concat,
+    "ReLU": op_relu,
+    "Clip": op_clip,
+    "Sigmoid": op_sigmoid,
+    "Dropout": op_dropout,
+    "Noop": op_identity,
+    "Reorg": op_reorg,
 }

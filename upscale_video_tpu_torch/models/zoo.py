@@ -3,8 +3,9 @@
 Port of ``upscale_video_tpu/models/zoo.py:57-193, 196-420``.
 ``make_srvgg_graph`` and ``make_rrdb_graph`` are host copies (the same
 graphs, layer for layer); ``Model`` is an ``nn.Module`` holding its weights
-as buffers in the kernels' layout (:func:`params_from_jax`).  The on-disk
-stem is ``str(scale) + model_file`` as in the reference.
+as buffers in the kernels' layout (:func:`params_from_jax`) and its host
+weights for :meth:`Model.save`.  The on-disk stem is ``str(scale) +
+model_file`` as in the reference.
 """
 
 from __future__ import annotations
@@ -17,13 +18,13 @@ import torch
 from torch import nn
 
 from upscale_video_tpu_torch.models.bin_loader import (
-    load_weights_file, synthesize_weights,
+    emit_bin, load_weights_file, synthesize_weights,
 )
 from upscale_video_tpu_torch.models.executor import (
     GraphForward, build_forward, probe_srvgg_tail,
 )
 from upscale_video_tpu_torch.models.param_parser import (
-    NcnnGraph, NcnnLayer, parse_param_file,
+    NcnnGraph, NcnnLayer, emit_param, parse_param_file,
 )
 
 MODEL_FILES = {
@@ -63,12 +64,21 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
                     compute_dtype: torch.dtype = torch.bfloat16) -> nn.ModuleDict:
     """The JAX package's params (nested dicts of numpy arrays from
     ``synthesize_weights`` / ``load_weights``: HWIO ``weight``, ``bias``,
-    ``slope``) -> the port's model state on ``device``."""
+    ``slope``; a ConvolutionDepthWise's flat ``weight``) -> the port's model
+    state on ``device``."""
     state = {}
     for name, p in params.items():
         t = {}
         if "weight" in p:
             w = np.asarray(p["weight"], np.float32)
+            if w.ndim == 1:  # ConvolutionDepthWise: ncnn's grouped OIHW
+                t["wflat"] = torch.from_numpy(w.copy()).to(
+                    device=device, dtype=compute_dtype)
+                if "bias" in p:
+                    t["bias"] = torch.from_numpy(
+                        np.asarray(p["bias"], np.float32).copy()).to(device)
+                state[name] = LayerWeights(**t)
+                continue
             if w.ndim != 4:
                 raise NotImplementedError(f"{name}: weight {w.shape} is not HWIO")
             kh, kw, cin, cout = w.shape
@@ -88,10 +98,12 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
 
 class Model(nn.Module):
     """A loaded model on one device: an SRVGG with its shuffle tail (K1 +
-    K2), a 1x SRVGG (one K1 chain + generic ops) or an RRDBNet (K5 per
-    dense block).  ``residual_dtype=torch.float32`` is ``--precision
-    mixed``: the graph walk's residual adds run in f32 (not the SRVGG
-    tail's)."""
+    K2, or the graph walk with K4 and K3 where its body is no chain), a 1x
+    SRVGG (one K1 chain + generic ops) or an RRDBNet (the graph walk: K5
+    per Valar dense block, K4 per other 3x3 conv, K1 chains).
+    ``residual_dtype=torch.float32`` is ``--precision mixed``: the graph
+    walk's residual adds run in f32 (not the SRVGG tail's).  ``params``
+    keeps the host weights (f32 numpy) for :meth:`save`."""
 
     def __init__(self, name: str, scale: int, graph: NcnnGraph,
                  params: Dict[str, Dict[str, np.ndarray]],
@@ -105,6 +117,7 @@ class Model(nn.Module):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.residual_dtype = residual_dtype
+        self.params = params
         self.state = params_from_jax(params, self.device, compute_dtype)
         self._forwards: Dict[str, nn.Module] = {}
 
@@ -126,6 +139,20 @@ class Model(nn.Module):
     def forward(self, x: torch.Tensor, emit: str = "model") -> torch.Tensor:
         """Model-domain float ``(N, H, W, 3)`` -> the ``emit`` layout."""
         return self.frames_forward(emit)(self.state, x)
+
+    def save(self, model_dir: str, stem: Optional[str] = None) -> str:
+        """Write the model to ncnn ``.param``/``.bin`` files (fp16 weight
+        tag), as the JAX ``Model.save`` does byte for byte.  Returns the
+        file stem path."""
+        os.makedirs(model_dir, exist_ok=True)
+        path = os.path.join(model_dir, stem or self.name)
+        host = {name: {k: np.asarray(v, dtype=np.float32) for k, v in p.items()}
+                for name, p in self.params.items()}
+        with open(path + ".param", "w", encoding="utf-8") as f:
+            f.write(emit_param(self.graph))
+        with open(path + ".bin", "wb") as f:
+            f.write(emit_bin(self.graph, host))
+        return path
 
 
 def load_model(model_file: str, scale: int, device: "torch.device | str",
@@ -222,6 +249,7 @@ def make_rrdb_graph(
     num_grow: int = 32,
     num_rrdb: int = 2,
     variant: str = "valar",
+    unshuffle: int = 1,
 ) -> NcnnGraph:
     """RRDBNet graph (host copy of the JAX zoo's, zoo.py:248).
 
@@ -231,8 +259,10 @@ def make_rrdb_graph(
     skip, then nearest-2x + conv upsampling to ``scale``.  ``num_rrdb=23``
     is layer-count and FLOP-identical to the real Valar graph (modulo
     ncnn Split bookkeeping).  ``variant="esrgan"`` is basicsr's plain
-    RRDBNet (no 1x1 skip, no interior adds).  The port runs the ``valar``
-    variant."""
+    RRDBNet (no 1x1 skip, no interior adds): the RealESRGAN_x4plus family
+    that ``vsr-import-torch`` converts.  ``unshuffle > 1`` prepends a Reorg
+    of that stride (basicsr's x2/x1 variants); the model's net scale is
+    then ``scale / unshuffle``."""
     if variant not in ("valar", "esrgan"):
         raise ValueError(f"unknown RRDB variant {variant!r}")
     layers = [NcnnLayer("Input", "input", [], ["input"])]
@@ -303,7 +333,13 @@ def make_rrdb_graph(
 
     rdb = rdb_valar if variant == "valar" else rdb_esrgan
 
-    fea = conv("conv_first", "input", 3, num_feat)
+    first_in = "input"
+    if unshuffle > 1:
+        layers.append(NcnnLayer(
+            "Reorg", "unshuffle", ["input"], ["unshuffled"], {0: unshuffle}
+        ))
+        first_in = "unshuffled"
+    fea = conv("conv_first", first_in, 3 * unshuffle * unshuffle, num_feat)
     x = fea
     for i in range(num_rrdb):
         rin = x
@@ -336,11 +372,14 @@ def make_synthetic_rrdb_model(
     device: "torch.device | str" = "cpu",
     compute_dtype: torch.dtype = torch.bfloat16,
     residual_dtype: Optional[torch.dtype] = None,
+    variant: str = "valar",
 ) -> Model:
-    """An RRDBNet (Valar-family) model with random weights: the JAX
-    ``make_synthetic_rrdb_model``'s graph and, byte for byte, its weights."""
+    """An RRDBNet model with random weights: for the ``valar`` variant the
+    JAX ``make_synthetic_rrdb_model``'s graph and, byte for byte, its
+    weights; ``variant="esrgan"`` gives basicsr's plain RRDBNet."""
     graph = make_rrdb_graph(scale=scale, num_feat=num_feat,
-                            num_grow=num_grow, num_rrdb=num_rrdb)
+                            num_grow=num_grow, num_rrdb=num_rrdb,
+                            variant=variant)
     params = synthesize_weights(graph, seed=seed)
     return Model(f"synthetic_{scale}x_rrdb{num_rrdb}", scale, graph, params,
                  device, compute_dtype, residual_dtype)

@@ -12,7 +12,13 @@ contract's uint8 layout (-> optional 4:2:0 pack):
   (the 17-layer body for 2x Compact) -> K2 (the fused tail, emitting the
   step's output layout);
 - SR, ``-m r``'s 4x Valar RRDBNet, tiled: haloed tiles -> the graph walk
-  (K5 per dense block, K1 per other 3x3 conv) -> scaled-halo crop;
+  (K5 per dense block, K4 per solo 3x3 conv, one K1 chain for the last
+  three) -> scaled-halo crop;
+- SR, ``-m sr=<stem>``, an imported model (``vsr-import-torch``),
+  whole-frame unless ``--tile_size``: an SRVGG on K1 + K2 or, where its
+  body is no chain, the graph walk with K4 and K3; an RRDBNet such as
+  RealESRGAN_x4plus on the graph walk (K4 per 3x3 conv outside its one K1
+  chain);
 - ``--tta`` averages the SR stage's model-domain output over the 8
   dihedral transforms (K2's f32 layout for Compact);
 - scale 1 has no SR stage: the pre-SR stages' output is quantized.
@@ -177,27 +183,28 @@ class ChainEngine:
               halo: int = 16, tta: bool = False) -> "ChainEngine":
         """Load the chain's models on ``device``: the anime role (scale 1)
         for ``a``; for the SR stage (none at scale 1) the stock Compact
-        role, or the Valar role for ``-m r`` (forcing 4x).  ``synthetic``
-        takes random-weight stand-ins of the same architectures (for ``a``
-        the JAX chain's ``make_synthetic_model(scale=1, num_conv=8,
-        num_feat=24)``, for ``-m r`` the 23-RRDB ``make_rrdb_graph``).
-        ``tile=None`` takes the family's default (:func:`default_tile`).
-        ``residual_dtype`` (``mixed``) reaches the anime model too, as in
-        the JAX chain (chain.py:248)."""
-        if spec.sr_file:
-            raise NotImplementedError(
-                f"-m chain {spec.stage_names()} is not ported yet (sr= "
-                "imports need the generic op registry)")
+        role, the Valar role for ``-m r`` (forcing 4x), or the file
+        ``{scale}{stem}`` for ``sr=<stem>`` (JAX chain.py:264-276).
+        ``synthetic`` takes random-weight stand-ins of the same
+        architectures (for ``a`` the JAX chain's ``make_synthetic_model(
+        scale=1, num_conv=8, num_feat=24)``, for ``-m r`` the 23-RRDB
+        ``make_rrdb_graph``, for ``sr=`` the Compact, the stem ignored, as
+        in JAX).  ``tile=None`` takes the family's default
+        (:func:`default_tile`); ``-m r`` and ``sr=`` take a tile.
+        ``residual_dtype`` (``mixed``) is for ``-m r`` and ``sr=`` graphs on
+        the graph walk (an SRVGG on K1 + K2 refuses it at plan time), and
+        reaches the anime model too, as in the JAX chain (chain.py:248)."""
         device = torch.device(device)
         scale = spec.effective_scale(scale)
         if tile is None:
             tile = default_tile(spec)
-        if tile and not spec.real_life:
+        if tile and not (spec.real_life or spec.sr_file):
             raise NotImplementedError(
-                "tiling is ported for -m r only (Compact runs whole-frame)")
-        if residual_dtype is not None and not spec.real_life:
+                "tiling is ported for -m r and sr= only (Compact runs "
+                "whole-frame)")
+        if residual_dtype is not None and not (spec.real_life or spec.sr_file):
             raise NotImplementedError(
-                "--precision mixed is ported for -m r only")
+                "--precision mixed is ported for -m r and sr= only")
         anime = None
         if spec.anime:
             anime = (make_synthetic_model(
@@ -220,12 +227,13 @@ class ChainEngine:
             model.frames_forward("model")  # plan now
         elif scale > 1:
             model = (make_synthetic_model(scale=scale, device=device,
-                                          compute_dtype=compute_dtype)
+                                          compute_dtype=compute_dtype,
+                                          residual_dtype=residual_dtype)
                      if synthetic else
-                     load_model("compact", scale, device, model_path,
-                                compute_dtype))
+                     load_model(spec.sr_file or "compact", scale, device,
+                                model_path, compute_dtype, residual_dtype))
             # plan now: an unsupported graph raises before any frame is read
-            model.frames_forward("planar")
+            model.frames_forward("planar" if model.planar_scale else "model")
         return cls(spec=spec, scale=scale, sr_model=model, device=device,
                    anime_model=anime, tile=tile, halo=halo, tta=tta)
 
