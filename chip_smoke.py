@@ -25,13 +25,22 @@ contracts, counting kernel launches:
 - ``-m sr=`` of a wide SRVGGNetCompact (nf 160, 4x), converted the same
   way: K4 per body conv (PReLU fused), one K3 launch per step.
 
+- the conv-body research path: ``upscale_video_tpu_torch.tools.wino_bench``
+  (cuDNN, K1, K7 row-Winograd) and ``tools.q8_bench`` (K8 int8, K1,
+  cuDNN), each run at its defaults (16 x 64->64 PReLU convs on a 1080p
+  frame) as a subprocess through ``python -m``; their ``[launches]`` lines
+  give K7's and K8's launch counts, each counted from 0 in that process.
+
 Weights are synthetic (seed 0).  K1 is held against its plain version at
 every path's shapes (the Compact stack and the anime chain at 4x1080p;
 ``-m r``'s last three convs on a 1080p frame's tiles at 4x), K4 at every
 ESRGAN conv shape at 1080p (and ``-m r``'s three solo convs), K3 at
 4x1080p, K6 at 4x1080p, and the whole 1080p ``-m r``, ESRGAN and ``--tta``
-steps against the same steps on the plain versions.  It then times each
-step against its plain version.  Every phase prints one line; any failure
+steps against the same steps on the plain versions; K7 over the benches'
+16-layer body at 4x1080p, a ragged 3->64->64 stack and one layer alone, K8
+over the body at 1x1080p and the ragged stack (bit for bit), then the
+body's A/B at 4x1080p (K1, K7, K8, cuDNN, each with its bound and the
+per-layer HBM floor).  It then times each step against its plain version.  Every phase prints one line; any failure
 raises and the script exits non-zero without printing a result.  The last
 three lines are a JSON object with each kernel's figures (its bound
 computed from the card's published peaks), the card's
@@ -139,7 +148,14 @@ TTA_MIN_PSNR = 45.0            # --tta step vs the same step on the plain versio
 # operations/s per type.  The SFU's exp rate is 16 per clock per SM
 # against FP32's 256 flops, so a sixteenth of the FP32 peak.
 PEAK_HBM = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "exp": 67e12 / 16}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "exp": 67e12 / 16}
+# the conv-body benches' default body: 16 x 64->64 3x3 convs with PReLU
+BODY_LAYERS, BODY_C = 16, 64
+# K7 over that body and one layer alone take K1's bounds (K1_ATOL/RTOL,
+# K1_LAYER_ATOL/RTOL): each M_a is an f32 sum in another order than
+# cuDNN's, then the same f32 output transform and one bf16 rounding.  K8
+# sums exactly in int32 and runs the plain version's f32 epilogue op for
+# op, so it must equal its plain version bit for bit.
 
 
 def roofline(nbytes: float, ops: dict):
@@ -1002,11 +1018,21 @@ def main() -> int:
             frames_per_step=per, frames_per_s=f"{rates[name]:.3f}",
             card=repr(smi))
 
+    del eng, peng, teng, veng, eeng, weng, frames, flat, yuv, pyuv
+    torch.cuda.empty_cache()
+    body = conv_body_phases(dev, errs)
+    torch.cuda.empty_cache()
+    bench_launches = {}
+    for tool, kernel in (("wino_bench", "winograd_chain"),
+                         ("q8_bench", "conv3x3_chain_q8")):
+        bench_launches[kernel] = run_bench(tool, kernel)
+
     # library_ms: K1's is cuDNN's bf16 conv (F.conv2d with bias, one call
     # per layer, channels-last) over the same 17 layers, without the
     # PReLUs; K4's the same over one ESRGAN dense block's five convs,
     # without the leaky ReLUs; K2, K3, K5 and K6 have no PyTorch call
-    # computing their function
+    # computing their function; K7's is the same cuDNN call over the 16-layer
+    # conv body; PyTorch has no int8 convolution on CUDA for K8
     model_dir.cleanup()
     kernels = [
         {"name": "conv3x3_chain", "route": "cuda",
@@ -1045,6 +1071,17 @@ def main() -> int:
          "launches": launches["K6"], "max_abs_err": errs["K6"],
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None},
+        {"name": "winograd_chain", "route": "cuda",
+         "source": "upscale_video_tpu_torch/csrc/conv_winograd.cu",
+         "replaces": "upscale_video_tpu/ops/conv_winograd.py:73",
+         "launches": bench_launches["winograd_chain"],
+         "max_abs_err": errs["K7"], **body["K7"],
+         "library_ms": body["cudnn"]["ms"]},
+        {"name": "conv3x3_chain_q8", "route": "cuda",
+         "source": "upscale_video_tpu_torch/csrc/conv_chain_q8.cu",
+         "replaces": "upscale_video_tpu/ops/conv_chain_q8.py:68",
+         "launches": bench_launches["conv3x3_chain_q8"],
+         "max_abs_err": errs["K8"], **body["K8"], "library_ms": None},
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
@@ -1101,6 +1138,177 @@ def plain_call(fn, *args):
     """``fn(*args)`` with every kernel swapped for its plain version."""
     with plain_kernels():
         return fn(*args)
+
+
+def conv_body_phases(dev, errs) -> dict:
+    """[K7], [K8] and [conv_body_ab]: K7 and K8 against their plain
+    versions, then the conv body's A/B at 4x1080p.  Returns the ``ms``,
+    ``plain_ms``, ``bound_ms`` and ``bound_by`` of K7's and K8's rows and
+    cuDNN's ``ms``; records their worst errors in ``errs``."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import ACT_PRELU
+    from upscale_video_tpu_torch.ops.conv_chain import (
+        conv3x3_chain, make_layer,
+    )
+    from upscale_video_tpu_torch.ops.conv_chain_q8 import (
+        conv3x3_chain_q8, conv3x3_chain_q8_plain, make_q8_layer,
+    )
+    from upscale_video_tpu_torch.ops.conv_winograd import (
+        make_wino_layer, winograd_chain, winograd_chain_plain,
+    )
+    from upscale_video_tpu_torch.tools.q8_bench import make_q8_body
+    from upscale_video_tpu_torch.tools.wino_bench import make_layers
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c = BODY_C
+    spec = make_layers(np.random.default_rng(0), BODY_LAYERS, c)
+    k7 = [make_wino_layer(l["weight"], l["bias"], l["slope"], l["act"],
+                          device=dev) for l in spec]
+    k1 = [make_layer(l["weight"], l["bias"], l["slope"], l["act"], device=dev)
+          for l in spec]
+    rng = np.random.default_rng(5)
+
+    def ragged(cin, cout):
+        return make_wino_layer(
+            rng.normal(0, 0.15, (3, 3, cin, cout)).astype(np.float32),
+            rng.normal(0, 0.05, (cout,)).astype(np.float32),
+            rng.uniform(0.1, 0.3, (cout,)).astype(np.float32), ACT_PRELU,
+            device=dev)
+
+    # K7 vs its plain version: the body at 4x1080p on uniform(0, 1)
+    # frames, a ragged 3->64->64 stack, and the body's first layer alone on
+    # unit-scale inputs
+    x = torch.rand((N, H, W, c), generator=gen, device=dev).to(torch.bfloat16)
+    small = torch.rand((2, 37, 53, 3), generator=gen, device=dev).to(torch.bfloat16)
+    unit = torch.randn((N, H, W, c), generator=gen, device=dev).to(torch.bfloat16)
+    rl = [ragged(ci, co) for ci, co in ((3, 64), (64, 64))]
+    for what, xin, layers, atol, rtol in (
+            ("body", x, k7, K1_ATOL, K1_RTOL),
+            ("ragged", small, rl, K1_ATOL, K1_RTOL),
+            ("layer0", unit, k7[:1], K1_LAYER_ATOL, K1_LAYER_RTOL)):
+        got = winograd_chain(xin, layers)
+        want = winograd_chain_plain(xin, layers)
+        torch.cuda.synchronize()
+        worst, differ, ok = compare(got, want, atol, rtol)
+        say("K7", case=what, shape="x".join(map(str, xin.shape)),
+            layers=len(layers), max_abs_err=worst,
+            mean_abs_want=want.float().abs().mean().item(),
+            frac_differ=f"{differ:.3e}", bound=f"atol={atol},rtol={rtol}",
+            ok=ok)
+        if not ok:
+            raise SystemExit(f"K7 disagrees with its plain version ({what})")
+        errs["K7"] = max(errs.get("K7", 0.0), worst)
+        del got, want
+    del unit
+
+    # K8 vs its plain version, bit for bit: q8_bench's body on one 1080p
+    # frame (the f64 plain conv is slow) and a ragged 3->64->64 stack
+    q8, _, x8_1 = make_q8_body(np.random.default_rng(0), BODY_LAYERS, c, H, W)
+    k8 = [make_q8_layer(l["wq"], l["scale"], l["bias"], l["slope"],
+                        l["inv_out"], l["act"], device=dev) for l in q8]
+    x8_1 = torch.from_numpy(x8_1)[None].to(dev)
+    r8 = [make_q8_layer(rng.integers(-127, 128, (3, 3, ci, co)).astype(np.int8),
+                        rng.uniform(1e-4, 3e-4, (co,)).astype(np.float32),
+                        rng.normal(0, 0.05, (co,)).astype(np.float32),
+                        rng.uniform(0.1, 0.3, (co,)).astype(np.float32),
+                        np.float32(rng.uniform(80.0, 130.0)), ACT_PRELU,
+                        device=dev) for ci, co in ((3, 64), (64, 64))]
+    s8 = torch.randint(-127, 128, (2, 37, 53, 3), generator=gen, device=dev,
+                       dtype=torch.int8)
+    for what, xin, layers in (("body", x8_1, k8), ("ragged", s8, r8)):
+        got = conv3x3_chain_q8(xin, layers)
+        want = conv3x3_chain_q8_plain(xin, layers)
+        torch.cuda.synchronize()
+        worst, differ, _ = compare(got, want, 0.0, 0.0)
+        ok = differ == 0 and bool(torch.isfinite(got.float()).all())
+        say("K8", case=what, shape="x".join(map(str, xin.shape)),
+            layers=len(layers), max_abs_err=worst,
+            mean_abs_want=want.float().abs().mean().item(),
+            differ=int(round(differ * got.numel())), bound="bit-equal", ok=ok)
+        if not ok:
+            raise SystemExit(f"K8 disagrees with its plain version ({what})")
+        errs["K8"] = max(errs.get("K8", 0.0), worst)
+        del got, want
+    del x8_1
+
+    # the body's A/B at 4x1080p.  Bounds: K1 and cuDNN do 2*9*c*c
+    # operations per pixel and layer at the bf16 peak, K7 2*6*c*c, K8
+    # 2*9*c*c at the int8 peak; bytes are the body's input read and output
+    # written once with the weights.  The per-layer HBM floor instead
+    # counts every layer's bordered buffers, read and written once.
+    x8 = torch.randint(-127, 128, (N, H, W, c), generator=gen, device=dev,
+                       dtype=torch.int8)
+    pix = N * H * W
+    border = N * (H + 2) * (W + 2)
+    macs = BODY_LAYERS * 9 * c * c
+    wbytes_bf16 = BODY_LAYERS * (9 * c * c * 2 + 2 * c * 4)
+    wbytes_q8 = BODY_LAYERS * (9 * c * c + 3 * c * 4 + 4)
+    io_bf16 = pix * c * 2 * 2
+    io_q8 = pix * c * (1 + 2)
+    floor_bf16 = 1e3 * BODY_LAYERS * border * 2 * c * 2 / PEAK_HBM
+    floor_q8 = 1e3 * border * c * ((BODY_LAYERS - 1) * 2 + 1 + 2) / PEAK_HBM
+    impls = {
+        "K1": (lambda: conv3x3_chain(x, k1), None,
+               roofline(io_bf16 + wbytes_bf16, {"bf16": 2 * macs * pix}),
+               floor_bf16),
+        "K7": (lambda: winograd_chain(x, k7),
+               lambda: winograd_chain_plain(x, k7),
+               roofline(io_bf16 + wbytes_bf16,
+                        {"bf16": 2 * BODY_LAYERS * 6 * c * c * pix}),
+               floor_bf16),
+        "K8": (lambda: conv3x3_chain_q8(x8, k8),
+               lambda: conv3x3_chain_q8_plain(x8, k8),
+               roofline(io_q8 + wbytes_q8, {"int8": 2 * macs * pix}),
+               floor_q8),
+        "cudnn": (lambda: cudnn_stack(x, k1), None,
+                  roofline(io_bf16 + wbytes_bf16, {"bf16": 2 * macs * pix}),
+                  floor_bf16),
+    }
+    out = {}
+    for name, (fn, plain, bound, floor) in impls.items():
+        ms = cuda_ms(fn, 5)
+        plain_ms = cuda_ms(plain, 2) if plain else None
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1]}
+        say("conv_body_ab", impl=name, shape=f"{N}x{H}x{W}x{c}",
+            layers=BODY_LAYERS, ms=f"{ms:.3f}",
+            plain_ms="-" if plain_ms is None else f"{plain_ms:.3f}",
+            bound_ms=f"{bound[0]:.3f}", bound_by=bound[1],
+            hbm_floor_ms=f"{floor:.3f}",
+            tflops_direct_equiv=f"{2 * macs * pix / ms / 1e9:.1f}",
+            vs_k1=f"{ms / out['K1']['ms']:.3f}")
+    return out
+
+
+def run_bench(tool: str, kernel: str) -> int:
+    """``python -m upscale_video_tpu_torch.tools.<tool>`` at its defaults in
+    a subprocess: its lines passed on, its parity line held; returns the
+    launches of ``kernel`` its ``[launches]`` line counted (from 0 in that
+    process, before the parity check's own launch)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        f"upscale_video_tpu_torch.tools.{tool}"],
+                       capture_output=True, text=True, cwd=root, env=env,
+                       timeout=600)
+    lines = r.stdout.splitlines()
+    for line in lines:
+        print(f"[{tool}] {line}", flush=True)
+    counts = dict(kv.split("=") for line in lines
+                  if line.startswith("[launches] ") for kv in line.split()[1:])
+    parity = [line for line in lines if line.startswith("[parity] ")]
+    launched = int(counts.get(kernel, 0))
+    ok = (r.returncode == 0 and launched > 0 and len(parity) == 1
+          and parity[0].endswith("ok=True"))
+    say(tool, rc=r.returncode, launches=launched,
+        seconds=f"{time.perf_counter() - t0:.1f}", ok=ok)
+    if not ok:
+        raise SystemExit(f"{tool} failed:\n{r.stderr[-4000:]}")
+    return launched
 
 
 def cudnn_stack(x, layers):

@@ -326,3 +326,80 @@ def test_wide_srvgg_step_launches_k4_and_k3(dev):
     torch.cuda.synchronize()
     assert tuple(out.shape) == (2, 12, 16, 48) and out.dtype == torch.uint8
     assert conv3x3_fused.launches - k4 == 3 and sr_tail_fused.launches - k3 == 1
+
+
+def _wino_layers(rng, specs, dev):
+    from upscale_video_tpu_torch.ops.conv_winograd import make_wino_layer
+
+    out = []
+    for cin, cout, act in specs:
+        slope = (rng.uniform(0.1, 0.3, (cout,)).astype(np.float32)
+                 if act == ACT_PRELU else
+                 np.asarray([0.2], np.float32) if act == ACT_LEAKY else None)
+        out.append(make_wino_layer(
+            rng.normal(0, 0.15, (3, 3, cin, cout)).astype(np.float32),
+            rng.normal(0, 0.05, (cout,)).astype(np.float32), slope, act,
+            device=dev))
+    return out
+
+
+@pytest.mark.parametrize("shape,specs", [
+    ((2, 37, 53), [(3, 64, ACT_PRELU), (64, 64, ACT_PRELU), (64, 64, ACT_PRELU)]),
+    ((2, 19, 37), [(6, 8, ACT_PRELU), (8, 16, ACT_LEAKY), (16, 4, ACT_RELU)]),
+    ((1, 33, 40), [(128, 128, ACT_PRELU), (128, 100, ACT_NONE)]),
+    ((3, 1, 5), [(8, 24, ACT_NONE)]),
+])
+@pytest.mark.parametrize("crop", [True, False])
+def test_winograd_kernel_matches_plain(dev, shape, specs, crop):
+    """K7 vs its plain version: K1's stack bounds (one bf16 ulp per layer
+    after an f32 sum in another order, propagating); odd heights drop the
+    last pair's second row; cout 128 splits over two blocks."""
+    from upscale_video_tpu_torch.ops.conv_winograd import (
+        winograd_chain, winograd_chain_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.uniform(0, 1, shape + (specs[0][0],))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    layers = _wino_layers(rng, specs, dev)
+    before = winograd_chain.launches
+    got = winograd_chain(x, layers, crop=crop)
+    torch.cuda.synchronize()
+    assert winograd_chain.launches - before == len(specs)
+    want = winograd_chain_plain(x, layers, crop=crop)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 5e-2 + 2e-2 * want.float().abs()).all()), d.max().item()
+
+
+@pytest.mark.parametrize("shape,specs", [
+    ((2, 37, 53), [(3, 64, ACT_PRELU), (64, 64, ACT_PRELU), (64, 64, ACT_PRELU)]),
+    ((2, 20, 40), [(3, 32, ACT_RELU), (32, 64, ACT_PRELU), (64, 48, ACT_NONE)]),
+    ((1, 13, 19), [(64, 64, ACT_LEAKY)] * 2),
+    ((1, 33, 40), [(128, 128, ACT_PRELU), (128, 100, ACT_NONE)]),
+    ((1, 9, 11), [(16, 24, ACT_PRELU), (24, 5, ACT_NONE)]),
+])
+def test_q8_kernel_equals_plain(dev, shape, specs):
+    """K8 vs its plain version: exact int32 sums and the same f32 epilogue
+    ops, so every value is bit-equal, requantised layers included."""
+    from upscale_video_tpu_torch.ops.conv_chain_q8 import (
+        conv3x3_chain_q8, conv3x3_chain_q8_plain, make_q8_layer,
+    )
+
+    rng = np.random.default_rng(12)
+    layers = [make_q8_layer(
+        rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8),
+        rng.uniform(1e-4, 3e-4, (cout,)).astype(np.float32),
+        rng.normal(0, 0.05, (cout,)).astype(np.float32),
+        rng.uniform(0.1, 0.3, (cout,)).astype(np.float32),
+        np.float32(rng.uniform(80.0, 130.0)), act, device=dev)
+        for cin, cout, act in specs]
+    x8 = torch.from_numpy(rng.integers(-127, 128, shape + (specs[0][0],))
+                          .astype(np.int8)).to(dev)
+    before = conv3x3_chain_q8.launches
+    got = conv3x3_chain_q8(x8, layers)
+    torch.cuda.synchronize()
+    assert conv3x3_chain_q8.launches - before == len(specs)
+    want = conv3x3_chain_q8_plain(x8, layers)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)

@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_chain.cu", "sr_tail.cu", "rdb_block.cu", "nlmeans.cu",
-           "conv3x3_fused.cu")
+           "conv3x3_fused.cu", "conv_winograd.cu", "conv_chain_q8.cu")
 HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,6 +54,12 @@ _SIGNATURES = {
     "uvt_rdb_block": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
     # x, out, n, h, w, inv_h2, two_s2, stream
     "uvt_nl_means": ([_P] * 2 + [_I] * 3 + [ctypes.c_float] * 2 + [_P], _I),
+    # src, dst, umat, bias, slope, n, h, w, cin, cout, act, stream
+    "uvt_conv_winograd_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # src, dst, wmat, scale, bias, slope, inv_out, n, h, w, cin, cout, act,
+    # to_int8, stream
+    "uvt_conv3x3_chain_q8_layer": ([_P] * 6 + [ctypes.c_float] + [_I] * 7
+                                   + [_P], _I),
     "uvt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -17,7 +17,7 @@ kernel launches (one per layer per call).
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,15 +56,18 @@ def make_layer(weight_hwio, bias=None, slope=None, act: int = ACT_NONE,
     if (kh, kw) != (3, 3):
         raise ValueError(f"3x3 weights expected, got {tuple(w.shape)}")
     wmat = w.reshape(9 * cin, cout).to(device=device, dtype=dtype).contiguous()
-    b = (torch.zeros(cout) if bias is None
-         else torch.as_tensor(bias, dtype=torch.float32).reshape(cout))
-    if slope is None:
-        s = torch.zeros(cout)
-    else:
-        s = torch.as_tensor(slope, dtype=torch.float32).reshape(-1)
-        s = s.expand(cout) if s.numel() == 1 else s.reshape(cout)
-    return ChainLayer(wmat, b.to(device).contiguous(),
-                      s.to(device).contiguous(), int(act))
+    return ChainLayer(wmat, per_channel(bias, cout, device),
+                      per_channel(slope, cout, device), int(act))
+
+
+def per_channel(v, cout: int, device: "torch.device | str" = "cpu"
+                ) -> torch.Tensor:
+    """A contiguous ``(cout,)`` f32 tensor from ``None`` (zeros), a scalar
+    or one value (broadcast, as the leaky slope is), or ``cout`` values."""
+    t = (torch.zeros(cout) if v is None
+         else torch.as_tensor(v, dtype=torch.float32).reshape(-1))
+    t = t.expand(cout) if t.numel() == 1 else t.reshape(cout)
+    return t.to(device=device, dtype=torch.float32).contiguous()
 
 
 @contextlib.contextmanager
@@ -79,7 +82,9 @@ def no_tf32():
         torch.backends.cudnn.allow_tf32 = old
 
 
-def _apply_act(y: torch.Tensor, layer: ChainLayer, cdim: int) -> torch.Tensor:
+def apply_act(y: torch.Tensor, layer, cdim: int) -> torch.Tensor:
+    """A layer's activation in f32 along channel dim ``cdim`` (its slope
+    per channel, the leaky slope broadcast)."""
     if layer.act == ACT_RELU:
         return torch.clamp_min(y, 0.0)
     if layer.act in (ACT_PRELU, ACT_LEAKY):
@@ -96,12 +101,20 @@ def oihw(wmat: torch.Tensor) -> torch.Tensor:
 
 
 def _check_layers(layers: Sequence[ChainLayer], cin0: int) -> None:
+    for i, l in enumerate(layers):
+        if l.wmat.ndim != 2 or l.wmat.shape[0] % 9:
+            raise ValueError(f"layer {i}: wmat {tuple(l.wmat.shape)} is not (9*cin, cout)")
+    check_layers(layers, cin0)
+
+
+def check_layers(layers: Sequence, cin0: int) -> None:
+    """What every bordered chain's layers must satisfy (their weight shapes
+    checked first): channels chain from ``cin0`` within 1..128, a known
+    activation, ``(cout,)`` bias and slope."""
     if not layers:
         raise ValueError("empty conv chain")
     prev = cin0
     for i, l in enumerate(layers):
-        if l.wmat.ndim != 2 or l.wmat.shape[0] % 9:
-            raise ValueError(f"layer {i}: wmat {tuple(l.wmat.shape)} is not (9*cin, cout)")
         if l.cin != prev:
             raise ValueError(f"layer {i}: cin {l.cin} != incoming {prev}")
         if not (0 < l.cin <= MAX_CHANNELS and 0 < l.cout <= MAX_CHANNELS):
@@ -128,23 +141,27 @@ def conv3x3_chain_plain(x: torch.Tensor, layers: Sequence[ChainLayer],
     with no_tf32():
         for l in layers:
             z = F.conv2d(y.to(torch.float32), oihw(l.wmat), padding=1)
-            z = _apply_act(z + l.bias.view(1, -1, 1, 1), l, 1)
+            z = apply_act(z + l.bias.view(1, -1, 1, 1), l, 1)
             y = z.to(dt)
     y = y.permute(0, 2, 3, 1).contiguous()
     return y if crop else F.pad(y, (0, 0, 1, 1, 1, 1))
 
 
-def _check_cuda(x: torch.Tensor, layers: Sequence[ChainLayer]) -> None:
+def check_cuda(x: torch.Tensor, layers: Sequence,
+               weights: Sequence[torch.Tensor]) -> None:
+    """The bf16 chain kernels' inputs: ``x`` (N, H, W, C) bf16; each
+    layer's weight (``weights[i]``) bf16, its bias and slope f32, all
+    contiguous on ``x``'s device."""
     if x.ndim != 4:
         raise ValueError(f"frames must be (N, H, W, C), got {tuple(x.shape)}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA conv chain takes bf16 input, got {x.dtype}")
-    for i, l in enumerate(layers):
-        if l.wmat.dtype != torch.bfloat16:
-            raise TypeError(f"layer {i}: wmat must be bf16, got {l.wmat.dtype}")
+    for i, (l, wt) in enumerate(zip(layers, weights)):
+        if wt.dtype != torch.bfloat16:
+            raise TypeError(f"layer {i}: weights must be bf16, got {wt.dtype}")
         if l.bias.dtype != torch.float32 or l.slope.dtype != torch.float32:
             raise TypeError(f"layer {i}: bias/slope must be float32")
-        for t in (l.wmat, l.bias, l.slope):
+        for t in (wt, l.bias, l.slope):
             if t.device != x.device:
                 raise ValueError(f"layer {i}: tensor on {t.device}, input on {x.device}")
             if not t.is_contiguous():
@@ -176,13 +193,34 @@ def launch_chain_layer(src: torch.Tensor, dst: torch.Tensor,
     conv3x3_chain.launches += 1
 
 
-def embed(x: torch.Tensor) -> torch.Tensor:
-    """(N, H, W, C) -> ring-zeroed bordered bf16 (N, H+2, W+2, C)."""
+def embed(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16
+          ) -> torch.Tensor:
+    """(N, H, W, C) -> ring-zeroed bordered (N, H+2, W+2, C) of ``dtype``."""
     n, h, w, c = x.shape
-    buf = torch.zeros((n, h + 2, w + 2, c), dtype=torch.bfloat16,
-                      device=x.device)
+    buf = torch.zeros((n, h + 2, w + 2, c), dtype=dtype, device=x.device)
     buf[:, 1:h + 1, 1:w + 1, :] = x
     return buf
+
+
+def run_bordered(src: torch.Tensor, layers: Sequence,
+                 launch: Callable[[torch.Tensor, torch.Tensor, object], None],
+                 dtypes: Optional[Sequence[torch.dtype]] = None
+                 ) -> torch.Tensor:
+    """Launch each layer from bordered ``src`` into a ring-zeroed bordered
+    buffer of its width and ``dtypes[i]`` (bf16 by default); returns the
+    last.  A consumed input recycles as a later layer's output: its ring
+    is still zero and the next write covers its whole interior."""
+    n, hp, wp, _ = src.shape
+    free: Dict[Tuple[int, torch.dtype], List[torch.Tensor]] = {}
+    for i, layer in enumerate(layers):
+        dt = dtypes[i] if dtypes else torch.bfloat16
+        pool = free.get((layer.cout, dt))
+        dst = pool.pop() if pool else torch.zeros(
+            (n, hp, wp, layer.cout), dtype=dt, device=src.device)
+        launch(src, dst, layer)
+        free.setdefault((src.shape[-1], src.dtype), []).append(src)
+        src = dst
+    return src
 
 
 def conv3x3_chain(x: torch.Tensor, layers: Sequence[ChainLayer],
@@ -196,21 +234,10 @@ def conv3x3_chain(x: torch.Tensor, layers: Sequence[ChainLayer],
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_chain: unsupported device {x.device}")
     _check_layers(layers, x.shape[-1])
-    _check_cuda(x, layers)
-    n, h, w, _ = x.shape
-    src = embed(x)
-    free: Dict[int, List[torch.Tensor]] = {}
-    for layer in layers:
-        pool = free.get(layer.cout)
-        dst = pool.pop() if pool else torch.zeros(
-            (n, h + 2, w + 2, layer.cout), dtype=torch.bfloat16,
-            device=x.device)
-        launch_chain_layer(src, dst, layer)
-        # the consumed input recycles as a later layer's output: its ring
-        # is still zero and the next write covers its whole interior
-        free.setdefault(src.shape[-1], []).append(src)
-        src = dst
-    return src[:, 1:h + 1, 1:w + 1, :].contiguous() if crop else src
+    check_cuda(x, layers, [l.wmat for l in layers])
+    h, w = x.shape[1:3]
+    out = run_bordered(embed(x), layers, launch_chain_layer)
+    return out[:, 1:h + 1, 1:w + 1, :].contiguous() if crop else out
 
 
 conv3x3_chain.launches = 0
