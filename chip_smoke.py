@@ -31,7 +31,14 @@ contracts, counting kernel launches:
   frame) as a subprocess through ``python -m``; their ``[launches]`` lines
   give K7's and K8's launch counts, each counted from 0 in that process.
 
-Weights are synthetic (seed 0).  K1 is held against its plain version at
+Weights are synthetic (seed 0).  K1 runs its 64->64 layers on the
+persistent TMA + wgmma kernel (``csrc/conv3x3_chain_sm90.cu``) and every
+other shape on the WMMA kernel: ``[K1_sm90]`` holds one sm90 layer per
+activation against the plain version at 4x1080p and two ragged shapes
+(ring checked), ``[K1_ab]`` times one 64->64 PReLU layer at 4x1080p on
+the WMMA kernel (called directly), the sm90 kernel and cuDNN, and every CLI run
+counts the sm90 launches (the default step's 16 body layers, two of the
+last RRDBNet chain's three).  K1 is held against its plain version at
 every path's shapes (the Compact stack and the anime chain at 4x1080p;
 ``-m r``'s last three convs on a 1080p frame's tiles at 4x), K4 at every
 ESRGAN conv shape at 1080p (and ``-m r``'s three solo convs), K3 at
@@ -69,6 +76,8 @@ VALAR_CLIP_RATE = "1:30"       # -b 1 (one minute) = 2 frames
 VALAR_BLOCKS = 69              # 23 RRDBs x 3 dense blocks: K5 launches/step
 VALAR_SOLOS = 3                # first, trunk, up1: K4 launches per step
 VALAR_CHAIN = 3                # up2 -> hr -> last: one K1 chain per step
+LAST_CHAIN_SM90 = 2            # its 64->64 up2 and hr run on the sm90 kernel
+COMPACT_BODY = 16              # the Compact stack's 64->64 layers: sm90
 # each 3x3 conv of -m r with the factor its 1080p tiles are upscaled by
 # there: the three solo convs run on K4, the last three on K1
 VALAR_K4_LAYERS = (("conv_first", 1), ("conv_trunk", 1), ("conv_up1", 2))
@@ -259,7 +268,7 @@ def main() -> int:
         conv3x3_fused, conv3x3_fused_plain,
     )
     from upscale_video_tpu_torch.ops.conv_chain import (
-        conv3x3_chain, conv3x3_chain_plain,
+        conv3x3_chain, conv3x3_chain_plain, embed, run_bordered,
     )
     from upscale_video_tpu_torch.ops.pixel import frames_to_model
     from upscale_video_tpu_torch.ops.tail import (
@@ -298,6 +307,8 @@ def main() -> int:
         del got, want, d, bound
 
     k1_ms = cuda_ms(lambda: conv3x3_chain(main_x, layers, crop=False), 5)
+    k1_wmma_ms = cuda_ms(
+        lambda: run_bordered(embed(main_x), layers, wmma_layer), 3)
     k1_plain_ms = cuda_ms(
         lambda: conv3x3_chain_plain(main_x, layers, crop=False), 2)
     k1_lib_ms = cuda_ms(lambda: cudnn_stack(main_x, layers), 5)
@@ -307,10 +318,12 @@ def main() -> int:
     k1_bound = roofline(main_x.numel() * 2 + wbytes
                         + N * (H + 2) * (W + 2) * layers[-1].cout * 2,
                         {"bf16": flop})
-    say("K1_time", ms=f"{k1_ms:.3f}", plain_ms=f"{k1_plain_ms:.3f}",
+    say("K1_time", ms=f"{k1_ms:.3f}", wmma_only_ms=f"{k1_wmma_ms:.3f}",
+        plain_ms=f"{k1_plain_ms:.3f}",
         cudnn_ms=f"{k1_lib_ms:.3f}", bound_ms=f"{k1_bound[0]:.3f}",
         bound_by=k1_bound[1], tflops=f"{flop / k1_ms / 1e9:.1f}",
-        per="17-layer stack, 4x1080p")
+        per="17-layer stack, 4x1080p (16 layers on sm90, 1 on WMMA)")
+    k1_layer_ms = k1_sm90_phases(dev, errs)
 
     # K2 against its plain version on the same bordered K1 output
     for layout in ("planar", "frames"):
@@ -790,7 +803,7 @@ def main() -> int:
     HermeticBackend.concat = observe_concat
     counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K3": sr_tail_fused,
                 "K4": conv3x3_fused, "K5": rdb_block, "K6": nl_means_denoise}
-    launches = dict.fromkeys(counters, 0)
+    launches = dict.fromkeys([*counters, "K1_sm90"], 0)
     e2e = {}
 
     def drive(tmp, name, c420, frames, rate, extra, synthetic=True):
@@ -801,11 +814,13 @@ def main() -> int:
         write_clip(src, c420, seed=1, frames=frames, rate=rate)
         for fn in counters.values():
             fn.launches = 0
+        conv3x3_chain.launches_sm90 = 0
         t0 = time.perf_counter()
         rc = cli_main(["-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
                        *(["--synthetic_models"] if synthetic else []), *extra])
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
+        counts["K1_sm90"] = conv3x3_chain.launches_sm90
         for k, v in counts.items():
             launches[k] += v
         with Y4MSource(out_path) as o:
@@ -840,11 +855,16 @@ def main() -> int:
                   and k["K3"] == k["K4"] == k["K5"] == k["K6"] == 0)
             say("e2e", path="default", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=steps, k1_launches=k["K1"],
+                k1_sm90_launches=k["K1_sm90"],
                 k2_launches=k["K2"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
             if not ok:
                 raise SystemExit(f"end-to-end run on the {name} clip failed")
+            if k["K1_sm90"] != COMPACT_BODY * steps:
+                raise SystemExit(
+                    f"the default step's 64->64 body ran {k['K1_sm90']} layers "
+                    f"on the sm90 kernel, not {COMPACT_BODY * steps}")
         # -m r: one frame per step, every dense block one K5 launch over
         # the frame's 8 tiles, the three solo 3x3 convs one K4 launch each,
         # the last three one K1 chain
@@ -857,10 +877,12 @@ def main() -> int:
                   and k["K5"] == VALAR_BLOCKS * vsteps
                   and k["K4"] == VALAR_SOLOS * vsteps
                   and k["K1"] == VALAR_CHAIN * vsteps
+                  and k["K1_sm90"] == LAST_CHAIN_SM90 * vsteps
                   and k["K2"] == k["K3"] == k["K6"] == 0)
             say("e2e", path="-m r", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=vsteps,
                 k5_launches=k["K5"], k4_launches=k["K4"], k1_launches=k["K1"],
+                k1_sm90_launches=k["K1_sm90"],
                 k2_launches=k["K2"], fragments_before_concat=frags,
                 workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
@@ -873,10 +895,12 @@ def main() -> int:
                 tmp, name, c420, CLIP_FRAMES, CLIP_RATE, ["-m", PRELUDE])
             ok = (ok and geom == (2 * W, 2 * H) and k["K6"] == steps
                   and k["K1"] == (ANIME_LAYERS + 17) * steps
+                  and k["K1_sm90"] == COMPACT_BODY * steps
                   and k["K2"] == steps and k["K3"] == k["K4"] == k["K5"] == 0)
             say("e2e", path=f"-m {PRELUDE}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=steps, k6_launches=k["K6"], k1_launches=k["K1"],
+                k1_sm90_launches=k["K1_sm90"],
                 k2_launches=k["K2"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
@@ -895,10 +919,12 @@ def main() -> int:
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K4"] == esrgan_k4(ESRGAN_RRDBS) * esteps
                   and k["K1"] == 3 * esteps
+                  and k["K1_sm90"] == LAST_CHAIN_SM90 * esteps
                   and k["K2"] == k["K3"] == k["K5"] == k["K6"] == 0)
             say("e2e", path=f"-m sr={ESRGAN_STEM}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=esteps, k4_launches=k["K4"], k1_launches=k["K1"],
+                k1_sm90_launches=k["K1_sm90"],
                 k2_launches=k["K2"], k3_launches=k["K3"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
@@ -916,7 +942,8 @@ def main() -> int:
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K4"] == (WIDE_CONVS + 1) * wsteps
                   and k["K3"] == wsteps
-                  and k["K1"] == k["K2"] == k["K5"] == k["K6"] == 0)
+                  and k["K1"] == k["K1_sm90"] == k["K2"] == k["K5"]
+                  == k["K6"] == 0)
             say("e2e", path=f"-m sr={WIDE_STEM}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=wsteps, k4_launches=k["K4"], k3_launches=k["K3"],
@@ -944,15 +971,19 @@ def main() -> int:
     teng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True, tta=True)
     for fn in counters.values():
         fn.launches = 0
+    conv3x3_chain.launches_sm90 = 0
     out = teng.step(frames[:1])
     torch.cuda.synchronize()
     k = {name: fn.launches for name, fn in counters.items()}
+    k["K1_sm90"] = conv3x3_chain.launches_sm90
     out = out.cpu().numpy()
     ref = plain_call(teng.step, frames[:1]).cpu().numpy()
     quality = psnr(out, ref)
     ok = (quality >= TTA_MIN_PSNR and out.shape == (1, 2 * H, 2 * W, 3)
-          and k["K1"] == 8 * 17 and k["K2"] == 8)
-    say("tta", shape=out.shape, k1_launches=k["K1"], k2_launches=k["K2"],
+          and k["K1"] == 8 * 17 and k["K1_sm90"] == 8 * COMPACT_BODY
+          and k["K2"] == 8)
+    say("tta", shape=out.shape, k1_launches=k["K1"],
+        k1_sm90_launches=k["K1_sm90"], k2_launches=k["K2"],
         psnr_vs_plain_db=f"{quality:.2f}",
         max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
         bound=f">={TTA_MIN_PSNR}dB", ok=ok)
@@ -1036,11 +1067,14 @@ def main() -> int:
     model_dir.cleanup()
     kernels = [
         {"name": "conv3x3_chain", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/conv3x3_chain.cu",
+         "source": "upscale_video_tpu_torch/csrc/conv3x3_chain_sm90.cu",
+         "source_wmma": "upscale_video_tpu_torch/csrc/conv3x3_chain.cu",
          "replaces": "upscale_video_tpu/ops/conv_chain.py:61",
-         "launches": launches["K1"], "max_abs_err": errs["K1"],
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": k1_lib_ms},
+         "launches": launches["K1"], "launches_sm90": launches["K1_sm90"],
+         "max_abs_err": errs["K1"],
+         "ms": k1_ms, "ms_wmma": k1_wmma_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": k1_lib_ms, "layer_ms": k1_layer_ms},
         {"name": "sr_tail_chain", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/sr_tail.cu",
          "replaces": "upscale_video_tpu/ops/tail_pallas.py:155",
@@ -1138,6 +1172,106 @@ def plain_call(fn, *args):
     """``fn(*args)`` with every kernel swapped for its plain version."""
     with plain_kernels():
         return fn(*args)
+
+
+def k1_sm90_phases(dev, errs) -> float:
+    """[K1_sm90] and [K1_ab]: one 64->64 layer per activation on the sm90
+    kernel against its plain version at 4x1080p and two ragged shapes (W
+    no multiple of the 64-wide tile, H none of its 4 rows), ring checked;
+    then one PReLU layer at 4x1080p timed on the WMMA kernel (called
+    directly), the sm90 kernel and cuDNN.  Returns the sm90 layer's ms."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import (
+        ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
+    )
+    from upscale_video_tpu_torch.ops.conv_chain import (
+        conv3x3_chain, conv3x3_chain_plain, embed, launch_chain_layer,
+        make_layer, sm90_takes,
+    )
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    c = BODY_C
+    assert sm90_takes(c, c)
+
+    def layer(act):
+        slope = (rng.uniform(0.1, 0.3, (c,)).astype(np.float32)
+                 if act == ACT_PRELU else 0.2 if act == ACT_LEAKY else None)
+        return make_layer(rng.normal(0, 0.15, (3, 3, c, c)).astype(np.float32),
+                          rng.normal(0, 0.05, (c,)).astype(np.float32), slope,
+                          act, device=dev)
+
+    for shape in ((N, H, W), (2, 37, 53), (1, 67, 130)):
+        x = torch.randn((*shape, c), generator=gen, device=dev).to(torch.bfloat16)
+        src = embed(x)
+        for act in (ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU):
+            lay = layer(act)
+            dst = torch.zeros_like(src)
+            sm90 = conv3x3_chain.launches_sm90
+            launch_chain_layer(src, dst, lay)
+            torch.cuda.synchronize()
+            want = conv3x3_chain_plain(x, [lay], crop=False)
+            worst, differ, ok = compare(dst, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+            ring = torch.ones(dst.shape[1:3], dtype=torch.bool, device=dev)
+            ring[1:-1, 1:-1] = False
+            ring_zero = int(torch.count_nonzero(dst[:, ring])) == 0
+            on_sm90 = conv3x3_chain.launches_sm90 - sm90 == 1
+            ok = ok and ring_zero and on_sm90
+            say("K1_sm90", shape="x".join(map(str, shape)), act=act,
+                max_abs_err=worst, frac_differ=f"{differ:.3e}",
+                bound=f"atol={K1_LAYER_ATOL},rtol={K1_LAYER_RTOL}",
+                ring_zero=ring_zero, on_sm90=on_sm90, ok=ok)
+            if not ok:
+                raise SystemExit(f"K1's sm90 layer disagrees with its plain "
+                                 f"version at {shape}, act {act}")
+            errs["K1"] = max(errs.get("K1", 0.0), worst)
+            del dst, want
+        del x, src
+
+    # the A/B at 4x1080p: the bound counts the interior read and written
+    # once with the weights (bytes) against 2*9*c*c operations per pixel
+    x = torch.randn((N, H, W, c), generator=gen, device=dev).to(torch.bfloat16)
+    src = embed(x)
+    dst = torch.zeros_like(src)
+    lay = layer(ACT_PRELU)
+    w_cl = conv_weight_cl(lay.wmat)
+    b16 = lay.bias.to(torch.bfloat16)
+    nbytes, flop = conv_work(N, H, W, c, c)
+    bound = roofline(nbytes, {"bf16": flop})
+    ops_ms = 1e3 * flop / PEAK_OPS["bf16"]
+    out = {}
+    for name, fn in (
+            ("wmma", lambda: wmma_layer(src, dst, lay)),
+            ("sm90", lambda: launch_chain_layer(src, dst, lay)),
+            ("cudnn", lambda: cudnn_conv(x, w_cl, b16))):
+        out[name] = cuda_ms(fn, 10)
+    for name, ms in out.items():
+        say("K1_ab", impl=name, shape=f"{N}x{H}x{W}", layer=f"{c}->{c} prelu",
+            ms=f"{ms:.4f}", tflops=f"{flop / ms / 1e9:.1f}",
+            ops_bound_ms=f"{ops_ms:.4f}", share_of_ops_bound=f"{ops_ms / ms:.3f}",
+            bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+            vs_wmma=f"{ms / out['wmma']:.3f}")
+    if out["sm90"] >= out["wmma"]:
+        raise SystemExit("K1's sm90 layer is no faster than its WMMA layer")
+    return out["sm90"]
+
+
+def wmma_layer(src, dst, layer) -> None:
+    """One layer on K1's WMMA kernel, called directly (the port sends every
+    64->64 layer to the sm90 kernel): the yardstick the sm90 kernel is
+    timed against."""
+    import torch
+
+    from upscale_video_tpu_torch.kernels import build
+
+    n, hp, wp, _ = src.shape
+    code = build.library().uvt_conv3x3_chain_layer(
+        src.data_ptr(), dst.data_ptr(), layer.wmat.data_ptr(),
+        layer.bias.data_ptr(), layer.slope.data_ptr(), n, hp - 2, wp - 2,
+        layer.cin, layer.cout, layer.act,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    build.check(code, "conv3x3_chain WMMA layer launch")
 
 
 def conv_body_phases(dev, errs) -> dict:
@@ -1416,7 +1550,7 @@ def profile_shares(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"k4": "conv3x3_fused_kernel", "k1": "chain_layer_kernel",
+    groups = {"k4": "conv3x3_fused_kernel", "k1": "chain_layer",
               "cat": "CatArray"}
     sums, rest = dict.fromkeys(groups, 0.0), {}
     for e in prof.key_averages():

@@ -18,7 +18,7 @@ from upscale_video_tpu_torch.ops.common import (
     ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
 )
 from upscale_video_tpu_torch.ops.conv_chain import (
-    conv3x3_chain, conv3x3_chain_plain, make_layer,
+    conv3x3_chain, conv3x3_chain_plain, make_layer, sm90_takes,
 )
 
 
@@ -121,3 +121,48 @@ def test_rejects_bad_layers():
     with pytest.raises(ValueError, match="outside"):
         conv3x3_chain(torch.zeros(1, 5, 5, 129),
                       _port_layers(_specs(rng, [(129, 8, ACT_NONE)])))
+
+
+@pytest.mark.parametrize("cin,cout,takes", [
+    (64, 64, True), (3, 64, False), (24, 24, False), (64, 12, False),
+    (128, 128, False), (64, 128, False), (32, 64, False), (64, 3, False),
+])
+def test_sm90_takes_exactly_64_to_64(cin, cout, takes):
+    """The kernel choice is a pure function of the layer's shape: the sm90
+    kernel's resident weights and halo ring are sized for 64 -> 64."""
+    assert sm90_takes(cin, cout) is takes
+
+
+def test_planned_chains_split_as_sm90_takes():
+    """The default Compact chain puts its 16 body layers on the sm90
+    kernel and its 3 -> 64 head on WMMA; the anime chain (nf 24) none;
+    ESRGAN's and Valar's last chain (up2 -> hr -> last) two of three."""
+    from upscale_video_tpu_torch.models.executor import chain_layers
+    from upscale_video_tpu_torch.models.zoo import (
+        make_synthetic_model, make_synthetic_rrdb_model,
+    )
+
+    def split(model, emit):
+        fwd = model.frames_forward(emit)
+        if hasattr(fwd, "chains"):
+            (chain,) = fwd.chains.values()
+            items = chain["items"]
+        else:
+            items = fwd.items
+        return [sm90_takes(l.cin, l.cout)
+                for l in chain_layers(items, model.state)]
+
+    assert split(make_synthetic_model(scale=2), "planar") == [False] + [True] * 16
+    anime = make_synthetic_model(scale=1, num_conv=8, num_feat=24)
+    assert not any(split(anime, "model"))
+    for variant in ("esrgan", "valar"):
+        rrdb = make_synthetic_rrdb_model(num_rrdb=1, variant=variant)
+        assert split(rrdb, "model") == [True, True, False]
+
+
+def test_cpu_chain_launches_no_kernel():
+    rng = np.random.default_rng(70)
+    layers = _port_layers(_specs(rng, [(3, 64, ACT_PRELU), (64, 64, ACT_PRELU)]))
+    before = (conv3x3_chain.launches, conv3x3_chain.launches_sm90)
+    conv3x3_chain(torch.zeros(1, 5, 6, 3), layers)
+    assert (conv3x3_chain.launches, conv3x3_chain.launches_sm90) == before

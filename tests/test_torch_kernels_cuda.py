@@ -6,10 +6,11 @@ file imports no jax, so on a GPU host without jax it runs on its own::
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K1 rounds each layer once to bf16 after an f32 accumulation
-whose order differs from cuDNN's, so a value may land one bf16 ulp away
-and the ulp propagates (the JAX suite's chain bounds,
-tests/test_conv_chain.py:58,70); K2's uint8 outputs may differ by 1 LSB
+Tolerances: K1 (its WMMA and its sm90 kernel alike) rounds each layer
+once to bf16 after an f32 accumulation whose order differs from cuDNN's,
+so a value may land one bf16 ulp away and the ulp propagates (the JAX
+suite's chain bounds, tests/test_conv_chain.py:58,70; one layer alone
+``2**-10 + 2**-7 * |want|``); K2's uint8 outputs may differ by 1 LSB
 where that ulp-level difference straddles a rounding boundary.  K5 rounds
 each per-source piece to bf16 after a tensor-core f32 sum whose order
 differs from cuDNN's, so a piece may land one bf16 ulp away and move the
@@ -34,7 +35,8 @@ from upscale_video_tpu_torch.ops.conv3x3 import (
     conv3x3_fused, conv3x3_fused_plain,
 )
 from upscale_video_tpu_torch.ops.conv_chain import (
-    conv3x3_chain, conv3x3_chain_plain, make_layer,
+    conv3x3_chain, conv3x3_chain_plain, embed, launch_chain_layer, make_layer,
+    sm90_takes,
 )
 from upscale_video_tpu_torch.ops.nlmeans import (
     nl_means_denoise, nl_means_denoise_plain,
@@ -69,26 +71,36 @@ def _layers(rng, specs, dev):
     return out
 
 
+def _ring_is_zero(buf):
+    ring = torch.ones(buf.shape[1:3], dtype=torch.bool, device=buf.device)
+    ring[1:-1, 1:-1] = False
+    return int(torch.count_nonzero(buf[:, ring])) == 0
+
+
 @pytest.mark.parametrize("specs", [
     [(3, 16, ACT_PRELU), (16, 64, ACT_LEAKY), (64, 64, ACT_RELU),
      (64, 12, ACT_NONE)],
     [(3, 64, ACT_PRELU)] + [(64, 64, ACT_PRELU)] * 2,
     [(128, 128, ACT_PRELU), (128, 100, ACT_NONE)],
+    [(3, 64, ACT_PRELU), (64, 64, ACT_LEAKY), (64, 64, ACT_PRELU),
+     (64, 12, ACT_NONE)],
 ])
 def test_chain_kernel_matches_plain(dev, specs):
+    """A stack mixing both kernels (sm90 for 64 -> 64, WMMA for the rest);
+    the counters split as ``sm90_takes`` says."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.uniform(0, 1, (2, 37, 53, specs[0][0]))
                          .astype(np.float32)).to(dev, torch.bfloat16)
     layers = _layers(rng, specs, dev)
-    before = conv3x3_chain.launches
+    before = (conv3x3_chain.launches, conv3x3_chain.launches_sm90)
     got = conv3x3_chain(x, layers, crop=False)
     torch.cuda.synchronize()
-    assert conv3x3_chain.launches - before == len(layers)
+    assert conv3x3_chain.launches - before[0] == len(layers)
+    assert conv3x3_chain.launches_sm90 - before[1] == sum(
+        sm90_takes(ci, co) for ci, co, _ in specs)
     want = conv3x3_chain_plain(x, layers, crop=False)
     torch.testing.assert_close(got.float(), want.float(), atol=5e-2, rtol=2e-2)
-    ring = torch.ones(got.shape[1:3], dtype=torch.bool, device=dev)
-    ring[1:-1, 1:-1] = False
-    assert torch.count_nonzero(got[:, ring]) == 0
+    assert _ring_is_zero(got)
 
 
 @pytest.mark.parametrize("s", [2, 4])
@@ -112,16 +124,42 @@ def test_tail_kernel_matches_plain(dev, s, layout):
     assert diff <= (1e-4 if layout == "model" else 1.0)
 
 
+@pytest.mark.parametrize("shape", [(1, 64, 128), (2, 37, 53), (1, 67, 130)])
+@pytest.mark.parametrize("act", [ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU])
+def test_sm90_layer_matches_plain(dev, shape, act):
+    """One 64 -> 64 layer on the sm90 kernel, W no multiple of its 64-wide
+    tile and H no multiple of its 4 rows: one rounding after an f32 sum in
+    another order, so within one bf16 ulp (``2**-10 + 2**-7 * |v|``); the
+    ring stays zero."""
+    rng = np.random.default_rng(3 + act)
+    (layer,) = _layers(rng, [(64, 64, act)], dev)
+    x = torch.from_numpy(rng.normal(0, 1, (*shape, 64)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    want = conv3x3_chain_plain(x, [layer], crop=False).float()
+    src = embed(x)
+    dst = torch.zeros_like(src)
+    before = (conv3x3_chain.launches, conv3x3_chain.launches_sm90)
+    launch_chain_layer(src, dst, layer)
+    torch.cuda.synchronize()
+    assert conv3x3_chain.launches - before[0] == 1
+    assert conv3x3_chain.launches_sm90 - before[1] == 1
+    assert bool(((dst.float() - want).abs()
+                 <= 2.0 ** -10 + 2.0 ** -7 * want.abs()).all())
+    assert _ring_is_zero(dst)
+
+
 def test_engine_step_launches_each_kernel(dev):
     from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 
     eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True)
     frames = torch.randint(0, 256, (4, 24, 40, 3), dtype=torch.uint8)
     k1, k2 = conv3x3_chain.launches, sr_tail_chain.launches
+    sm90 = conv3x3_chain.launches_sm90
     out = eng.planar_step(frames)
     torch.cuda.synchronize()
     assert tuple(out.shape) == (4, 24, 40, 12)
     assert conv3x3_chain.launches - k1 == 17
+    assert conv3x3_chain.launches_sm90 - sm90 == 16  # the 64 -> 64 body
     assert sr_tail_chain.launches - k2 == 1
 
 

@@ -31,8 +31,9 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("conv3x3_chain.cu", "sr_tail.cu", "rdb_block.cu", "nlmeans.cu",
-           "conv3x3_fused.cu", "conv_winograd.cu", "conv_chain_q8.cu")
+SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu", "sr_tail.cu",
+           "rdb_block.cu", "nlmeans.cu", "conv3x3_fused.cu", "conv_winograd.cu",
+           "conv_chain_q8.cu")
 HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +45,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # src, dst, wmat, bias, slope, n, h, w, cin, cout, act, stream
     "uvt_conv3x3_chain_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "uvt_conv3x3_chain_layer_sm90": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # src, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream
     "uvt_sr_tail": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # u, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream

@@ -69,12 +69,21 @@ def conv_geometry(layer: NcnnLayer):
     return kh, kw, (sh, sw), (dh, dw), (pad_t, pad_b, pad_l, pad_r)
 
 
+def same_pads(size: int, k: int, s: int, d: int):
+    """XLA's ``padding="SAME"`` along one axis: ``ceil(size / s)`` outputs,
+    the total pad split with the odd pixel at the bottom/right."""
+    total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
 def _conv(layer, x, w_oihw, bias, compute_dtype, groups=1):
     """f32 conv over compute-dtype operands + bias + activation, rounded
-    once to the compute dtype."""
+    once to the compute dtype.  ncnn's ``4=-233`` (SAME_UPPER) pads as
+    XLA's SAME, as the JAX executor does."""
     kh, kw, stride, dil, pads = conv_geometry(layer)
-    if pads[0] == -233:
-        raise NotImplementedError(f"{layer.name}: SAME_UPPER auto-pad")
+    if pads[2] == -233:
+        pads = (*same_pads(x.shape[1], kh, stride[0], dil[0]),
+                *same_pads(x.shape[2], kw, stride[1], dil[1]))
     xin = x.to(compute_dtype).to(torch.float32).permute(0, 3, 1, 2)
     xin = F.pad(xin, (pads[2], pads[3], pads[0], pads[1]))
     with no_tf32():
@@ -174,17 +183,26 @@ def resize_weights(size_in: int, size_out: int, kernel) -> np.ndarray:
 
 
 def _resize(x: torch.Tensor, out_h: int, out_w: int, kernel) -> torch.Tensor:
-    """``jax.image.resize`` with a separable kernel: one f32 contraction
-    per resized axis, in the input's dtype at the end."""
+    """``jax.image.resize`` with a separable kernel: one contraction per
+    resized axis.  f32 keeps f32 weights throughout.  Lower precisions take
+    what JAX's einsum does: weights in the input's dtype, the two axes in
+    the order with fewer multiply-adds in all (its path optimiser's
+    choice), each contraction summed in f32 and rounded to the input's
+    dtype."""
     n, h, w, c = x.shape
-    y = x.to(torch.float32)
+    axes = []
     if out_h != h:
-        wh = torch.from_numpy(resize_weights(h, out_h, kernel)).to(x.device)
-        y = torch.einsum("nhwc,ho->nowc", y, wh)
+        axes.append(("nhwc,ho->nowc", resize_weights(h, out_h, kernel)))
     if out_w != w:
-        ww = torch.from_numpy(resize_weights(w, out_w, kernel)).to(x.device)
-        y = torch.einsum("nhwc,wo->nhoc", y, ww)
-    return y.to(x.dtype)
+        axes.append(("nhwc,wo->nhoc", resize_weights(w, out_w, kernel)))
+    if (x.dtype != torch.float32 and len(axes) == 2
+            and h * out_w * (w + out_h) < w * out_h * (h + out_w)):
+        axes.reverse()  # H then W costs w*oh*(h+ow), W then H h*ow*(w+oh)
+    y = x
+    for eq, wmat in axes:
+        wt = torch.from_numpy(wmat).to(x.device, x.dtype).float()
+        y = torch.einsum(eq, y.float(), wt).to(x.dtype)
+    return y
 
 
 def op_interp(layer: NcnnLayer, inputs, p, compute_dtype):
@@ -298,7 +316,7 @@ def op_sigmoid(layer: NcnnLayer, inputs, p, compute_dtype):
 
 def op_dropout(layer: NcnnLayer, inputs, p, compute_dtype):
     scale = layer.attr_f(0, 1.0)
-    return inputs[0] if scale == 1.0 else inputs[0] * scale
+    return inputs[0] if scale == 1.0 else inputs[0] * _scalar(scale, inputs[0])
 
 
 OP_REGISTRY: Dict[str, Callable] = {

@@ -9,9 +9,12 @@ alternate.  With ``crop=False`` the last bordered buffer goes straight to
 the tail kernel (:mod:`upscale_video_tpu_torch.ops.tail`).
 
 :func:`conv3x3_chain` dispatches on the input's device: a CPU tensor takes
-:func:`conv3x3_chain_plain`; a CUDA tensor launches the kernel in
-``csrc/conv3x3_chain.cu`` or raises.  ``conv3x3_chain.launches`` counts
-kernel launches (one per layer per call).
+:func:`conv3x3_chain_plain`; a CUDA tensor launches a kernel per layer or
+raises.  The kernel is chosen by the layer's shape alone
+(:func:`sm90_takes`): 64->64 layers run the persistent TMA + wgmma kernel
+in ``csrc/conv3x3_chain_sm90.cu``, every other shape the WMMA kernel in
+``csrc/conv3x3_chain.cu``.  ``conv3x3_chain.launches`` counts every layer
+launch, ``conv3x3_chain.launches_sm90`` those that went to the sm90 kernel.
 """
 
 from __future__ import annotations
@@ -168,10 +171,19 @@ def check_cuda(x: torch.Tensor, layers: Sequence,
                 raise ValueError(f"layer {i}: tensors must be contiguous")
 
 
+def sm90_takes(cin: int, cout: int) -> bool:
+    """Whether a chain layer runs on the sm90 kernel: exactly 64 -> 64, the
+    width its resident weights (73,728 B) and 3-stage halo ring are sized
+    for (``csrc/conv3x3_chain_sm90.cu``)."""
+    return cin == 64 and cout == 64
+
+
 def launch_chain_layer(src: torch.Tensor, dst: torch.Tensor,
                        layer: ChainLayer) -> None:
     """One K1 launch: bordered ``src`` -> interior of bordered ``dst``
-    (whose ring must be zero) on the current stream."""
+    (whose ring must be zero) on the current stream, on the sm90 kernel
+    where :func:`sm90_takes` the layer's shape, else on the WMMA kernel; a
+    failed launch raises."""
     from upscale_video_tpu_torch.kernels import build
 
     n, hp, wp, cin = src.shape
@@ -182,15 +194,19 @@ def launch_chain_layer(src: torch.Tensor, dst: torch.Tensor,
             f"bordered buffers {tuple(src.shape)}/{src.dtype} -> "
             f"{tuple(dst.shape)}/{dst.dtype} do not fit layer "
             f"{layer.cin}->{layer.cout} (contiguous bf16 required)")
+    sm90 = sm90_takes(layer.cin, layer.cout)
     lib = build.library()
-    code = lib.uvt_conv3x3_chain_layer(
+    fn = lib.uvt_conv3x3_chain_layer_sm90 if sm90 else lib.uvt_conv3x3_chain_layer
+    code = fn(
         src.data_ptr(), dst.data_ptr(), layer.wmat.data_ptr(),
         layer.bias.data_ptr(), layer.slope.data_ptr(),
         n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
         torch.cuda.current_stream(src.device).cuda_stream,
     )
-    build.check(code, "conv3x3_chain layer launch")
+    build.check(code, "conv3x3_chain sm90 layer launch" if sm90
+                else "conv3x3_chain layer launch")
     conv3x3_chain.launches += 1
+    conv3x3_chain.launches_sm90 += sm90
 
 
 def embed(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16
@@ -241,3 +257,4 @@ def conv3x3_chain(x: torch.Tensor, layers: Sequence[ChainLayer],
 
 
 conv3x3_chain.launches = 0
+conv3x3_chain.launches_sm90 = 0
