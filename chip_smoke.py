@@ -21,9 +21,12 @@ contracts, counting kernel launches:
 - ``-m sr=x_RealESRGAN_x4plus``: RealESRGAN_x4plus's architecture (basicsr
   RRDBNet, 23 RRDBs, nf 64, gc 32) as a state dict made from a seed,
   converted by ``vsr-import-torch``, whole-frame, bf16, 1 frame per step:
-  348 K4 launches per frame and one 3-layer K1 chain;
+  348 K4 launches per frame (347 on its sm90 kernel, each dense block's
+  five convs on one shared 192-channel buffer, no torch.cat) and one
+  3-layer K1 chain;
 - ``-m sr=`` of a wide SRVGGNetCompact (nf 160, 4x), converted the same
-  way: K4 per body conv (PReLU fused), one K3 launch per step.
+  way: K4 per body conv (PReLU fused; the 160->160 body on sm90), one K3
+  launch per step.
 
 - the conv-body research path: ``upscale_video_tpu_torch.tools.wino_bench``
   (cuDNN, K1, K7 row-Winograd) and ``tools.q8_bench`` (K8 int8, K1,
@@ -38,7 +41,16 @@ activation against the plain version at 4x1080p and two ragged shapes
 (ring checked), ``[K1_ab]`` times one 64->64 PReLU layer at 4x1080p on
 the WMMA kernel (called directly), the sm90 kernel and cuDNN, and every CLI run
 counts the sm90 launches (the default step's 16 body layers, two of the
-last RRDBNet chain's three).  K1 is held against its plain version at
+last RRDBNet chain's three).  K4 runs every bf16 conv with cin a multiple
+of 32 (up to 192) and cout a multiple of 16 on the persistent TMA + wgmma
+kernel (``csrc/conv3x3_fused_sm90.cu``) and the 3- and 12-channel heads on
+the WMMA kernel: ``[K4_sm90]`` holds every ``K4_SHAPES`` row against the
+plain version (the kernel each took, and a sliced call: input read from a
+wider buffer, output written at a channel offset of a sentinel-filled one,
+bit-equal to the contiguous call, sentinels untouched) and each conv of a
+dense block run on one shared buffer; ``[K4_ab]`` times each dense shape
+and one dense block on the sm90 kernel, the WMMA kernel (called directly)
+and cuDNN; every CLI run counts the sm90 launches.  K1 is held against its plain version at
 every path's shapes (the Compact stack and the anime chain at 4x1080p;
 ``-m r``'s last three convs on a 1080p frame's tiles at 4x), K4 at every
 ESRGAN conv shape at 1080p (and ``-m r``'s three solo convs), K3 at
@@ -75,6 +87,7 @@ VALAR_CLIP_FRAMES = 3          # 3 steps of 1 frame; fragments of 2 + 1
 VALAR_CLIP_RATE = "1:30"       # -b 1 (one minute) = 2 frames
 VALAR_BLOCKS = 69              # 23 RRDBs x 3 dense blocks: K5 launches/step
 VALAR_SOLOS = 3                # first, trunk, up1: K4 launches per step
+VALAR_SOLOS_SM90 = 2           # trunk and up1 (64->64) on K4's sm90 kernel
 VALAR_CHAIN = 3                # up2 -> hr -> last: one K1 chain per step
 LAST_CHAIN_SM90 = 2            # its 64->64 up2 and hr run on the sm90 kernel
 COMPACT_BODY = 16              # the Compact stack's 64->64 layers: sm90
@@ -454,9 +467,11 @@ def main() -> int:
         del x, got, want
     a_ms = cuda_ms(lambda: conv3x3_chain(ax, alayers), 5)
     a_plain_ms = cuda_ms(lambda: conv3x3_chain_plain(ax, alayers), 2)
+    a_lib_ms = cuda_ms(lambda: cudnn_stack(ax, alayers), 5)
     a_flop = 2 * 9 * N * H * W * sum(l.cin * l.cout for l in alayers)
     say("K1_anime_time", ms=f"{a_ms:.3f}", plain_ms=f"{a_plain_ms:.3f}",
-        tflops=f"{a_flop / a_ms / 1e9:.1f}", per="10-layer nf-24 chain, 4x1080p")
+        cudnn_ms=f"{a_lib_ms:.3f}", tflops=f"{a_flop / a_ms / 1e9:.1f}",
+        per="10-layer nf-24 chain, 4x1080p")
     del ax, anime
     torch.cuda.empty_cache()
 
@@ -575,71 +590,7 @@ def main() -> int:
         raise SystemExit("the -m r step disagrees with the f32 plain path")
     del vref
 
-    # K4 against its plain version at each ESRGAN conv shape on one 1080p
-    # frame (conv_up1 at 2x), a wide SRVGG body layer and the x2plus
-    # conv_first on a ragged batch, unit-scale inputs; then each shape's
-    # time beside the plain version, cuDNN's bf16 conv and the bound
-    from upscale_video_tpu_torch.ops.common import (
-        ACT_LEAKY, ACT_NONE, ACT_PRELU,
-    )
-
-    acts = {"none": ACT_NONE, "leaky": ACT_LEAKY, "prelu": ACT_PRELU}
-    dense = {}
-    for cin, cout, act_name, h, w in K4_SHAPES:
-        n = 2 if (h, w) == (37, 53) else 1
-        g = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
-        x = torch.randn((n, h, w, cin), generator=g, device=dev).to(torch.bfloat16)
-        wmat = (torch.randn((9 * cin, cout), generator=g, device=dev)
-                / (9 * cin) ** 0.5).to(torch.bfloat16)
-        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
-        act = acts[act_name]
-        slope = (torch.rand((cout,), generator=g, device=dev) * 0.2 + 0.1
-                 if act == ACT_PRELU else 0.2 if act == ACT_LEAKY else None)
-        args = (wmat, bias, slope, act)
-        got = conv3x3_fused(x, *args)
-        want = conv3x3_fused_plain(x, *args)
-        torch.cuda.synchronize()
-        worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
-        shape = f"{n}x{h}x{w}x{cin}"
-        say("K4_layer", shape=shape, cout=cout, act=act_name,
-            max_abs_err=worst, frac_differ=f"{differ:.3e}",
-            bound="atol=2**-10,rtol=2**-7", ok=ok)
-        if not ok:
-            raise SystemExit(f"K4 disagrees with its plain version at {shape}->{cout}")
-        errs["K4"] = max(errs.get("K4", 0.0), worst)
-        del got, want
-        w_cl = conv_weight_cl(wmat)
-        b16 = bias.to(torch.bfloat16)
-        ms = cuda_ms(lambda: conv3x3_fused(x, *args), 5)
-        plain_ms = cuda_ms(lambda: conv3x3_fused_plain(x, *args), 2)
-        lib_ms = cuda_ms(lambda: cudnn_conv(x, w_cl, b16), 5)
-        nbytes, flop = conv_work(n, h, w, cin, cout)
-        bound = roofline(nbytes, {"bf16": flop})
-        say("K4_time", shape=shape, cout=cout, ms=f"{ms:.3f}",
-            plain_ms=f"{plain_ms:.3f}", cudnn_ms=f"{lib_ms:.3f}",
-            bound_ms=f"{bound[0]:.3f}", bound_by=bound[1],
-            tflops=f"{flop / ms / 1e9:.1f}")
-        if (cin, cout) in K4_DENSE and (h, w) == (H, W):
-            dense[cin] = (x, args, w_cl, b16, nbytes, flop)
-        else:
-            del x
-        torch.cuda.empty_cache()
-    # the kernels line's K4 row: one ESRGAN dense block's five convs on a
-    # 1080p frame (its sources concatenated beforehand)
-    parts = [dense[cin] for cin, _ in K4_DENSE]
-    k4_ms = cuda_ms(lambda: [conv3x3_fused(p[0], *p[1]) for p in parts], 5)
-    k4_plain_ms = cuda_ms(
-        lambda: [conv3x3_fused_plain(p[0], *p[1]) for p in parts], 2)
-    k4_lib_ms = cuda_ms(lambda: [cudnn_conv(p[0], p[2], p[3]) for p in parts], 5)
-    k4_flop = sum(p[5] for p in parts)
-    k4_bound = roofline(sum(p[4] for p in parts), {"bf16": k4_flop})
-    say("K4_time", shape=f"1x{H}x{W}", convs="64,96,128,160->32;192->64",
-        ms=f"{k4_ms:.3f}", plain_ms=f"{k4_plain_ms:.3f}",
-        cudnn_ms=f"{k4_lib_ms:.3f}", bound_ms=f"{k4_bound[0]:.3f}",
-        bound_by=k4_bound[1], tflops=f"{k4_flop / k4_ms / 1e9:.1f}",
-        per="one ESRGAN dense block's five convs, 1080p")
-    del parts, dense
-    torch.cuda.empty_cache()
+    k4_row = k4_phases(dev, errs)
 
     # K3 against its plain version at 4x1080p in all three layouts: the
     # wide SRVGG's tail (Cf 160) and a 64-wide one, at 2x and 4x
@@ -713,10 +664,13 @@ def main() -> int:
         engine = ChainEngine.build(ChainSpec.parse(f"sr={stem}"), 4, dev,
                                    model_path=mdir)
         efwd = engine.sr_model.frames_forward("frames")
+        blocks = len({d["block"] for d in efwd.dense.values()})
         if (len(efwd.solos) != esrgan_k4(rrdbs) or len(efwd.chains) != 1
+                or blocks != 3 * rrdbs or len(efwd.dense) != 15 * rrdbs
                 or efwd.rdb_triggers or engine.tile or engine.planar_scale):
             raise SystemExit(f"sr={stem}: {len(efwd.solos)} K4 convs, "
-                             f"{len(efwd.chains)} chains planned")
+                             f"{len(efwd.chains)} chains, {blocks} dense-buffer "
+                             "blocks planned")
         esr_engines[rrdbs] = engine
         min_db, max_lsb = ESRGAN_PLAIN_BOUNDS[rrdbs]
         torch.cuda.synchronize()
@@ -730,7 +684,8 @@ def main() -> int:
         lsb = np.abs(out.astype(int) - ref.astype(int))
         ok = quality >= min_db and lsb.max() <= max_lsb
         say("esrgan_step_vs_plain", shape=out.shape, rrdbs=rrdbs,
-            precision="bf16", psnr_db=f"{quality:.2f}", max_lsb=int(lsb.max()),
+            precision="bf16", dense_buffer_blocks=blocks,
+            psnr_db=f"{quality:.2f}", max_lsb=int(lsb.max()),
             frac_differ=f"{(lsb > 0).mean():.3e}",
             out_mean=f"{out.mean():.1f}", out_std=f"{out.std():.1f}",
             clipped=f"{np.mean((out == 0) | (out == 255)):.3f}",
@@ -770,16 +725,20 @@ def main() -> int:
         raise SystemExit(f"sr={WIDE_STEM}: {len(wfwd.solos)} K4 convs planned")
     small = torch.from_numpy(np.stack(
         [write_frame(270, 480, t, rng) for t in range(N)])).to(dev)
-    k4, k3 = conv3x3_fused.launches, sr_tail_fused.launches
+    k4, k4_sm90, k3 = (conv3x3_fused.launches, conv3x3_fused.launches_sm90,
+                       sr_tail_fused.launches)
     out = weng.planar_step(small)
     torch.cuda.synchronize()
-    launched = (conv3x3_fused.launches - k4, sr_tail_fused.launches - k3)
+    launched = (conv3x3_fused.launches - k4, conv3x3_fused.launches_sm90 - k4_sm90,
+                sr_tail_fused.launches - k3)
     out = out.cpu().numpy()
     ref = plain_call(weng.planar_step, small).cpu().numpy()
     quality = psnr(out, ref)
-    ok = quality >= WIDE_MIN_PSNR and launched == (WIDE_CONVS + 1, 1)
+    ok = (quality >= WIDE_MIN_PSNR
+          and launched == (WIDE_CONVS + 1, WIDE_CONVS, 1))
     say("wide_srvgg_step_vs_plain", shape=out.shape, nf=WIDE_NF,
-        k4_launches=launched[0], k3_launches=launched[1],
+        k4_launches=launched[0], k4_sm90_launches=launched[1],
+        k3_launches=launched[2],
         psnr_db=f"{quality:.2f}",
         max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
         bound=f">={WIDE_MIN_PSNR}dB", ok=ok)
@@ -803,7 +762,7 @@ def main() -> int:
     HermeticBackend.concat = observe_concat
     counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K3": sr_tail_fused,
                 "K4": conv3x3_fused, "K5": rdb_block, "K6": nl_means_denoise}
-    launches = dict.fromkeys([*counters, "K1_sm90"], 0)
+    launches = dict.fromkeys([*counters, "K1_sm90", "K4_sm90"], 0)
     e2e = {}
 
     def drive(tmp, name, c420, frames, rate, extra, synthetic=True):
@@ -814,13 +773,14 @@ def main() -> int:
         write_clip(src, c420, seed=1, frames=frames, rate=rate)
         for fn in counters.values():
             fn.launches = 0
-        conv3x3_chain.launches_sm90 = 0
+        conv3x3_chain.launches_sm90 = conv3x3_fused.launches_sm90 = 0
         t0 = time.perf_counter()
         rc = cli_main(["-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
                        *(["--synthetic_models"] if synthetic else []), *extra])
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
         counts["K1_sm90"] = conv3x3_chain.launches_sm90
+        counts["K4_sm90"] = conv3x3_fused.launches_sm90
         for k, v in counts.items():
             launches[k] += v
         with Y4MSource(out_path) as o:
@@ -876,12 +836,14 @@ def main() -> int:
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K5"] == VALAR_BLOCKS * vsteps
                   and k["K4"] == VALAR_SOLOS * vsteps
+                  and k["K4_sm90"] == VALAR_SOLOS_SM90 * vsteps
                   and k["K1"] == VALAR_CHAIN * vsteps
                   and k["K1_sm90"] == LAST_CHAIN_SM90 * vsteps
                   and k["K2"] == k["K3"] == k["K6"] == 0)
             say("e2e", path="-m r", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=vsteps,
-                k5_launches=k["K5"], k4_launches=k["K4"], k1_launches=k["K1"],
+                k5_launches=k["K5"], k4_launches=k["K4"],
+                k4_sm90_launches=k["K4_sm90"], k1_launches=k["K1"],
                 k1_sm90_launches=k["K1_sm90"],
                 k2_launches=k["K2"], fragments_before_concat=frags,
                 workdir_after=left,
@@ -918,12 +880,14 @@ def main() -> int:
                  "--frames_per_step", "1"], synthetic=False)
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K4"] == esrgan_k4(ESRGAN_RRDBS) * esteps
+                  and k["K4_sm90"] == (esrgan_k4(ESRGAN_RRDBS) - 1) * esteps
                   and k["K1"] == 3 * esteps
                   and k["K1_sm90"] == LAST_CHAIN_SM90 * esteps
                   and k["K2"] == k["K3"] == k["K5"] == k["K6"] == 0)
             say("e2e", path=f"-m sr={ESRGAN_STEM}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
-                steps=esteps, k4_launches=k["K4"], k1_launches=k["K1"],
+                steps=esteps, k4_launches=k["K4"],
+                k4_sm90_launches=k["K4_sm90"], k1_launches=k["K1"],
                 k1_sm90_launches=k["K1_sm90"],
                 k2_launches=k["K2"], k3_launches=k["K3"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
@@ -941,12 +905,14 @@ def main() -> int:
                 synthetic=False)
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K4"] == (WIDE_CONVS + 1) * wsteps
+                  and k["K4_sm90"] == WIDE_CONVS * wsteps
                   and k["K3"] == wsteps
                   and k["K1"] == k["K1_sm90"] == k["K2"] == k["K5"]
                   == k["K6"] == 0)
             say("e2e", path=f"-m sr={WIDE_STEM}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
-                steps=wsteps, k4_launches=k["K4"], k3_launches=k["K3"],
+                steps=wsteps, k4_launches=k["K4"],
+                k4_sm90_launches=k["K4_sm90"], k3_launches=k["K3"],
                 k1_launches=k["K1"], k2_launches=k["K2"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
@@ -1074,7 +1040,9 @@ def main() -> int:
          "max_abs_err": errs["K1"],
          "ms": k1_ms, "ms_wmma": k1_wmma_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-         "library_ms": k1_lib_ms, "layer_ms": k1_layer_ms},
+         "library_ms": k1_lib_ms, "layer_ms": k1_layer_ms,
+         "anime_ms": a_ms, "anime_plain_ms": a_plain_ms,
+         "anime_library_ms": a_lib_ms},
         {"name": "sr_tail_chain", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/sr_tail.cu",
          "replaces": "upscale_video_tpu/ops/tail_pallas.py:155",
@@ -1088,11 +1056,11 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
         {"name": "conv3x3_fused", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/conv3x3_fused.cu",
+         "source": "upscale_video_tpu_torch/csrc/conv3x3_fused_sm90.cu",
+         "source_wmma": "upscale_video_tpu_torch/csrc/conv3x3_fused.cu",
          "replaces": "upscale_video_tpu/ops/conv_pallas.py:56",
-         "launches": launches["K4"], "max_abs_err": errs["K4"],
-         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound[0],
-         "bound_by": k4_bound[1], "library_ms": k4_lib_ms},
+         "launches": launches["K4"], "launches_sm90": launches["K4_sm90"],
+         "max_abs_err": errs["K4"], **k4_row},
         {"name": "rdb_block", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/rdb_block.cu",
          "replaces": "upscale_video_tpu/ops/rdb_pallas.py:253",
@@ -1255,6 +1223,176 @@ def k1_sm90_phases(dev, errs) -> float:
     if out["sm90"] >= out["wmma"]:
         raise SystemExit("K1's sm90 layer is no faster than its WMMA layer")
     return out["sm90"]
+
+
+def k4_phases(dev, errs) -> dict:
+    """[K4_sm90], [K4_time] and [K4_ab]: K4 against its plain version at
+    every ``K4_SHAPES`` row (unit-scale inputs), the kernel each shape took
+    (``launches_sm90``), and for the shapes the sm90 kernel takes the same
+    conv read from channels [0, cin) of a wider buffer (junk past cin) and
+    written at channel offset 8 of a sentinel-filled one: equal to the
+    contiguous call bit for bit, every other channel untouched.  Then each
+    shape's time beside its plain version, cuDNN's bf16 conv and its bound;
+    the dense shapes and one dense block on the sm90 kernel, the WMMA
+    kernel (called directly) and cuDNN.  Returns the kernels line's K4
+    figures: one dense block's five convs on one 192-channel buffer."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import (
+        ACT_LEAKY, ACT_NONE, ACT_PRELU,
+    )
+    from upscale_video_tpu_torch.ops.conv3x3 import (
+        conv3x3_fused, conv3x3_fused_plain, sm90_takes,
+    )
+
+    acts = {"none": ACT_NONE, "leaky": ACT_LEAKY, "prelu": ACT_PRELU}
+    sentinel = 7.0
+    dense = {}
+    for cin, cout, act_name, h, w in K4_SHAPES:
+        n = 2 if (h, w) == (37, 53) else 1
+        g = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+        x = torch.randn((n, h, w, cin), generator=g, device=dev).to(torch.bfloat16)
+        wmat = (torch.randn((9 * cin, cout), generator=g, device=dev)
+                / (9 * cin) ** 0.5).to(torch.bfloat16)
+        bias = torch.randn((cout,), generator=g, device=dev) * 0.1
+        act = acts[act_name]
+        slope = (torch.rand((cout,), generator=g, device=dev) * 0.2 + 0.1
+                 if act == ACT_PRELU else 0.2 if act == ACT_LEAKY else None)
+        args = (wmat, bias, slope, act)
+        sm90 = conv3x3_fused.launches_sm90
+        got = conv3x3_fused(x, *args)
+        torch.cuda.synchronize()
+        route = "sm90" if conv3x3_fused.launches_sm90 - sm90 else "wmma"
+        want = conv3x3_fused_plain(x, *args)
+        worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+        ok = ok and (route == "sm90") == sm90_takes(cin, cout, torch.bfloat16)
+        sliced = "-"
+        if route == "sm90":
+            src = torch.randn((n, h, w, cin + 32), generator=g, device=dev
+                              ).to(torch.bfloat16) * 100
+            src[..., :cin] = x
+            buf = torch.full((n, h, w, cout + 24), sentinel,
+                             dtype=torch.bfloat16, device=dev)
+            view = conv3x3_fused(src[..., :cin], *args, out=buf, out_off=8)
+            torch.cuda.synchronize()
+            same = torch.equal(view, got)
+            untouched = bool((buf[..., :8] == sentinel).all()
+                             and (buf[..., 8 + cout:] == sentinel).all())
+            sliced = f"equal={same},sentinel_untouched={untouched}"
+            ok = ok and same and untouched
+            del src, buf, view
+        shape = f"{n}x{h}x{w}x{cin}"
+        say("K4_sm90", shape=shape, cout=cout, act=act_name, kernel=route,
+            max_abs_err=worst, frac_differ=f"{differ:.3e}",
+            bound="atol=2**-10,rtol=2**-7", sliced=sliced, ok=ok)
+        if not ok:
+            raise SystemExit(f"K4 disagrees with its plain version at {shape}->{cout}")
+        errs["K4"] = max(errs.get("K4", 0.0), worst)
+        del got, want
+        w_cl, b16 = conv_weight_cl(wmat), bias.to(torch.bfloat16)
+        ms = cuda_ms(lambda: conv3x3_fused(x, *args), 5)
+        plain_ms = cuda_ms(lambda: conv3x3_fused_plain(x, *args), 2)
+        lib_ms = cuda_ms(lambda: cudnn_conv(x, w_cl, b16), 5)
+        nbytes, flop = conv_work(n, h, w, cin, cout)
+        bound = roofline(nbytes, {"bf16": flop})
+        say("K4_time", shape=shape, cout=cout, kernel=route, ms=f"{ms:.3f}",
+            plain_ms=f"{plain_ms:.3f}", cudnn_ms=f"{lib_ms:.3f}",
+            bound_ms=f"{bound[0]:.3f}", bound_by=bound[1],
+            tflops=f"{flop / ms / 1e9:.1f}",
+            share_of_bound=f"{bound[0] / ms:.3f}")
+        if (cin, cout) in K4_DENSE and (h, w) == (H, W):
+            dense[cin] = (x, args, ms, nbytes, flop)
+        else:
+            del x
+        torch.cuda.empty_cache()
+
+    # the A/B: each dense shape, then one dense block (five convs) on the
+    # sm90 kernel over one 192-channel buffer (the ESRGAN path), on the
+    # WMMA kernel over contiguous sources (PR 4's path after torch.cat)
+    # and on cuDNN (bf16 conv with bias, channels-last, no activation)
+    def ab(what, fns, nbytes, flop):
+        bound = roofline(nbytes, {"bf16": flop})
+        out = {}
+        for impl, fn in fns.items():
+            out[impl] = cuda_ms(fn, 5)
+        for impl, ms in out.items():
+            say("K4_ab", what=what, impl=impl, ms=f"{ms:.4f}",
+                tflops=f"{flop / ms / 1e9:.1f}", bound_ms=f"{bound[0]:.4f}",
+                bound_by=bound[1], share_of_bound=f"{bound[0] / ms:.3f}",
+                vs_sm90=f"{ms / out['sm90']:.3f}")
+        return out, bound
+
+    parts = []
+    for cin, cout in K4_DENSE:
+        x, args, _, nbytes, flop = dense[cin]
+        y = torch.empty((1, H, W, cout), dtype=torch.bfloat16, device=dev)
+        w_cl, b16 = conv_weight_cl(args[0]), args[1].to(torch.bfloat16)
+        ab(f"{cin}->{cout} 1x{H}x{W}", {
+            "sm90": lambda: conv3x3_fused(x, *args),
+            "wmma": lambda: wmma_conv(x, y, *args),
+            "cudnn": lambda: cudnn_conv(x, w_cl, b16)}, nbytes, flop)
+        parts.append((x, y, args, w_cl, b16))
+    buf = torch.randn((1, H, W, K4_DENSE[-1][0]), device=dev).to(torch.bfloat16)
+
+    def block(conv):
+        """The five convs on ``buf`` as the dense-buffer forward runs them."""
+        for cin, cout in K4_DENSE[:-1]:
+            conv(buf[..., :cin], *dense[cin][1], out=buf, out_off=cin)
+        return conv(buf, *dense[K4_DENSE[-1][0]][1])
+
+    # each conv of the block against its plain version on the channels it
+    # read (later convs write only behind them)
+    last = block(conv3x3_fused)
+    torch.cuda.synchronize()
+    for cin, cout in K4_DENSE:
+        got = last if cin == K4_DENSE[-1][0] else buf[..., cin:cin + cout]
+        want = conv3x3_fused_plain(buf[..., :cin], *dense[cin][1])
+        worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+        say("K4_sm90", shape=f"1x{H}x{W}x{cin}", cout=cout, buffer="shared 192",
+            max_abs_err=worst, frac_differ=f"{differ:.3e}",
+            bound="atol=2**-10,rtol=2**-7", ok=ok)
+        if not ok:
+            raise SystemExit(f"K4 disagrees with its plain version on the "
+                             f"shared dense-block buffer at {cin}->{cout}")
+        errs["K4"] = max(errs["K4"], worst)
+        del got, want
+    nbytes = sum(dense[cin][3] for cin, _ in K4_DENSE)
+    flop = sum(dense[cin][4] for cin, _ in K4_DENSE)
+    times, bound = ab("dense block 1x1080p", {
+        "sm90": lambda: block(conv3x3_fused),
+        "wmma": lambda: [wmma_conv(p[0], p[1], *p[2]) for p in parts],
+        "cudnn": lambda: [cudnn_conv(p[0], p[3], p[4]) for p in parts]},
+        nbytes, flop)
+    plain_ms = cuda_ms(lambda: block(conv3x3_fused_plain), 2)
+    say("K4_time", shape=f"1x{H}x{W}", convs="64,96,128,160->32;192->64",
+        ms=f"{times['sm90']:.3f}", wmma_ms=f"{times['wmma']:.3f}",
+        plain_ms=f"{plain_ms:.3f}", cudnn_ms=f"{times['cudnn']:.3f}",
+        bound_ms=f"{bound[0]:.3f}", bound_by=bound[1],
+        tflops=f"{flop / times['sm90'] / 1e9:.1f}",
+        per="one ESRGAN dense block's five convs on one 192-channel buffer, 1080p")
+    del parts, dense, buf, last
+    torch.cuda.empty_cache()
+    return {"ms": times["sm90"], "ms_wmma": times["wmma"], "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": times["cudnn"]}
+
+
+def wmma_conv(x, y, wmat, bias, slope, act) -> None:
+    """One conv on K4's WMMA kernel, called directly (the port sends every
+    dense conv to the sm90 kernel): the yardstick the sm90 kernel is timed
+    against."""
+    import torch
+
+    from upscale_video_tpu_torch.kernels import build
+    from upscale_video_tpu_torch.ops.common import ACT_LEAKY, ACT_PRELU
+
+    n, h, w, cin = x.shape
+    code = build.library().uvt_conv3x3_fused(
+        x.data_ptr(), y.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
+        slope.data_ptr() if act == ACT_PRELU else None,
+        float(slope) if act == ACT_LEAKY else 0.0, n, h, w, cin, wmat.shape[1],
+        act, 0, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(code, "conv3x3_fused WMMA launch")
 
 
 def wmma_layer(src, dst, layer) -> None:
@@ -1550,9 +1688,8 @@ def profile_shares(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"k4": "conv3x3_fused_kernel", "k1": "chain_layer",
-              "cat": "CatArray"}
-    sums, rest = dict.fromkeys(groups, 0.0), {}
+    groups = {"k4": "conv3x3_fused", "k1": "chain_layer", "cat": "CatArray"}
+    sums, rest, cats = dict.fromkeys(groups, 0.0), {}, set()
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1562,6 +1699,8 @@ def profile_shares(fn) -> dict:
         group = next((g for g, pat in groups.items() if pat in e.key), None)
         if group:
             sums[group] += us
+            if group == "cat":
+                cats.add(e.key[:48])
         else:
             rest[e.key] = rest.get(e.key, 0.0) + us
     total = sum(sums.values()) + sum(rest.values())
@@ -1573,6 +1712,7 @@ def profile_shares(fn) -> dict:
         out[f"{g}_share"] = f"{us / total:.3f}"
     top = sorted(rest.items(), key=lambda kv: -kv[1])[:3]
     out["top_other"] = repr([(k[:48], round(us / 1e3, 2)) for k, us in top])
+    out["cat_kernels"] = repr(sorted(cats))
     return out
 
 

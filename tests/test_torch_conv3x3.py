@@ -13,6 +13,10 @@
 - Each registry op against its JAX ``_op_*`` on the same random f32 NHWC
   input: exact, or within 1e-6 where the sum order differs (convs and
   resizes).
+- K4's channel slices: reading a channel view of a wider NHWC buffer and
+  writing at a channel offset of another equal the contiguous call bit
+  for bit, every other channel untouched; the shape rule that sends a
+  call to the sm90 kernel.
 - The planner: which convs become K4 launches, which tail K3.
 """
 
@@ -37,7 +41,7 @@ from upscale_video_tpu_torch.ops.common import (
     ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
 )
 from upscale_video_tpu_torch.ops.conv3x3 import (
-    conv3x3_fused, conv3x3_fused_plain,
+    conv3x3_fused, conv3x3_fused_plain, sm90_takes,
 )
 from upscale_video_tpu_torch.ops.pixel import planar_to_frames
 from upscale_video_tpu_torch.ops.tail import sr_tail_fused
@@ -112,6 +116,55 @@ def test_k4_refuses_what_the_kernel_does_not_take():
         conv3x3_fused(x, torch.zeros(72, 4), torch.zeros(4), 0.2, ACT_PRELU)
     with pytest.raises(ValueError, match="unsupported device"):
         conv3x3_fused(x.to("meta"), torch.zeros(72, 4), torch.zeros(4))
+
+
+# an ESRGAN dense block's five convs on its 192-channel buffer: (cin,
+# c_in_total, cout, out_off); the last writes its own 64 channels
+DENSE_SLICES = [(64, 192, 32, 64), (96, 192, 32, 96), (128, 192, 32, 128),
+                (160, 192, 32, 160), (192, 192, 64, 0)]
+SENTINEL = 7.0
+
+
+@pytest.mark.parametrize("cin,total,cout,off", DENSE_SLICES)
+def test_k4_plain_reads_and_writes_channel_slices(cin, total, cout, off):
+    x, w, b, slope = _k4_inputs(total, cout, ACT_LEAKY, seed=cin + total)
+    buf = torch.from_numpy(np.stack([x, -x])).to(torch.bfloat16)
+    wmat = torch.from_numpy(w[:, :, :cin].reshape(9 * cin, cout)).to(torch.bfloat16)
+    args = (wmat, torch.from_numpy(b), float(slope[0]), ACT_LEAKY)
+    want = conv3x3_fused(buf[..., :cin].contiguous(), *args)
+    out = torch.full((2, 13, 21, off + cout + 8), SENTINEL, dtype=torch.bfloat16)
+    got = conv3x3_fused(buf[..., :cin], *args, out=out, out_off=off)
+    assert got.data_ptr() == out[..., off:].data_ptr() and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert bool((out[..., :off] == SENTINEL).all())
+    assert bool((out[..., off + cout:] == SENTINEL).all())
+
+
+def test_k4_refuses_an_output_buffer_without_room():
+    x, w, b, _ = _k4_inputs(32, 16, ACT_NONE, seed=5)
+    args = (torch.from_numpy(x)[None], torch.from_numpy(w.reshape(-1, 16)),
+            torch.from_numpy(b))
+    with pytest.raises(ValueError, match="no channels"):
+        conv3x3_fused(*args, out=torch.zeros(1, 13, 21, 20, dtype=torch.bfloat16),
+                      out_off=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv3x3_fused(*args, out=torch.zeros(1, 13, 21, 16))  # f32, bf16 asked
+
+
+@pytest.mark.parametrize("cin,cout,dtype,takes", [
+    (64, 32, torch.bfloat16, True), (96, 32, torch.bfloat16, True),
+    (160, 32, torch.bfloat16, True), (192, 64, torch.bfloat16, True),
+    (64, 64, torch.bfloat16, True), (160, 160, torch.bfloat16, True),
+    (32, 48, torch.bfloat16, True), (3, 64, torch.bfloat16, False),
+    (12, 64, torch.bfloat16, False), (64, 3, torch.bfloat16, False),
+    (48, 64, torch.bfloat16, False), (224, 64, torch.bfloat16, False),
+    (64, 272, torch.bfloat16, False), (64, 32, torch.float32, False),
+])
+def test_k4_sm90_shape_rule(cin, cout, dtype, takes):
+    """The sm90 kernel takes bf16 output, cin a multiple of 32 up to 192
+    and cout a multiple of 16 up to 256: every product-path K4 conv but
+    the 3- and 12-channel heads."""
+    assert sm90_takes(cin, cout, dtype) is takes
 
 
 @pytest.mark.parametrize("cf,s", [(64, 2), (64, 4), (160, 2), (160, 4)])

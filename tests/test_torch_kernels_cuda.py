@@ -18,8 +18,10 @@ output by ``2**-6 + 2**-7 * |want|`` at these weights (N(0, 0.05), whose
 pieces stay under |4|).  K6 sums the 5x5 box and the channel mean in f32 in
 another order than the plain version and scales by reciprocals, so its
 outputs agree within ``1e-5 + 1e-5 * |want|`` (measured: a few 1e-7).
-K4 rounds once to bf16 after an f32 sum in another order than the plain
-version's: ``2**-10 + 2**-7 * |want|``.  K3's f32 layout differs by f32
+K4 (its WMMA and its sm90 kernel alike) rounds once to bf16 after an f32
+sum in another order than the plain version's: ``2**-10 + 2**-7 *
+|want|``; a call that reads a channel view and writes at a channel offset
+equals the contiguous call bit for bit and leaves the rest untouched.  K3's f32 layout differs by f32
 sum order (``1e-4``), its u8 layouts by 1 LSB at a rounding boundary.
 """
 
@@ -34,6 +36,7 @@ from upscale_video_tpu_torch.kernels import build
 from upscale_video_tpu_torch.ops.conv3x3 import (
     conv3x3_fused, conv3x3_fused_plain,
 )
+from upscale_video_tpu_torch.ops.conv3x3 import sm90_takes as k4_sm90_takes
 from upscale_video_tpu_torch.ops.conv_chain import (
     conv3x3_chain, conv3x3_chain_plain, embed, launch_chain_layer, make_layer,
     sm90_takes,
@@ -345,12 +348,70 @@ def test_esrgan_forward_runs_every_solo_3x3_conv_on_k4(dev, monkeypatch):
     monkeypatch.setattr(ops.F, "conv2d", spy)
     model = make_synthetic_rrdb_model(num_rrdb=1, device=dev, variant="esrgan")
     k4, k1 = conv3x3_fused.launches, conv3x3_chain.launches
+    k4_sm90 = conv3x3_fused.launches_sm90
     out = model(torch.rand(1, 12, 16, 3, device=dev), "frames")
     torch.cuda.synchronize()
     assert tuple(out.shape) == (1, 48, 64, 3)
     assert conv3x3_fused.launches - k4 == 1 + 15 + 2
+    assert conv3x3_fused.launches_sm90 - k4_sm90 == 15 + 2  # all but conv_first
     assert conv3x3_chain.launches - k1 == 3
     assert not [s for s, d in seen if d == "cuda" and s[2:] == (3, 3)]
+
+
+# chip_smoke.py's K4_SHAPES rows (cin, cout, act): conv_first, the five
+# dense convs, conv_up1, a wide SRVGG body layer, the x2plus conv_first
+K4_ROWS = [(3, 64, ACT_NONE), (64, 32, ACT_LEAKY), (96, 32, ACT_LEAKY),
+           (128, 32, ACT_LEAKY), (160, 32, ACT_LEAKY), (192, 64, ACT_NONE),
+           (64, 64, ACT_LEAKY), (160, 160, ACT_PRELU), (12, 64, ACT_NONE)]
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 67, 130)])
+@pytest.mark.parametrize("cin,cout,act", K4_ROWS)
+def test_k4_sm90_matches_plain_contiguous_and_sliced(dev, shape, cin, cout, act):
+    """Each row on the kernel ``k4_sm90_takes`` names, against the plain
+    version; then read from channels [0, cin) of a wider buffer (junk
+    past cin) and written at channel offset 8 of a sentinel-filled one:
+    the contiguous call's bits, every other channel untouched."""
+    rng = np.random.default_rng(cin * 1000 + cout + shape[1])
+    src = torch.from_numpy(rng.normal(0, 1, (*shape, cin + 32)).astype(np.float32)
+                           ).to(dev, torch.bfloat16)
+    src[..., cin:] *= 100
+    x = src[..., :cin].contiguous()
+    wmat = torch.from_numpy(rng.normal(0, 1 / np.sqrt(9 * cin), (9 * cin, cout))
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(0, 0.1, (cout,)).astype(np.float32)).to(dev)
+    slope = (torch.from_numpy(rng.uniform(0.1, 0.3, (cout,)).astype(np.float32)
+                              ).to(dev) if act == ACT_PRELU
+             else 0.2 if act == ACT_LEAKY else None)
+    sm90 = conv3x3_fused.launches_sm90
+    got = conv3x3_fused(x, wmat, bias, slope, act)
+    torch.cuda.synchronize()
+    assert conv3x3_fused.launches_sm90 - sm90 == k4_sm90_takes(cin, cout, torch.bfloat16)
+    want = conv3x3_fused_plain(x, wmat, bias, slope, act)
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 2.0 ** -10 + 2.0 ** -7 * want.float().abs()).all())
+    out = torch.full((*shape, cout + 24), 7.0, dtype=torch.bfloat16, device=dev)
+    view = conv3x3_fused(src[..., :cin], wmat, bias, slope, act, out=out, out_off=8)
+    torch.cuda.synchronize()
+    assert torch.equal(view, got)
+    assert bool((out[..., :8] == 7).all()) and bool((out[..., 8 + cout:] == 7).all())
+
+
+def test_esrgan_dense_buffer_equals_the_concat_path_on_the_card(dev, monkeypatch):
+    """The dense blocks on one shared buffer read the bytes their Concats
+    would have made, so the same kernels give the same output."""
+    from upscale_video_tpu_torch.models import executor
+    from upscale_video_tpu_torch.models.zoo import make_synthetic_rrdb_model
+
+    model = make_synthetic_rrdb_model(num_rrdb=1, device=dev, variant="esrgan")
+    x = torch.rand(1, 21, 35, 3, device=dev)
+    got = model(x, "model")
+    assert len(model.frames_forward("model").dense) == 15
+    monkeypatch.setattr(executor, "_plan_dense_buffers", lambda *a: ({}, set()))
+    cat_model = make_synthetic_rrdb_model(num_rrdb=1, device=dev, variant="esrgan")
+    want = cat_model(x, "model")
+    assert not cat_model.frames_forward("model").dense
+    assert torch.equal(got, want)
 
 
 def test_wide_srvgg_step_launches_k4_and_k3(dev):

@@ -32,8 +32,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu", "sr_tail.cu",
-           "rdb_block.cu", "nlmeans.cu", "conv3x3_fused.cu", "conv_winograd.cu",
-           "conv_chain_q8.cu")
+           "rdb_block.cu", "nlmeans.cu", "conv3x3_fused.cu",
+           "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_chain_q8.cu")
 HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "uvt_sr_tail_plain": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # x, out, wmat, bias, slope, leaky, n, h, w, cin, cout, act, out_f32, stream
     "uvt_conv3x3_fused": ([_P] * 5 + [ctypes.c_float] + [_I] * 7 + [_P], _I),
+    # x, out, wmat, bias, slope, leaky, n, h, w, cin, c_in_total, cout,
+    # c_out_total, out_off, act, stream
+    "uvt_conv3x3_fused_sm90": ([_P] * 5 + [ctypes.c_float] + [_I] * 9 + [_P], _I),
     # x, out, wpack, bpack, n, h, w, slope, stream
     "uvt_rdb_block": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
     # x, out, n, h, w, inv_h2, two_s2, stream

@@ -21,7 +21,8 @@ generic ops in :mod:`upscale_video_tpu_torch.models.ops`: every matched
 dense block is one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`), every
 run of two or more linearly linked SAME 3x3 convs one K1 chain, every other
 SAME 3x3 stride-1 conv one K4 launch (:mod:`upscale_video_tpu_torch.ops.conv3x3`,
-with a PReLU that alone consumes it fused in), an SRVGG tail one K3 launch
+with a PReLU that alone consumes it fused in; an ESRGAN dense block's convs
+on one shared buffer instead of their Concats), an SRVGG tail one K3 launch
 (:func:`~upscale_video_tpu_torch.ops.tail.sr_tail_fused`), every other
 layer one op; blobs are freed at their last use, and ``mixed`` keeps the
 residual spine (Eltwise/BinaryOp) in f32.
@@ -355,25 +356,12 @@ def _dense_conv_class(layer: NcnnLayer) -> Optional[str]:
     return None
 
 
-def _plan_rdb_blocks(graph: NcnnGraph, consumers: Dict[str, List[int]]):
-    """Match the Valar residual dense blocks (executor.py:539-702)::
-
-        c1 = lrelu(conv3x3(x))                          Conv_1
-        c2 = lrelu(conv3x3(cat(x,c1))) + conv1x1(x)     Conv_4/Conv_6/Add_7
-        c3 = lrelu(conv3x3(cat(x,c1,c2)))               Conv_9
-        c4 = lrelu(conv3x3(cat(x,c1,c2,c3))) + c2       Conv_12/Add_14
-        c5 = conv3x3(cat(x,c1,c2,c3,c4))                Conv_16
-        out = 0.2*c5 + x                                Eltwise Add_19
-
-    Returns ``(blocks, absorbed)``: per block the root blob, output blob,
-    the five 3x3 conv names, the 1x1 skip conv, the leaky slope and the
-    trigger (Eltwise) name; ``absorbed`` holds every matched layer and the
-    Split/Noop aliases of interior blobs.  A block whose interior blob
-    reaches a consumer outside it is not claimed (the leak guard)."""
+def _blob_roots(graph: NcnnGraph):
+    """``(root_of, producer)``: a blob through its Split/Noop aliases to the
+    blob they copy, and the layer producing a blob's root (None for a
+    network input)."""
     producers: Dict[str, int] = {}
-    by_name: Dict[str, NcnnLayer] = {}
     for i, layer in enumerate(graph.layers):
-        by_name[layer.name] = layer
         for b in layer.outputs:
             producers[b] = i
 
@@ -391,9 +379,54 @@ def _plan_rdb_blocks(graph: NcnnGraph, consumers: Dict[str, List[int]]):
                 return blob
         return blob
 
-    def producer(blob):
+    def producer(blob: str) -> Optional[NcnnLayer]:
         pi = producers.get(root_of(blob))
         return graph.layers[pi] if pi is not None else None
+
+    return root_of, producer
+
+
+def _interior_splits(graph: NcnnGraph, consumers, interior: set,
+                     names: set) -> Optional[set]:
+    """The Split/Noop layers that alias a block's ``interior`` blobs
+    (``interior`` grows by their outputs), or None where an interior blob
+    reaches a consumer outside the block's layer ``names`` and those
+    aliases: the leak guard."""
+    splits: set = set()
+    changed = True
+    while changed:
+        changed = False
+        for l2 in graph.layers:
+            if (l2.type in ("Split", "Noop") and l2.name not in splits
+                    and any(b in interior for b in l2.inputs)):
+                splits.add(l2.name)
+                interior |= set(l2.outputs)
+                changed = True
+    leaked = any(
+        graph.layers[ci].name not in names and graph.layers[ci].name not in splits
+        for b in interior
+        for ci in consumers.get(b, [])
+    )
+    return None if leaked else splits
+
+
+def _plan_rdb_blocks(graph: NcnnGraph, consumers: Dict[str, List[int]]):
+    """Match the Valar residual dense blocks (executor.py:539-702)::
+
+        c1 = lrelu(conv3x3(x))                          Conv_1
+        c2 = lrelu(conv3x3(cat(x,c1))) + conv1x1(x)     Conv_4/Conv_6/Add_7
+        c3 = lrelu(conv3x3(cat(x,c1,c2)))               Conv_9
+        c4 = lrelu(conv3x3(cat(x,c1,c2,c3))) + c2       Conv_12/Add_14
+        c5 = conv3x3(cat(x,c1,c2,c3,c4))                Conv_16
+        out = 0.2*c5 + x                                Eltwise Add_19
+
+    Returns ``(blocks, absorbed)``: per block the root blob, output blob,
+    the five 3x3 conv names, the 1x1 skip conv, the leaky slope and the
+    trigger (Eltwise) name; ``absorbed`` holds every matched layer and the
+    Split/Noop aliases of interior blobs.  A block whose interior blob
+    reaches a consumer outside it is not claimed (the leak guard)."""
+    by_name = {layer.name: layer for layer in graph.layers}
+    root_of, producer = _blob_roots(graph)
 
     def is_conv(layer, k, n_out, leaky):
         if layer is None or layer.type != "Convolution":
@@ -473,23 +506,8 @@ def _plan_rdb_blocks(graph: NcnnGraph, consumers: Dict[str, List[int]]):
         interior: set = set()
         for nm in block_names - {layer.name}:
             interior |= set(by_name[nm].outputs)
-        splits: set = set()
-        changed = True
-        while changed:
-            changed = False
-            for l2 in graph.layers:
-                if (l2.type in ("Split", "Noop") and l2.name not in splits
-                        and any(b in interior for b in l2.inputs)):
-                    splits.add(l2.name)
-                    interior |= set(l2.outputs)
-                    changed = True
-        leaked = any(
-            graph.layers[ci].name not in block_names
-            and graph.layers[ci].name not in splits
-            for b in interior
-            for ci in consumers.get(b, [])
-        )
-        if leaked:
+        splits = _interior_splits(graph, consumers, interior, block_names)
+        if splits is None:
             continue
         blocks.append({
             "root": x_root,
@@ -516,6 +534,83 @@ def _plan_solos(graph: NcnnGraph, consumers: Dict[str, List[int]],
             if layer.name not in claimed and _dense_conv_class(layer) == "3x3"}
 
 
+def _plan_dense_buffers(graph: NcnnGraph, consumers: Dict[str, List[int]],
+                        solos: Dict[str, dict]):
+    """Match dense blocks whose sources can share one buffer (basicsr's
+    ``rdb_esrgan``, zoo.py)::
+
+        o1 = conv_1(x)
+        o2 = conv_2(cat(x, o1))
+        ...
+        ok = conv_k(cat(x, o1, .., o(k-1)))
+        y  = conv_last(cat(x, o1, .., ok))
+
+    Every conv a K4 solo (``solos``), every cat a channel Concat whose parts
+    are the previous cat's plus the newest conv's output, all widths
+    multiples of 8, and no longer such chain through the same convs.  Such
+    a block runs on one NHWC buffer of ``conv_last``'s input width: x is
+    copied into its first channels, each conv reads the channels before its
+    own and appends its output behind them, and no Concat runs.  A block
+    whose cat output reaches a consumer outside it is not claimed (the leak
+    guard).
+
+    Returns ``({conv name: {"block", "first", "cin", "out_off", "total"}},
+    absorbed)``: ``out_off`` is where the conv writes in the buffer (None
+    for ``conv_last``, which writes a tensor of its own), ``absorbed`` the
+    Concats and their Split/Noop aliases."""
+    root_of, producer = _blob_roots(graph)
+    conv_of = {root_of(s["out"]): name for name, s in solos.items()}
+    layers = {layer.name: layer for layer in graph.layers}
+
+    def channel_cat(layer) -> bool:
+        return (layer is not None and layer.type == "Concat"
+                and layer.attr_i(0, 0) == 0 and len(layer.outputs) == 1)
+
+    cat_parts = {tuple(root_of(b) for b in l.inputs)
+                 for l in graph.layers if channel_cat(l)}
+    plan: Dict[str, dict] = {}
+    absorbed: set = set()
+    for last in reversed([l.name for l in graph.layers if l.name in solos]):
+        if last in plan:
+            continue
+        cat = producer(layers[last].inputs[0])
+        if not channel_cat(cat):
+            continue
+        parts = [root_of(b) for b in cat.inputs]
+        convs = [conv_of.get(p) for p in parts[1:]]
+        if len(parts) < 2 or None in convs or any(c in plan for c in convs):
+            continue
+        if tuple(parts + [root_of(solos[last]["out"])]) in cat_parts:
+            continue  # not the block's last conv: a longer block was declined
+        cats, ok = [cat], True
+        for k in range(len(convs) - 1, 0, -1):  # conv k+1 reads cat k
+            prev = producer(layers[convs[k]].inputs[0])
+            ok = (channel_cat(prev)
+                  and [root_of(b) for b in prev.inputs] == parts[:k + 1])
+            if not ok:
+                break
+            cats.append(prev)
+        if not ok or root_of(layers[convs[0]].inputs[0]) != parts[0]:
+            continue
+        cin = [_infer_conv_in_channels(layers[c]) or 0 for c in convs + [last]]
+        widths = [cin[0]] + [layers[c].attr_i(0) for c in convs]
+        offs = [sum(widths[:k + 1]) for k in range(len(widths))]
+        if cin != offs or any(v % 8 for v in widths):
+            continue
+        names = {c.name for c in cats} | set(convs) | {last}
+        interior = {c.outputs[0] for c in cats}
+        splits = _interior_splits(graph, consumers, interior, names)
+        if splits is None:
+            continue
+        block = len({d["block"] for d in plan.values()})
+        for k, name in enumerate(convs + [last]):
+            plan[name] = {"block": block, "first": k == 0, "cin": cin[k],
+                          "out_off": offs[k] if name != last else None,
+                          "total": offs[-1]}
+        absorbed |= {c.name for c in cats} | splits
+    return plan, absorbed
+
+
 class GraphForward(nn.Module):
     """Stateless forward of a graph that is not one K1 chain + K2 tail (the
     RRDBNet family, the 1x SRVGG anime model, wide or one-conv SRVGG
@@ -535,6 +630,12 @@ class GraphForward(nn.Module):
     - Under bf16 every other SAME 3x3 stride-1 conv is one K4 launch
       (:func:`_plan_solos`), a PReLU that alone consumes it fused in; under
       f32 such convs are generic ops (``F.conv2d`` in f32).
+    - Under bf16 a dense block of K4 convs linked by growing Concats
+      (:func:`_plan_dense_buffers`, basicsr's ESRGAN block) runs on one
+      shared buffer: its input is copied in once, each conv reads a
+      channel prefix and writes its channels behind it, no Concat runs.
+      The conv outputs are channel views of the buffer; the bytes each
+      conv reads are the ones its Concat would have made.
     - A graph ending in the SRVGG tail (``probe_srvgg_tail``) runs its tail
       conv, shuffle, skip Interp and add as one K3 launch, which writes the
       ``emit`` layout itself (``planar`` too).
@@ -591,7 +692,10 @@ class GraphForward(nn.Module):
                                   self.rdb_absorbed | set(self.chains)
                                   | self.chain_absorbed | tail_names)
                       if fused else {})
+        self.dense, dense_absorbed = _plan_dense_buffers(graph, consumers,
+                                                         self.solos)
         self.absorbed = (self.rdb_absorbed | self.chain_absorbed
+                         | dense_absorbed
                          | (tail_names - {self.tail["conv"]} if self.tail
                             else set())
                          | {s["prelu"] for s in self.solos.values()
@@ -644,6 +748,7 @@ class GraphForward(nn.Module):
             x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
                       mode="replicate").permute(0, 2, 3, 1)
         blobs: Dict[str, torch.Tensor] = {graph.input_blobs[0]: x.to(cd)}
+        dense_bufs: Dict[int, torch.Tensor] = {}  # block -> its shared buffer
 
         def free(i, layer):
             for b in layer.inputs:
@@ -664,6 +769,21 @@ class GraphForward(nn.Module):
                 blobs[chain["out"]] = conv3x3_chain(
                     blobs[layer.inputs[0]].to(cd).contiguous(),
                     chain_layers(chain["items"], state))
+            elif layer.name in self.dense:
+                d = self.dense[layer.name]
+                if d["first"]:  # the block's input, rounded as .to(cd) does
+                    x0 = blobs[layer.inputs[0]]
+                    buf = torch.empty((*x0.shape[:3], d["total"]), dtype=cd,
+                                      device=x0.device)
+                    buf[..., :d["cin"]] = x0
+                    dense_bufs[d["block"]] = buf
+                buf = dense_bufs[d["block"]]
+                if d["out_off"] is None:
+                    del dense_bufs[d["block"]]
+                blobs[self.solos[layer.name]["out"]] = conv3x3_fused(
+                    buf[..., :d["cin"]], *_solo_args(self.solos[layer.name], state),
+                    out_dtype=cd, out=None if d["out_off"] is None else buf,
+                    out_off=d["out_off"] or 0)
             elif layer.name in self.solos:
                 solo = self.solos[layer.name]
                 blobs[solo["out"]] = conv3x3_fused(
