@@ -10,9 +10,10 @@ contracts, counting kernel launches:
 
 - the default path: 2x Compact (K1 + K2), 4 frames per step, 1080p -> 4K;
 - ``-m r``: the 4x Valar RRDBNet at full width and depth (23 RRDBs, K5
-  per dense block, K4 for conv_first, conv_trunk and conv_up1, one K1
-  chain for the last three convs), mixed precision, 544-budget tiles with
-  halo 16, 1 frame per step, 1080p -> 4K;
+  per dense block on its Hopper kernel ``csrc/rdb_block_sm90.cu``, K4 for
+  conv_first, conv_trunk and conv_up1, one K1 chain for the last three
+  convs), mixed precision, 544-budget tiles with halo 16, 1 frame per
+  step, 1080p -> 4K;
 - ``-m a,n=3``: NL-means at strength 3 (K6, one launch per step), the 1x
   SubCompact anime deblur model (nf 24, one 10-layer K1 chain), then the
   default 2x Compact (K1 + K2), 4 frames per step;
@@ -50,7 +51,11 @@ wider buffer, output written at a channel offset of a sentinel-filled one,
 bit-equal to the contiguous call, sentinels untouched) and each conv of a
 dense block run on one shared buffer; ``[K4_ab]`` times each dense shape
 and one dense block on the sm90 kernel, the WMMA kernel (called directly)
-and cuDNN; every CLI run counts the sm90 launches.  K1 is held against its plain version at
+and cuDNN; every CLI run counts the sm90 launches.  ``[K5_sm90]`` holds
+K5's Hopper kernel against its plain version at four shapes, ``[K5_ab]``
+times it beside the plain version and two yardsticks (the block's convs on
+K4's sm90 kernel and on cuDNN), and ``[valar_profile]`` splits one 1080p
+``-m r`` step's device time by kernel.  K1 is held against its plain version at
 every path's shapes (the Compact stack and the anime chain at 4x1080p;
 ``-m r``'s last three convs on a 1080p frame's tiles at 4x), K4 at every
 ESRGAN conv shape at 1080p (and ``-m r``'s three solo convs), K3 at
@@ -147,6 +152,13 @@ E2E_MIN_PSNR = 40.0            # bf16 CUDA step vs the f32 plain path, dB
 # moves the output by up to 2**-6 + 2**-7 * |out| at the synthetic Valar
 # weights (measured at most 0.015625 on an NVIDIA H100 80GB HBM3)
 K5_ATOL, K5_RTOL = 2.0 ** -6, 2.0 ** -7
+# [K5_sm90]: the -m r tiles of a 1080p frame, a ragged batch, a frame
+# smaller than one 12x16 tile, one whose rows and columns fit no whole tile
+K5_SM90_SHAPES = (TILES, (2, 37, 53), (1, 5, 7), (1, 61, 70))
+# [K5_ab]: the least share of its bound K5 must reach at TILES (an earlier
+# mma.sync version reached 0.093, the Hopper kernel 0.181 on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+K5_MIN_BOUND_SHARE = 0.12
 VALAR_MIN_PSNR = 36.0          # mixed -m r step vs the f32 plain path, dB
 # (37.15 dB measured on an NVIDIA H100 80GB HBM3 for the 1x64x96 frame at
 # 23 RRDBs below; PARITY.md's bf16 quality class for the model is 34.5 dB)
@@ -492,11 +504,9 @@ def main() -> int:
         raise SystemExit("the a,n=3 CUDA step disagrees with the f32 plain path")
     del pref
 
-    # K5 against its plain version: the main-path shape (the 8 tiles of one
-    # 1080p frame) and a ragged one, with the first dense block's weights
-    from upscale_video_tpu_torch.ops.rdb import (
-        MACS_PER_PIXEL, RDBWeights, rdb_block, rdb_block_plain,
-    )
+    # K5 against its plain version with the first dense block's weights
+    # ([K5_sm90], [K5_ab])
+    from upscale_video_tpu_torch.ops.rdb import RDBWeights, rdb_block
 
     veng = ChainEngine.build(ChainSpec(real_life=True), 4, dev, synthetic=True,
                              residual_dtype=torch.float32)
@@ -506,38 +516,8 @@ def main() -> int:
                          f"expected {VALAR_BLOCKS}")
     trig, blk = next(iter(vfwd.rdb_triggers.items()))
     pw = veng.sr_model.state[trig]
-    wts = RDBWeights(pw.wpack, pw.bpack, blk["slope"])
-    for shape in (TILES, (2, 37, 53)):
-        x = torch.from_numpy(rng.normal(0, 0.5, shape + (64,)).astype(
-            np.float32)).to(dev, torch.bfloat16)
-        got = rdb_block(x, wts)
-        want = rdb_block_plain(x, wts)
-        torch.cuda.synchronize()
-        d = (got.float() - want.float()).abs()
-        ok = bool((d <= K5_ATOL + K5_RTOL * want.float().abs()).all()) \
-            and bool(torch.isfinite(got.float()).all())
-        say("K5", shape="x".join(map(str, shape)) + "x64",
-            max_abs_err=d.max().item(),
-            frac_differ=f"{(d > 0).float().mean().item():.3e}",
-            bound=f"atol=2**-6,rtol=2**-7", ok=ok)
-        if not ok:
-            raise SystemExit(f"K5 disagrees with its plain version at {shape}")
-        errs["K5"] = max(errs.get("K5", 0.0), d.max().item())
-        if shape == TILES:
-            k5_x = x
-        del got, want, d
-    k5_ms = cuda_ms(lambda: rdb_block(k5_x, wts), 5)
-    k5_plain_ms = cuda_ms(lambda: rdb_block_plain(k5_x, wts), 2)
-    flop = 2 * MACS_PER_PIXEL * int(np.prod(TILES))
-    k5_bound = roofline(2 * k5_x.numel() * 2 + wts.wpack.numel() * 2
-                        + wts.bpack.numel() * 4, {"bf16": flop})
-    say("K5_time", ms=f"{k5_ms:.3f}", plain_ms=f"{k5_plain_ms:.3f}",
-        bound_ms=f"{k5_bound[0]:.3f}", bound_by=k5_bound[1],
-        ms_per_frame=f"{k5_ms * VALAR_BLOCKS:.1f}",
-        plain_ms_per_frame=f"{k5_plain_ms * VALAR_BLOCKS:.1f}",
-        tflops=f"{flop / k5_ms / 1e9:.1f}",
-        per="one dense block over 8x576x512x64 (the tiles of a 1080p frame)")
-    del k5_x
+    wts = RDBWeights(pw.wpack, pw.bpack, blk["slope"], pw.wpack_sm90)
+    k5_row = k5_sm90_phases(dev, errs, veng, blk, wts, rng)
     torch.cuda.empty_cache()
 
     # the -m r path's six 3x3 convs, each with its activation at the shape
@@ -762,7 +742,7 @@ def main() -> int:
     HermeticBackend.concat = observe_concat
     counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K3": sr_tail_fused,
                 "K4": conv3x3_fused, "K5": rdb_block, "K6": nl_means_denoise}
-    launches = dict.fromkeys([*counters, "K1_sm90", "K4_sm90"], 0)
+    launches = dict.fromkeys([*counters, "K1_sm90", "K4_sm90", "K5_sm90"], 0)
     e2e = {}
 
     def drive(tmp, name, c420, frames, rate, extra, synthetic=True):
@@ -774,6 +754,7 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
         conv3x3_chain.launches_sm90 = conv3x3_fused.launches_sm90 = 0
+        rdb_block.launches_sm90 = 0
         t0 = time.perf_counter()
         rc = cli_main(["-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
                        *(["--synthetic_models"] if synthetic else []), *extra])
@@ -781,6 +762,7 @@ def main() -> int:
         counts = {k: fn.launches for k, fn in counters.items()}
         counts["K1_sm90"] = conv3x3_chain.launches_sm90
         counts["K4_sm90"] = conv3x3_fused.launches_sm90
+        counts["K5_sm90"] = rdb_block.launches_sm90
         for k, v in counts.items():
             launches[k] += v
         with Y4MSource(out_path) as o:
@@ -835,6 +817,7 @@ def main() -> int:
                 ["-m", "r"])
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K5"] == VALAR_BLOCKS * vsteps
+                  and k["K5_sm90"] == VALAR_BLOCKS * vsteps
                   and k["K4"] == VALAR_SOLOS * vsteps
                   and k["K4_sm90"] == VALAR_SOLOS_SM90 * vsteps
                   and k["K1"] == VALAR_CHAIN * vsteps
@@ -842,7 +825,8 @@ def main() -> int:
                   and k["K2"] == k["K3"] == k["K6"] == 0)
             say("e2e", path="-m r", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=vsteps,
-                k5_launches=k["K5"], k4_launches=k["K4"],
+                k5_launches=k["K5"], k5_launches_sm90=k["K5_sm90"],
+                k4_launches=k["K4"],
                 k4_sm90_launches=k["K4_sm90"], k1_launches=k["K1"],
                 k1_sm90_launches=k["K1_sm90"],
                 k2_launches=k["K2"], fragments_before_concat=frags,
@@ -990,6 +974,21 @@ def main() -> int:
                              "with its plain step")
     del shallow
 
+    # where the -m r step's device time goes: one 1080p step under
+    # torch.profiler, kernel time by K5, K4, K1 and the rest; the step's
+    # bound is its 69 dense blocks' and six convs' bounds summed (each at
+    # the shape its 8 tiles give it)
+    vstep_ms = cuda_ms(lambda: veng.step(frames[:1]), 1)
+    vbound = VALAR_BLOCKS * k5_row["bound_ms"]
+    for name, f in VALAR_K4_LAYERS + VALAR_K1_LAYERS:
+        wm = veng.sr_model.state[name].wmat
+        nbytes, flop = conv_work(TILES[0], TILES[1] * f, TILES[2] * f,
+                                 wm.shape[0] // 9, wm.shape[1])
+        vbound += roofline(nbytes, {"bf16": flop})[0]
+    say("valar_profile", step_ms=f"{vstep_ms:.2f}", bound_ms=f"{vbound:.2f}",
+        frames_per_s=f"{1000.0 / vstep_ms:.3f}", card=repr(smi),
+        **profile_shares(lambda: veng.step(frames[:1])))
+
     rates = {}
     for name, fn, reps, per in (
         ("planar_step", lambda: eng.planar_step(frames), 5, N),
@@ -1062,11 +1061,10 @@ def main() -> int:
          "launches": launches["K4"], "launches_sm90": launches["K4_sm90"],
          "max_abs_err": errs["K4"], **k4_row},
         {"name": "rdb_block", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/rdb_block.cu",
+         "source": "upscale_video_tpu_torch/csrc/rdb_block_sm90.cu",
          "replaces": "upscale_video_tpu/ops/rdb_pallas.py:253",
-         "launches": launches["K5"], "max_abs_err": errs["K5"],
-         "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k5_bound[0],
-         "bound_by": k5_bound[1], "library_ms": None},
+         "launches": launches["K5"], "launches_sm90": launches["K5_sm90"],
+         "max_abs_err": errs["K5"], **k5_row},
         {"name": "nl_means", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/nlmeans.cu",
          "replaces": "upscale_video_tpu/ops/nlmeans_pallas.py:54",
@@ -1377,6 +1375,110 @@ def k4_phases(dev, errs) -> dict:
             "library_ms": times["cudnn"]}
 
 
+def k5_sm90_phases(dev, errs, veng, blk, wts, rng) -> dict:
+    """[K5_sm90], [K5_time] and [K5_ab]: K5's Hopper kernel (what the
+    path runs) against its plain version at ``K5_SM90_SHAPES``, each call
+    counted on ``launches_sm90``; then at ``TILES`` the Hopper kernel and
+    the plain version timed, one run each, beside two yardsticks that
+    skip K5's per-source rounding and its adds: the block's five convs
+    (leaky on c1..c4) on K4's sm90 kernel over one 192-channel buffer with
+    the 1x1 skip as one matmul, and on cuDNN (bf16, channels-last, a conv per
+    layer, no activation); fails if the kernel reaches less than
+    ``K5_MIN_BOUND_SHARE`` of its bound.  Returns the kernels line's K5
+    figures."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import ACT_LEAKY, ACT_NONE
+    from upscale_video_tpu_torch.ops.conv3x3 import conv3x3_fused
+    from upscale_video_tpu_torch.ops.rdb import (
+        CINS, MACS_PER_PIXEL, rdb_block, rdb_block_plain,
+    )
+
+    for shape in K5_SM90_SHAPES:
+        x = torch.from_numpy(rng.normal(0, 0.5, shape + (64,)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        sm90 = rdb_block.launches_sm90
+        got = rdb_block(x, wts)
+        torch.cuda.synchronize()
+        on_sm90 = rdb_block.launches_sm90 - sm90 == 1
+        want = rdb_block_plain(x, wts)
+        worst, differ, ok = compare(got, want, K5_ATOL, K5_RTOL)
+        finite = bool(torch.isfinite(got.float()).all())
+        ok = ok and finite and on_sm90
+        say("K5_sm90", shape="x".join(map(str, shape)) + "x64",
+            max_abs_err=worst, frac_differ=f"{differ:.3e}", finite=finite,
+            on_sm90=on_sm90, bound="atol=2**-6,rtol=2**-7", ok=ok)
+        if not ok:
+            raise SystemExit(f"K5's sm90 kernel disagrees with its plain "
+                             f"version at {shape}")
+        errs["K5"] = max(errs.get("K5", 0.0), worst)
+        if shape == TILES:
+            k5_x = x
+        del got, want
+
+    pix = int(np.prod(TILES))
+    flop = 2 * MACS_PER_PIXEL * pix
+    bound = roofline(2 * k5_x.numel() * 2 + wts.wpack.numel() * 2
+                     + wts.bpack.numel() * 4, {"bf16": flop})
+    # the yardsticks' weights: the same block's convs and skip
+    state = veng.sr_model.state
+    convs = [state[c] for c in blk["convs"]]
+    skip = state[blk["skip_conv"]]
+    buf = torch.zeros(TILES + (CINS[-1],), dtype=torch.bfloat16, device=dev)
+    buf[..., :64] = k5_x
+    c5 = torch.empty(TILES + (64,), dtype=torch.bfloat16, device=dev)
+    skw = skip.wmat.reshape(64, 32).to(torch.bfloat16)
+
+    def k4_block():
+        for t in range(4):
+            conv3x3_fused(buf[..., :CINS[t]], convs[t].wmat, convs[t].bias,
+                          blk["slope"], ACT_LEAKY, out=buf, out_off=CINS[t])
+        torch.matmul(buf[..., :64], skw)
+        return conv3x3_fused(buf, convs[4].wmat, convs[4].bias, None, ACT_NONE,
+                             out=c5)
+
+    xs = [torch.randn(TILES + (CINS[t],), device=dev).to(torch.bfloat16)
+          for t in range(5)]
+    cl = [(conv_weight_cl(c.wmat), c.bias.to(torch.bfloat16)) for c in convs]
+    sk_cl = skip.wmat.reshape(64, 32).T.reshape(32, 64, 1, 1).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+    def cudnn_block():
+        import torch.nn.functional as F
+
+        for t in range(5):
+            cudnn_conv(xs[t], *cl[t])
+        return F.conv2d(xs[0].permute(0, 3, 1, 2), sk_cl)
+
+    times = {}
+    for impl, fn, reps in (("sm90", lambda: rdb_block(k5_x, wts), 10),
+                           ("plain", lambda: rdb_block_plain(k5_x, wts), 2),
+                           ("k4_sm90", k4_block, 5),
+                           ("cudnn", cudnn_block, 5)):
+        times[impl] = ms = cuda_ms(fn, reps)
+        say("K5_ab", impl=impl, shape="x".join(map(str, TILES)) + "x64",
+            ms=f"{ms:.4f}", tflops=f"{flop / ms / 1e9:.1f}",
+            bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+            share_of_bound=f"{bound[0] / ms:.3f}",
+            yardstick=impl in ("k4_sm90", "cudnn"))
+    share = bound[0] / times["sm90"]
+    say("K5_time", ms=f"{times['sm90']:.3f}", plain_ms=f"{times['plain']:.3f}",
+        k4_sm90_ms=f"{times['k4_sm90']:.3f}", cudnn_ms=f"{times['cudnn']:.3f}",
+        bound_ms=f"{bound[0]:.3f}", bound_by=bound[1],
+        share_of_bound=f"{share:.3f}", min_share=K5_MIN_BOUND_SHARE,
+        ms_per_frame=f"{times['sm90'] * VALAR_BLOCKS:.1f}",
+        tflops=f"{flop / times['sm90'] / 1e9:.1f}",
+        per="one dense block over 8x576x512x64 (the tiles of a 1080p frame)",
+        ok=share >= K5_MIN_BOUND_SHARE)
+    if share < K5_MIN_BOUND_SHARE:
+        raise SystemExit(f"K5's sm90 kernel reached {share:.3f} of its bound, "
+                         f"under {K5_MIN_BOUND_SHARE}")
+    del k5_x, buf, c5, xs
+    return {"ms": times["sm90"], "plain_ms": times["plain"],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "k4_sm90_ms": times["k4_sm90"], "cudnn_convs_ms": times["cudnn"]}
+
+
 def wmma_conv(x, y, wmat, bias, slope, act) -> None:
     """One conv on K4's WMMA kernel, called directly (the port sends every
     dense conv to the sm90 kernel): the yardstick the sm90 kernel is timed
@@ -1678,8 +1780,8 @@ def srvgg_state_dict(seed: int, num_conv: int, nf: int, scale: int):
 
 def profile_shares(fn) -> dict:
     """One call of ``fn`` under torch.profiler: its device kernel time
-    summed for K4, K1, torch.cat and the rest (with the three largest of
-    the rest), or ``device_ms="not measured"`` where the profiler saw no
+    summed for K5, K4, K1, torch.cat and the rest (with the three largest
+    of the rest), or ``device_ms="not measured"`` where the profiler saw no
     device time."""
     import torch
     from torch.autograd import DeviceType
@@ -1688,7 +1790,8 @@ def profile_shares(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"k4": "conv3x3_fused", "k1": "chain_layer", "cat": "CatArray"}
+    groups = {"k5": "rdb_block", "k4": "conv3x3_fused", "k1": "chain_layer",
+              "cat": "CatArray"}
     sums, rest, cats = dict.fromkeys(groups, 0.0), {}, set()
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:

@@ -187,18 +187,24 @@ def _rdb_weights(rng, dev):
                             rng.normal(0, 0.05, (GC,)), device=dev)
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 14, 16), (3, 5, 70)])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 14, 16), (3, 5, 70),
+                                   (8, 576, 512), (1, 5, 7), (1, 61, 70)])
 def test_rdb_kernel_matches_plain(dev, shape):
+    """The Hopper kernel against the plain version, among them chip_smoke's
+    [K5_sm90] shapes: the -m r tiles of a 1080p frame, a frame smaller than
+    one 12x16 tile, and one whose rows and columns fit no whole tile."""
     rng = np.random.default_rng(3)
     wts = _rdb_weights(rng, dev)
     x = torch.from_numpy(rng.normal(0, 0.5, shape + (NF,)).astype(np.float32)
                          ).to(dev, torch.bfloat16)
-    before = rdb_block.launches
+    before, before_sm90 = rdb_block.launches, rdb_block.launches_sm90
     got = rdb_block(x, wts)
     torch.cuda.synchronize()
     assert rdb_block.launches - before == 1
+    assert rdb_block.launches_sm90 - before_sm90 == 1
     want = rdb_block_plain(x, wts)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
     d = (got.float() - want.float()).abs()
     assert bool((d <= 2.0 ** -6 + 2.0 ** -7 * want.float().abs()).all())
 
@@ -213,7 +219,13 @@ def test_rdb_kernel_refuses_bad_inputs(dev):
     with pytest.raises(ValueError, match="takes"):
         rdb_block(x[..., :32].contiguous(), wts)
     with pytest.raises(ValueError, match="contiguous on"):
-        rdb_block(x, wts._replace(wpack=wts.wpack.cpu()))
+        rdb_block(x, wts._replace(wpack_sm90=wts.wpack_sm90.cpu()))
+    with pytest.raises(ValueError, match="Hopper stream"):
+        rdb_block(x, wts._replace(wpack_sm90=None))
+    with pytest.raises(TypeError, match="bfloat16"):
+        rdb_block(x, wts._replace(wpack_sm90=wts.wpack_sm90.float()))
+    with pytest.raises(ValueError, match="values"):
+        rdb_block(x, wts._replace(wpack_sm90=wts.wpack_sm90[:-8]))
 
 
 def test_valar_step_launches_k5_per_block(dev):
@@ -224,11 +236,12 @@ def test_valar_step_launches_k5_per_block(dev):
                                       residual_dtype=torch.float32)
     eng = ChainEngine(ChainSpec(real_life=True), 4, model, dev, tile=16, halo=4)
     frames = torch.randint(0, 256, (1, 20, 24, 3), dtype=torch.uint8)
-    k5 = rdb_block.launches
+    k5, k5_sm90 = rdb_block.launches, rdb_block.launches_sm90
     out = eng.step(frames)
     torch.cuda.synchronize()
     assert tuple(out.shape) == (1, 80, 96, 3)
     assert rdb_block.launches - k5 == 6  # per block, one launch for 4 tiles
+    assert rdb_block.launches_sm90 - k5_sm90 == 6  # every one on the sm90 kernel
 
 
 def _noisy_gradient(rng, n, h, w):

@@ -39,8 +39,24 @@ from upscale_video_tpu_torch.models.executor import (
 from upscale_video_tpu_torch.models.param_parser import NcnnGraph, NcnnLayer
 from upscale_video_tpu_torch.models.zoo import make_rrdb_graph
 from upscale_video_tpu_torch.ops.rdb import (
-    BPACK_NUMEL, WPACK_NUMEL, pack_rdb_weights, rdb_block, rdb_block_plain,
+    BPACK_NUMEL, CINS, MACS_PER_PIXEL, WIDTHS, WPACK_NUMEL, _source_weight,
+    pack_rdb_weights, pack_rdb_weights_sm90, rdb_block, rdb_block_plain,
+    sm90_blocks, sm90_swizzle,
 )
+
+# The tile plan that csrc/rdb_block_sm90.cu states (its static_asserts hold
+# the same numbers at compile time): 12x16 output pixels per tile, halo 5;
+# stage t (0 = the x window, 1..5 = c1..c5) covers a region that starts at
+# window row/col t.  Shared memory: a ring of 8 weight slots of 4 KB, the x
+# window (128 B per pixel), c1..c4 (64 B per pixel), c2's f32 value on c4's
+# region, 18 mbarriers and 1 KB of alignment slack.
+SM90_TH, SM90_TW, SM90_HALO = 12, 16, 5
+SM90_SLOTS, SM90_SLOT_BYTES = 8, 4096
+SM90_SMEM_LIMIT = 232448
+
+
+def _sm90_region(t):
+    return (SM90_TH + 2 * (SM90_HALO - t), SM90_TW + 2 * (SM90_HALO - t))
 
 
 def _weights(seed):
@@ -124,6 +140,85 @@ def test_pack_layout_and_formats():
     assert torch.equal(a.wpack[:GC * 9 * NF].reshape(GC, 9 * NF), c1)
     with pytest.raises(ValueError, match="does not fit"):
         pack_rdb_weights([ws[1]] + ws[1:], bs, skw)
+
+
+def _unpack_sm90_block(stream, b):
+    """One block of the Hopper kernel's stream back in logical order:
+    ``(n, k)`` values, row ``r``'s chunk ``c`` read from its swizzled place."""
+    rows = stream[b.offset:b.offset + b.n * b.k].reshape(b.n, b.k // 8, 8)
+    return torch.stack([
+        torch.cat([rows[r, sm90_swizzle(r, c, b.k)] for c in range(b.k // 8)])
+        for r in range(b.n)])
+
+
+def test_sm90_stream_unpacks_to_pack_rdb_weights():
+    """Every (target, source, tap) value of ``pack_rdb_weights`` comes back
+    exactly from its block of the Hopper stream; the blocks tile the stream
+    with no gap or pad (the stream holds each weight once)."""
+    ws, bs, skw, skb, _ = _weights(6)
+    a = pack_rdb_weights(ws, bs, skw, skb)
+    assert torch.equal(a.wpack_sm90, pack_rdb_weights_sm90(a.wpack))
+    stream = a.wpack_sm90.float()
+    blocks = sm90_blocks()
+    assert len(blocks) == 145
+    end = 0
+    for b in blocks:
+        assert b.offset == end and b.n * b.k * 2 <= SM90_SLOT_BYTES
+        end = b.offset + b.n * b.k
+        got = _unpack_sm90_block(stream, b)
+        if b.s < 0:  # c2's 1x1 skip
+            want = torch.from_numpy(skw.reshape(NF, GC).T.copy())
+        else:
+            dy, dx = divmod(b.tap, 3)
+            want = _source_weight(a.wpack, b.t, b.s)[:, b.k0:b.k0 + b.k, dy, dx]
+        assert torch.equal(got, want.to(torch.bfloat16).float()), b
+    assert end == WPACK_NUMEL == a.wpack_sm90.numel()
+    # each (target, source, tap, channel) once: 9 * cin * width per target
+    for t in range(5):
+        seen = sum(b.n * b.k for b in blocks if b.t == t and b.s >= 0)
+        assert seen == 9 * CINS[t] * WIDTHS[t]
+    # only a bf16 pack carries the stream (the kernel's dtype)
+    assert pack_rdb_weights(ws, bs, skw, skb, dtype=torch.float32).wpack_sm90 is None
+
+
+def test_sm90_tile_plan():
+    """The Hopper kernel's plan as its source states it: shared memory
+    within the 232,448 bytes, the 8x576x512 -m r tiles covered once each
+    by 12x16 tiles, stage regions shrinking by 2 per conv, 8/7/5/4/3 M
+    tiles of 64 pixels, and 1.406x the output's MACs computed."""
+    regions = [_sm90_region(t) for t in range(6)]
+    assert regions == [(22, 26), (20, 24), (18, 22), (16, 20), (14, 18), (12, 16)]
+    px = [r * c for r, c in regions]
+    act = px[0] * NF * 2 + sum(px[1:5]) * GC * 2 + px[4] * GC * 4
+    assert act == 198144
+    smem = 1024 + SM90_SLOTS * SM90_SLOT_BYTES + act + 18 * 8
+    assert smem == 232080 <= SM90_SMEM_LIMIT
+    assert [-(-p // 64) for p in px[1:]] == [8, 7, 5, 4, 3]
+    h, w = 576, 512
+    cover = np.zeros((h, w), np.int32)
+    for y0 in range(0, h, SM90_TH):
+        for x0 in range(0, w, SM90_TW):
+            cover[y0:y0 + SM90_TH, x0:x0 + SM90_TW] += 1
+    assert (cover == 1).all() and h % SM90_TH == 0 and w % SM90_TW == 0
+    assert (h // SM90_TH) * (w // SM90_TW) * 8 == 12288
+    # MACs per tile: each stage over its whole region, the 1x1 skip on c2's
+    done = sum(px[t + 1] * 9 * CINS[t] * WIDTHS[t] for t in range(5)) + px[2] * NF * GC
+    assert done == 65249280 and px[5] * MACS_PER_PIXEL == 46399488
+    assert round(done / (px[5] * MACS_PER_PIXEL), 3) == 1.406
+
+
+def test_cpu_wrapper_takes_the_plain_version_without_a_hopper_stream():
+    """On the CPU the wrapper runs the plain version, which reads ``wpack``
+    alone: a bf16 pack with its Hopper stream dropped, or an f32 pack (which
+    never carries one), gives the plain version's output exactly."""
+    ws, bs, skw, skb, mk = _weights(7)
+    wts = pack_rdb_weights(ws, bs, skw, skb)
+    x = torch.from_numpy(mk(6, 9))[None]
+    assert torch.equal(rdb_block(x, wts._replace(wpack_sm90=None)),
+                       rdb_block_plain(x, wts))
+    f32 = pack_rdb_weights(ws, bs, skw, skb, dtype=torch.float32)
+    assert f32.wpack_sm90 is None
+    assert torch.equal(rdb_block(x, f32), rdb_block_plain(x, f32))
 
 
 def test_wrapper_refuses_other_devices_and_shapes():

@@ -65,12 +65,11 @@
 // each tile's rows, 288 threads, wait_group 0 per halo row) spilled 120
 // bytes at 168 registers and ran ~1.2x slower (PERF.md).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace uvt_sm90 {
+
+using namespace uvt_sm90_common;
 
 constexpr int kActNone = 0;
 constexpr int kActPrelu = 1;
@@ -98,126 +97,8 @@ static_assert(kSmem <= 232448, "shared memory plan exceeds the block limit");
 static_assert(kR * kTW * kLine <= kStageTx,
               "a tile's output must fit in its own halo stage");
 
-// Byte offset of 16-byte chunk `chunk` of 128-byte line `line` under the
-// 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B and wgmma's B128
-// layout), relative to a 1024-aligned base.
-__device__ __forceinline__ uint32_t swz(uint32_t line, uint32_t chunk) {
-  return line * 128u + ((chunk ^ (line & 7u)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the phase of parity `parity` to complete.  A wait never lasts
-// more than a tile's worth of work, so one that spins for ~10 s means a
-// broken pipeline: trap (a launch error) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma boundary (CUTLASS's warpgroup_fence_operand).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma descriptor of a K-major, 128-byte-swizzled operand: start address,
-// LBO 1 (unused by swizzled K-major), SBO 1024 bytes (8 rows of 128 B),
-// layout B128.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// D(64x64, f32) += A(64x16, bf16, registers) * B(16x64, bf16, K-major smem).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
-      : "memory");
 }
 
 template <int ACT>
@@ -343,7 +224,7 @@ chain_layer_sm90_kernel(const __grid_constant__ CUtensorMap src_map,
           if (r < 0 || r >= kR) continue;
 #pragma unroll
           for (int kc = 0; kc < 4; ++kc) {
-            wgmma_rs(acc[r], a[b][kc],
+            wgmma_rs<64>(acc[r], a[b][kc],
                      wdesc + (uint64_t)(((dy * 3 + dx) * kTapBytes + kc * 32) >> 4));
           }
         }
@@ -398,32 +279,6 @@ chain_layer_sm90_kernel(const __grid_constant__ CUtensorMap src_map,
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     mbar_arrive(bars + 8 * (kStages + s));
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (libcuda) looked up through the runtime, so the
-// library needs no -lcuda.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                     12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 template <int ACT>

@@ -32,9 +32,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu", "sr_tail.cu",
-           "rdb_block.cu", "nlmeans.cu", "conv3x3_fused.cu",
+           "rdb_block_sm90.cu", "nlmeans.cu", "conv3x3_fused.cu",
            "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_chain_q8.cu")
-HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh")
+HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh", "sm90_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -55,8 +55,8 @@ _SIGNATURES = {
     # x, out, wmat, bias, slope, leaky, n, h, w, cin, c_in_total, cout,
     # c_out_total, out_off, act, stream
     "uvt_conv3x3_fused_sm90": ([_P] * 5 + [ctypes.c_float] + [_I] * 9 + [_P], _I),
-    # x, out, wpack, bpack, n, h, w, slope, stream
-    "uvt_rdb_block": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
+    # x, out, wstream, bpack, n, h, w, slope, stream
+    "uvt_rdb_block_sm90": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
     # x, out, n, h, w, inv_h2, two_s2, stream
     "uvt_nl_means": ([_P] * 2 + [_I] * 3 + [ctypes.c_float] * 2 + [_P], _I),
     # src, dst, umat, bias, slope, n, h, w, cin, cout, act, stream

@@ -728,7 +728,8 @@ class GraphForward(nn.Module):
             rw = pack_rdb_weights([c.wmat for c in cv], [c.bias for c in cv],
                                   sk.wmat, sk.bias, block["slope"],
                                   dtype=self.compute_dtype, device=self.device)
-            state[name] = LayerWeights(wpack=rw.wpack, bpack=rw.bpack)
+            state[name] = LayerWeights(wpack=rw.wpack, bpack=rw.bpack,
+                                       wpack_sm90=rw.wpack_sm90)
 
     def forward(self, state, x: torch.Tensor) -> torch.Tensor:
         squeeze = x.ndim == 3
@@ -763,7 +764,8 @@ class GraphForward(nn.Module):
                 pw = state[layer.name]
                 blobs[block["out"]] = rdb_block(
                     blobs[layer.inputs[1]].to(cd).contiguous(),
-                    RDBWeights(pw.wpack, pw.bpack, block["slope"]))
+                    RDBWeights(pw.wpack, pw.bpack, block["slope"],
+                               pw.wpack_sm90))
             elif layer.name in self.chains:
                 chain = self.chains[layer.name]
                 blobs[chain["out"]] = conv3x3_chain(

@@ -51,7 +51,8 @@ class LayerWeights(nn.Module):
     a 1x1 conv's is (cin, cout)) and ``bias`` (cout,) f32 for a conv
     (zeros when the layer has none); ``slope`` (C,) f32 for a PReLU; and,
     added by the RRDBNet forward, a dense block's packed K5 weights
-    ``wpack``/``bpack`` under its trigger's name."""
+    ``wpack``/``bpack`` (and ``wpack_sm90``, the Hopper kernel's stream,
+    for a bf16 pack) under its trigger's name."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()

@@ -22,18 +22,23 @@ The weights travel packed (:func:`pack_rdb_weights`): one bf16 matrix per
 target ``t`` of shape ``(width_t, 9 * cin_t)`` whose row holds, per source
 in order, that source's taps in ``(dy, dx, channel)`` order — the
 per-source slices of ``pack_rdb_weights`` in the JAX package (:160), here
-transposed so the kernel reads B fragments as contiguous pairs — then the
+transposed to one row per output channel — then the
 1x1 skip transposed ``(32, 64)``; and the f32 biases ``b1..b5, b_skip``.
+The Hopper kernel reads the same values as one stream of weight blocks in
+the order it consumes them, each in the image its wgmma B descriptor reads
+(:func:`pack_rdb_weights_sm90`, :func:`sm90_blocks`).
 
 :func:`rdb_block` dispatches on the input's device: a CPU tensor takes
-:func:`rdb_block_plain`; a CUDA tensor launches ``csrc/rdb_block.cu`` or
-raises.  ``rdb_block.launches`` counts kernel launches (one per call).
+:func:`rdb_block_plain`; a CUDA tensor launches the Hopper kernel
+``csrc/rdb_block_sm90.cu`` or raises.  ``rdb_block.launches`` and
+``rdb_block.launches_sm90`` both count its launches (one per call).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence
+import functools
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,10 +62,84 @@ BPACK_NUMEL = SKIP_B_OFF + GC                    # 224
 MACS_PER_PIXEL = WPACK_NUMEL                     # one MAC per weight per pixel
 
 
+class SM90Block(NamedTuple):
+    """One weight block of the Hopper kernel's stream: target ``t`` (0..4
+    for c1..c5), source ``s`` (0 = x) or -1 for c2's 1x1 skip, ``tap``
+    (dy*3+dx), source channels ``[k0, k0+k)``, ``n`` output channels;
+    ``n`` rows of ``k`` bf16 at element ``offset``, 16-byte chunks
+    XOR-swizzled by row (``k`` 64: the 128-byte swizzle, chunk ^ (row & 7);
+    ``k`` 32: the 64-byte swizzle, chunk ^ ((row >> 1) & 3))."""
+    t: int
+    s: int
+    tap: int
+    k0: int
+    k: int
+    n: int
+    offset: int
+
+
+@functools.lru_cache(maxsize=1)
+def sm90_blocks() -> tuple:
+    """The blocks in the order the Hopper kernel consumes them: per target
+    c1..c5, per source x, c1, ..., per tap; c5's x taps in two 32-channel
+    halves (every block fits a 4 KB slot); c2's skip after c2's pieces."""
+    out, off = [], 0
+    for t in range(5):
+        n = WIDTHS[t]
+        for s in range(t + 1):
+            k = NF if s == 0 and t < 4 else GC
+            for tap in range(9):
+                for k0 in range(0, SOURCE_CH[s], k):
+                    out.append(SM90Block(t, s, tap, k0, k, n, off))
+                    off += n * k
+        if t == 1:
+            out.append(SM90Block(t, -1, 0, 0, NF, GC, off))
+            off += GC * NF
+    assert off == WPACK_NUMEL
+    return tuple(out)
+
+
+def sm90_swizzle(row, chunk, k: int):
+    """The physical 16-byte chunk of logical ``chunk`` in row ``row`` of a
+    block whose rows hold ``k`` bf16 values (ints or numpy arrays)."""
+    return chunk ^ ((row & 7) if k == NF else ((row >> 1) & 3))
+
+
+@functools.lru_cache(maxsize=1)
+def sm90_gather_index() -> torch.Tensor:
+    """``wpack_sm90 = wpack[index]``: for each element of the Hopper
+    kernel's stream, its position in :func:`pack_rdb_weights`' ``wpack``."""
+    idx = np.empty(WPACK_NUMEL, np.int64)
+    for b in sm90_blocks():
+        rows = np.arange(b.n)[:, None, None]
+        chunk = np.arange(b.k // 8)[None, :, None]
+        elem = np.arange(8)[None, None, :]
+        ch = b.k0 + chunk * 8 + elem                 # source channel
+        if b.s < 0:
+            src = SKIP_W_OFF + rows * NF + ch
+        else:
+            src = (W_OFFS[b.t] + rows * 9 * CINS[b.t] + 9 * SOURCE_OFF[b.s]
+                   + b.tap * SOURCE_CH[b.s] + ch)
+        phys = sm90_swizzle(rows, chunk, b.k)
+        dst = b.offset + rows * b.k + phys * 8 + elem
+        idx[dst.reshape(-1)] = np.broadcast_to(src, dst.shape).reshape(-1)
+    return torch.from_numpy(idx)
+
+
+def pack_rdb_weights_sm90(wpack: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_rdb_weights`' ``wpack`` as the Hopper kernel's stream
+    (:func:`sm90_blocks`): the same values, each once, moved."""
+    if wpack.shape != (WPACK_NUMEL,):
+        raise ValueError(f"wpack {tuple(wpack.shape)} != ({WPACK_NUMEL},)")
+    return wpack[sm90_gather_index().to(wpack.device)].contiguous()
+
+
 class RDBWeights(NamedTuple):
     wpack: torch.Tensor  # (WPACK_NUMEL,) in the compute dtype (bf16 for K5)
     bpack: torch.Tensor  # (BPACK_NUMEL,) f32
     slope: float         # the leaky slope of c1..c4 (the graph's, 0.2)
+    # wpack as the Hopper kernel's stream (bf16 packs only)
+    wpack_sm90: Optional[torch.Tensor] = None
 
 
 def _f32(a, shape) -> torch.Tensor:
@@ -93,8 +172,10 @@ def pack_rdb_weights(ws: Sequence, bs: Sequence, skip_w, skip_b=None,
               for b, n in zip(list(bs) + [skip_b], WIDTHS + (GC,))]
     bpack = torch.cat(biases)
     device = wpack.device if device is None else device
-    return RDBWeights(wpack.to(device=device, dtype=dtype).contiguous(),
-                      bpack.to(device=device).contiguous(), float(slope))
+    wpack = wpack.to(device=device, dtype=dtype).contiguous()
+    return RDBWeights(wpack, bpack.to(device=device).contiguous(), float(slope),
+                      pack_rdb_weights_sm90(wpack) if dtype == torch.bfloat16
+                      else None)
 
 
 def _source_weight(wpack: torch.Tensor, t: int, s: int) -> torch.Tensor:
@@ -157,31 +238,41 @@ def _check_shapes(x: torch.Tensor, weights: RDBWeights) -> None:
 
 def rdb_block(x: torch.Tensor, weights: RDBWeights) -> torch.Tensor:
     """One fused dense block over ``x`` ``(N, H, W, 64)``: the plain version
-    for a CPU tensor, the K5 launch for a CUDA tensor (bf16 in, bf16 out)."""
+    for a CPU tensor, the Hopper kernel for a CUDA tensor (bf16 in, bf16
+    out, the weights' ``wpack_sm90`` stream); raises on what the kernel
+    does not take."""
     if x.device.type == "cpu":
         return rdb_block_plain(x, weights)
     if x.device.type != "cuda":
         raise ValueError(f"rdb_block: unsupported device {x.device}")
     _check_shapes(x, weights)
+    wstream = weights.wpack_sm90
+    if wstream is None:
+        raise ValueError("rdb_block: the weights carry no Hopper stream "
+                         "(pack_rdb_weights with dtype=torch.bfloat16)")
     for name, t, dt in (("x", x, torch.bfloat16),
-                        ("wpack", weights.wpack, torch.bfloat16),
+                        ("wpack_sm90", wstream, torch.bfloat16),
                         ("bpack", weights.bpack, torch.float32)):
         if t.dtype != dt:
             raise TypeError(f"rdb_block: {name} must be {dt}, got {t.dtype}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"rdb_block: {name} must be contiguous on {x.device}")
+    if wstream.numel() != WPACK_NUMEL:
+        raise ValueError(f"rdb_block: wpack_sm90 has {wstream.numel()} values")
     from upscale_video_tpu_torch.kernels import build
 
     n, h, w, _ = x.shape
     out = torch.empty_like(x)
-    code = build.library().uvt_rdb_block(
-        x.data_ptr(), out.data_ptr(), weights.wpack.data_ptr(),
+    code = build.library().uvt_rdb_block_sm90(
+        x.data_ptr(), out.data_ptr(), wstream.data_ptr(),
         weights.bpack.data_ptr(), n, h, w, ctypes.c_float(weights.slope),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(code, "rdb_block launch")
+    build.check(code, "uvt_rdb_block_sm90 launch")
     rdb_block.launches += 1
+    rdb_block.launches_sm90 += 1
     return out
 
 
 rdb_block.launches = 0
+rdb_block.launches_sm90 = 0
