@@ -33,7 +33,8 @@ contracts, counting kernel launches:
   (cuDNN, K1, K7 row-Winograd) and ``tools.q8_bench`` (K8 int8, K1,
   cuDNN), each run at its defaults (16 x 64->64 PReLU convs on a 1080p
   frame) as a subprocess through ``python -m``; their ``[launches]`` lines
-  give K7's and K8's launch counts, each counted from 0 in that process.
+  give K7's and K8's launch counts, each counted from 0 in that process,
+  and every 64->64 K7 launch of ``wino_bench`` must be on the sm90 kernel.
 
 Weights are synthetic (seed 0).  K1 runs its 64->64 layers on the
 persistent TMA + wgmma kernel (``csrc/conv3x3_chain_sm90.cu``) and every
@@ -61,10 +62,16 @@ every path's shapes (the Compact stack and the anime chain at 4x1080p;
 ESRGAN conv shape at 1080p (and ``-m r``'s three solo convs), K3 at
 4x1080p, K6 at 4x1080p, and the whole 1080p ``-m r``, ESRGAN and ``--tta``
 steps against the same steps on the plain versions; K7 over the benches'
-16-layer body at 4x1080p, a ragged 3->64->64 stack and one layer alone, K8
+16-layer body at 4x1080p, a ragged 3->64->64 stack (split 1 WMMA + 1
+sm90 launch, ring checked) and one layer alone (K7 runs its 64->64 layers on the persistent TMA + wgmma kernel
+``csrc/conv_winograd_sm90.cu`` and every other shape on the WMMA kernel:
+``[K7_sm90]`` holds one sm90 layer per activation at 4x1080p and four
+ragged shapes against the plain version (finite, ring checked),
+``[K7_ab]`` times one 64->64 PReLU layer at 4x1080p on the sm90 kernel,
+K7's WMMA kernel, K1's sm90 layer and cuDNN), K8
 over the body at 1x1080p and the ragged stack (bit for bit), then the
-body's A/B at 4x1080p (K1, K7, K8, cuDNN, each with its bound and the
-per-layer HBM floor).  It then times each step against its plain version.  Every phase prints one line; any failure
+body's A/B at 4x1080p (K1, K7, K7 on its WMMA kernel, K8, cuDNN, each with
+its bound and the per-layer HBM floor).  It then times each step against its plain version.  Every phase prints one line; any failure
 raises and the script exits non-zero without printing a result.  The last
 three lines are a JSON object with each kernel's figures (its bound
 computed from the card's published peaks), the card's
@@ -1016,12 +1023,19 @@ def main() -> int:
 
     del eng, peng, teng, veng, eeng, weng, frames, flat, yuv, pyuv
     torch.cuda.empty_cache()
+    k7_layer = k7_sm90_phases(dev, errs)
+    torch.cuda.empty_cache()
     body = conv_body_phases(dev, errs)
     torch.cuda.empty_cache()
     bench_launches = {}
     for tool, kernel in (("wino_bench", "winograd_chain"),
                          ("q8_bench", "conv3x3_chain_q8")):
         bench_launches[kernel] = run_bench(tool, kernel)
+    # wino_bench's body is 16 x 64->64: every K7 launch on the sm90 kernel
+    k7_launches, k7_sm90 = bench_launches["winograd_chain"]
+    if k7_sm90 != k7_launches:
+        raise SystemExit(f"wino_bench ran {k7_launches - k7_sm90} of its "
+                         f"{k7_launches} 64->64 K7 layers off the sm90 kernel")
 
     # library_ms: K1's is cuDNN's bf16 conv (F.conv2d with bias, one call
     # per layer, channels-last) over the same 17 layers, without the
@@ -1072,15 +1086,19 @@ def main() -> int:
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None},
         {"name": "winograd_chain", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/conv_winograd.cu",
+         "source": "upscale_video_tpu_torch/csrc/conv_winograd_sm90.cu",
+         "source_wmma": "upscale_video_tpu_torch/csrc/conv_winograd.cu",
          "replaces": "upscale_video_tpu/ops/conv_winograd.py:73",
-         "launches": bench_launches["winograd_chain"],
+         "launches": k7_launches, "launches_sm90": k7_sm90,
          "max_abs_err": errs["K7"], **body["K7"],
-         "library_ms": body["cudnn"]["ms"]},
+         "ms_wmma": body["K7_wmma"]["ms"],
+         "library_ms": body["cudnn"]["ms"], "layer_ms": k7_layer["sm90"],
+         "layer_ms_wmma": k7_layer["wmma"],
+         "layer_library_ms": k7_layer["cudnn"]},
         {"name": "conv3x3_chain_q8", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/conv_chain_q8.cu",
          "replaces": "upscale_video_tpu/ops/conv_chain_q8.py:68",
-         "launches": bench_launches["conv3x3_chain_q8"],
+         "launches": bench_launches["conv3x3_chain_q8"][0],
          "max_abs_err": errs["K8"], **body["K8"], "library_ms": None},
     ]
     if not all(k["launches"] > 0 for k in kernels):
@@ -1514,6 +1532,124 @@ def wmma_layer(src, dst, layer) -> None:
     build.check(code, "conv3x3_chain WMMA layer launch")
 
 
+def wino_wmma_layer(src, dst, layer) -> None:
+    """One layer on K7's WMMA kernel, called directly (the port sends every
+    64->64 layer to the sm90 kernel): the yardstick the sm90 kernel is
+    timed against."""
+    import torch
+
+    from upscale_video_tpu_torch.kernels import build
+
+    n, hp, wp, _ = src.shape
+    code = build.library().uvt_conv_winograd_layer(
+        src.data_ptr(), dst.data_ptr(), layer.umat.data_ptr(),
+        layer.bias.data_ptr(), layer.slope.data_ptr(), n, hp - 2, wp - 2,
+        layer.cin, layer.cout, layer.act,
+        torch.cuda.current_stream(src.device).cuda_stream)
+    build.check(code, "conv_winograd WMMA layer launch")
+
+
+def k7_sm90_phases(dev, errs) -> dict:
+    """[K7_sm90] and [K7_ab]: one 64->64 layer per activation on K7's sm90
+    kernel against its plain version at 4x1080p (PReLU) and four ragged
+    shapes (odd H, W no multiple of the 64-wide tile, a frame smaller than
+    a tile), finite, ring checked; then one PReLU layer at 4x1080p timed
+    on the sm90 kernel, K7's WMMA kernel (called directly), K1's sm90
+    layer and cuDNN, in two rounds (the second in reverse order).  Returns
+    each one's ms."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import (
+        ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
+    )
+    from upscale_video_tpu_torch.ops.conv_chain import (
+        embed, launch_chain_layer, make_layer,
+    )
+    from upscale_video_tpu_torch.ops.conv_winograd import (
+        launch_wino_layer, make_wino_layer, sm90_takes, winograd_chain,
+        winograd_chain_plain,
+    )
+
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    c = BODY_C
+    if not sm90_takes(c, c):
+        raise SystemExit("K7's 64->64 layer is not routed to the sm90 kernel")
+
+    def layer(act, cin=c, cout=c):
+        slope = (rng.uniform(0.1, 0.3, (cout,)).astype(np.float32)
+                 if act == ACT_PRELU else 0.2 if act == ACT_LEAKY else None)
+        return make_wino_layer(
+            rng.normal(0, 0.15, (3, 3, cin, cout)).astype(np.float32),
+            rng.normal(0, 0.05, (cout,)).astype(np.float32), slope, act,
+            device=dev)
+
+    cases = [((N, H, W), ACT_PRELU)] + [
+        (shape, act) for shape in ((1, 5, 7), (2, 37, 53), (1, 61, 70),
+                                   (4, 64, 128))
+        for act in (ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU)]
+    for shape, act in cases:
+        x = torch.randn((*shape, c), generator=gen, device=dev).to(torch.bfloat16)
+        src = embed(x)
+        lay = layer(act)
+        want = winograd_chain_plain(x, [lay], crop=False)
+        ring = torch.ones(src.shape[1:3], dtype=torch.bool, device=dev)
+        ring[1:-1, 1:-1] = False
+        dst = torch.zeros_like(src)
+        sm90 = winograd_chain.launches_sm90
+        launch_wino_layer(src, dst, lay)
+        torch.cuda.synchronize()
+        worst, differ, ok = compare(dst, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+        finite = bool(torch.isfinite(dst.float()).all())
+        ring_zero = int(torch.count_nonzero(dst[:, ring])) == 0
+        on_sm90 = winograd_chain.launches_sm90 - sm90 == 1
+        ok = ok and finite and ring_zero and on_sm90
+        say("K7_sm90", shape="x".join(map(str, shape)), act=act,
+            max_abs_err=worst, frac_differ=f"{differ:.3e}",
+            bound=f"atol={K1_LAYER_ATOL},rtol={K1_LAYER_RTOL}",
+            finite=finite, ring_zero=ring_zero, on_sm90=on_sm90, ok=ok)
+        if not on_sm90:
+            raise SystemExit("a 64->64 K7 layer missed the sm90 kernel")
+        if not ok:
+            raise SystemExit(f"K7's sm90 layer disagrees with its plain "
+                             f"version at {shape}, act {act}")
+        errs["K7"] = max(errs.get("K7", 0.0), worst)
+        del x, src, dst, want
+
+    # the A/B at 4x1080p.  Bound: the bordered buffers read and written
+    # once with U and the bias (bytes) against 2*6*c*c operations per
+    # pixel; K1's layer and cuDNN do 2*9*c*c
+    x = torch.randn((N, H, W, c), generator=gen, device=dev).to(torch.bfloat16)
+    src = embed(x)
+    dst = torch.zeros_like(src)
+    lay = layer(ACT_PRELU)
+    k1 = make_layer(rng.normal(0, 0.15, (3, 3, c, c)).astype(np.float32),
+                    lay.bias.cpu(), lay.slope.cpu(), ACT_PRELU, device=dev)
+    w_cl = conv_weight_cl(k1.wmat)
+    b16 = lay.bias.to(torch.bfloat16)
+    border = N * (H + 2) * (W + 2)
+    nbytes = 2 * border * c * 2 + lay.umat.numel() * 2 + 2 * c * 4
+    flop = 2 * 6 * c * c * N * H * W
+    bound = roofline(nbytes, {"bf16": flop})
+    fns = {"sm90": lambda: launch_wino_layer(src, dst, lay),
+           "wmma": lambda: wino_wmma_layer(src, dst, lay),
+           "k1_sm90": lambda: launch_chain_layer(src, dst, k1),
+           "cudnn": lambda: cudnn_conv(x, w_cl, b16)}
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(cuda_ms(fns[name], 3 if name == "wmma" else 10))
+    out = {name: sum(t) / len(t) for name, t in times.items()}
+    smi = smi_line()
+    for name, ms in out.items():
+        say("K7_ab", impl=name, shape=f"{N}x{H}x{W}", layer=f"{c}->{c} prelu",
+            ms=f"{ms:.4f}", rounds=" ".join(f"{t:.4f}" for t in times[name]),
+            bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+            share_of_bound=f"{bound[0] / ms:.3f}",
+            vs_cudnn=f"{ms / out['cudnn']:.3f}", card=repr(smi))
+    return out
+
+
 def conv_body_phases(dev, errs) -> dict:
     """[K7], [K8] and [conv_body_ab]: K7 and K8 against their plain
     versions, then the conv body's A/B at 4x1080p.  Returns the ``ms``,
@@ -1523,13 +1659,13 @@ def conv_body_phases(dev, errs) -> dict:
 
     from upscale_video_tpu_torch.ops.common import ACT_PRELU
     from upscale_video_tpu_torch.ops.conv_chain import (
-        conv3x3_chain, make_layer,
+        conv3x3_chain, embed, make_layer, run_bordered,
     )
     from upscale_video_tpu_torch.ops.conv_chain_q8 import (
         conv3x3_chain_q8, conv3x3_chain_q8_plain, make_q8_layer,
     )
     from upscale_video_tpu_torch.ops.conv_winograd import (
-        make_wino_layer, winograd_chain, winograd_chain_plain,
+        make_wino_layer, sm90_takes, winograd_chain, winograd_chain_plain,
     )
     from upscale_video_tpu_torch.tools.q8_bench import make_q8_body
     from upscale_video_tpu_torch.tools.wino_bench import make_layers
@@ -1551,8 +1687,9 @@ def conv_body_phases(dev, errs) -> dict:
             device=dev)
 
     # K7 vs its plain version: the body at 4x1080p on uniform(0, 1)
-    # frames, a ragged 3->64->64 stack, and the body's first layer alone on
-    # unit-scale inputs
+    # frames, a ragged 3->64->64 stack (its head on the WMMA kernel, its
+    # 64->64 layer on sm90), and the body's first layer alone on unit-scale
+    # inputs; each on the bordered output, whose ring must stay zero
     x = torch.rand((N, H, W, c), generator=gen, device=dev).to(torch.bfloat16)
     small = torch.rand((2, 37, 53, 3), generator=gen, device=dev).to(torch.bfloat16)
     unit = torch.randn((N, H, W, c), generator=gen, device=dev).to(torch.bfloat16)
@@ -1561,12 +1698,21 @@ def conv_body_phases(dev, errs) -> dict:
             ("body", x, k7, K1_ATOL, K1_RTOL),
             ("ragged", small, rl, K1_ATOL, K1_RTOL),
             ("layer0", unit, k7[:1], K1_LAYER_ATOL, K1_LAYER_RTOL)):
-        got = winograd_chain(xin, layers)
-        want = winograd_chain_plain(xin, layers)
+        before = (winograd_chain.launches, winograd_chain.launches_sm90)
+        got = winograd_chain(xin, layers, crop=False)
+        want = winograd_chain_plain(xin, layers, crop=False)
         torch.cuda.synchronize()
         worst, differ, ok = compare(got, want, atol, rtol)
+        launches = winograd_chain.launches - before[0]
+        launches_sm90 = winograd_chain.launches_sm90 - before[1]
+        ring = torch.ones(got.shape[1:3], dtype=torch.bool, device=dev)
+        ring[1:-1, 1:-1] = False
+        ring_zero = int(torch.count_nonzero(got[:, ring])) == 0
+        ok = (ok and ring_zero and launches == len(layers)
+              and launches_sm90 == sum(sm90_takes(l.cin, l.cout) for l in layers))
         say("K7", case=what, shape="x".join(map(str, xin.shape)),
-            layers=len(layers), max_abs_err=worst,
+            layers=len(layers), launches=launches, launches_sm90=launches_sm90,
+            ring_zero=ring_zero, max_abs_err=worst,
             mean_abs_want=want.float().abs().mean().item(),
             frac_differ=f"{differ:.3e}", bound=f"atol={atol},rtol={rtol}",
             ok=ok)
@@ -1631,6 +1777,13 @@ def conv_body_phases(dev, errs) -> dict:
                roofline(io_bf16 + wbytes_bf16,
                         {"bf16": 2 * BODY_LAYERS * 6 * c * c * pix}),
                floor_bf16),
+        # the same body with every layer on K7's WMMA kernel, embed and
+        # crop included as winograd_chain does them
+        "K7_wmma": (lambda: run_bordered(embed(x), k7, wino_wmma_layer)
+                    [:, 1:H + 1, 1:W + 1, :].contiguous(), None,
+                    roofline(io_bf16 + wbytes_bf16,
+                             {"bf16": 2 * BODY_LAYERS * 6 * c * c * pix}),
+                    floor_bf16),
         "K8": (lambda: conv3x3_chain_q8(x8, k8),
                lambda: conv3x3_chain_q8_plain(x8, k8),
                roofline(io_q8 + wbytes_q8, {"int8": 2 * macs * pix}),
@@ -1655,11 +1808,13 @@ def conv_body_phases(dev, errs) -> dict:
     return out
 
 
-def run_bench(tool: str, kernel: str) -> int:
+def run_bench(tool: str, kernel: str):
     """``python -m upscale_video_tpu_torch.tools.<tool>`` at its defaults in
     a subprocess: its lines passed on, its parity line held; returns the
     launches of ``kernel`` its ``[launches]`` line counted (from 0 in that
-    process, before the parity check's own launch)."""
+    process, before the parity check's own launch) and those its
+    ``[launches_sm90]`` line gives to the sm90 kernel (None if it has
+    none)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -1672,17 +1827,21 @@ def run_bench(tool: str, kernel: str) -> int:
     lines = r.stdout.splitlines()
     for line in lines:
         print(f"[{tool}] {line}", flush=True)
-    counts = dict(kv.split("=") for line in lines
-                  if line.startswith("[launches] ") for kv in line.split()[1:])
+    def counts(tag):
+        return dict(kv.split("=") for line in lines
+                    if line.startswith(f"[{tag}] ") for kv in line.split()[1:])
+
     parity = [line for line in lines if line.startswith("[parity] ")]
-    launched = int(counts.get(kernel, 0))
+    launched = int(counts("launches").get(kernel, 0))
+    sm90 = counts("launches_sm90").get(kernel)
+    sm90 = None if sm90 is None else int(sm90)
     ok = (r.returncode == 0 and launched > 0 and len(parity) == 1
           and parity[0].endswith("ok=True"))
-    say(tool, rc=r.returncode, launches=launched,
+    say(tool, rc=r.returncode, launches=launched, launches_sm90=sm90,
         seconds=f"{time.perf_counter() - t0:.1f}", ok=ok)
     if not ok:
         raise SystemExit(f"{tool} failed:\n{r.stderr[-4000:]}")
-    return launched
+    return launched, sm90
 
 
 def cudnn_stack(x, layers):

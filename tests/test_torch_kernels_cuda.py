@@ -18,6 +18,8 @@ output by ``2**-6 + 2**-7 * |want|`` at these weights (N(0, 0.05), whose
 pieces stay under |4|).  K6 sums the 5x5 box and the channel mean in f32 in
 another order than the plain version and scales by reciprocals, so its
 outputs agree within ``1e-5 + 1e-5 * |want|`` (measured: a few 1e-7).
+K7's sm90 layer, like K1's, rounds once to bf16 after f32 sums in another
+order: ``2**-10 + 2**-7 * |want|``.
 K4 (its WMMA and its sm90 kernel alike) rounds once to bf16 after an f32
 sum in another order than the plain version's: ``2**-10 + 2**-7 *
 |want|``; a call that reads a channel view and writes at a channel offset
@@ -465,23 +467,60 @@ def _wino_layers(rng, specs, dev):
 def test_winograd_kernel_matches_plain(dev, shape, specs, crop):
     """K7 vs its plain version: K1's stack bounds (one bf16 ulp per layer
     after an f32 sum in another order, propagating); odd heights drop the
-    last pair's second row; cout 128 splits over two blocks."""
+    last pair's second row; cout 128 splits over two blocks.  The 64 -> 64
+    layers launch the sm90 kernel and the rest the WMMA kernel (the first
+    stack: its 3 -> 64 head on WMMA, two layers on sm90); the bordered
+    output's ring stays zero."""
     from upscale_video_tpu_torch.ops.conv_winograd import (
-        winograd_chain, winograd_chain_plain,
+        sm90_takes, winograd_chain, winograd_chain_plain,
     )
 
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.uniform(0, 1, shape + (specs[0][0],))
                          .astype(np.float32)).to(dev, torch.bfloat16)
     layers = _wino_layers(rng, specs, dev)
-    before = winograd_chain.launches
+    before = (winograd_chain.launches, winograd_chain.launches_sm90)
     got = winograd_chain(x, layers, crop=crop)
     torch.cuda.synchronize()
-    assert winograd_chain.launches - before == len(specs)
+    assert winograd_chain.launches - before[0] == len(specs)
+    assert winograd_chain.launches_sm90 - before[1] == sum(
+        sm90_takes(ci, co) for ci, co, _ in specs)
     want = winograd_chain_plain(x, layers, crop=crop)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     d = (got.float() - want.float()).abs()
     assert bool((d <= 5e-2 + 2e-2 * want.float().abs()).all()), d.max().item()
+    assert crop or _ring_is_zero(got)
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 7), (2, 37, 53), (1, 61, 70),
+                                   (4, 64, 128)])
+@pytest.mark.parametrize("act", [ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU])
+def test_wino_sm90_layer_matches_plain(dev, shape, act):
+    """One 64 -> 64 layer on K7's sm90 kernel, odd H and W no multiple of
+    its 64-wide tile: one rounding after f32 sums in another order, so
+    within one bf16 ulp (``2**-10 + 2**-7 * |v|``); finite, and the ring
+    stays zero."""
+    from upscale_video_tpu_torch.ops.conv_winograd import (
+        launch_wino_layer, sm90_takes, winograd_chain, winograd_chain_plain,
+    )
+
+    assert sm90_takes(64, 64)
+    rng = np.random.default_rng(13 + act)
+    (layer,) = _wino_layers(rng, [(64, 64, act)], dev)
+    x = torch.from_numpy(rng.normal(0, 1, (*shape, 64)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    want = winograd_chain_plain(x, [layer], crop=False).float()
+    src = embed(x)
+    dst = torch.zeros_like(src)
+    before = (winograd_chain.launches, winograd_chain.launches_sm90)
+    launch_wino_layer(src, dst, layer)
+    torch.cuda.synchronize()
+    assert winograd_chain.launches - before[0] == 1
+    assert winograd_chain.launches_sm90 - before[1] == 1
+    assert bool(torch.isfinite(dst.float()).all())
+    assert bool(((dst.float() - want).abs()
+                 <= 2.0 ** -10 + 2.0 ** -7 * want.abs()).all())
+    assert _ring_is_zero(dst)
 
 
 @pytest.mark.parametrize("shape,specs", [

@@ -28,8 +28,8 @@ from upscale_video_tpu_torch.ops.common import (
 )
 from upscale_video_tpu_torch.ops.conv_chain import conv3x3_chain, make_layer
 from upscale_video_tpu_torch.ops.conv_winograd import (
-    make_wino_layer, transform_weights, wino_layers_from_jax, winograd_chain,
-    winograd_chain_plain,
+    make_wino_layer, sm90_takes, transform_weights, wino_layers_from_jax,
+    winograd_chain, winograd_chain_plain,
 )
 
 REPO = Path(__file__).resolve().parent.parent
@@ -167,6 +167,91 @@ def test_rejects_mismatched_chain_and_device():
         winograd_chain(torch.zeros(1, 4, 4, 4, device="meta"), layers)
 
 
+@pytest.mark.parametrize("cin,cout,takes", [
+    (64, 64, True), (3, 64, False), (64, 3, False), (64, 128, False),
+    (128, 64, False), (128, 128, False), (32, 32, False), (64, 48, False),
+])
+def test_sm90_takes_64_to_64_only(cin, cout, takes):
+    """The sm90 kernel's resident U and halo ring are sized for 64 -> 64;
+    every other shape stays on the WMMA kernel."""
+    assert sm90_takes(cin, cout) is takes
+
+
+def _swz(line, chunk):
+    """``sm90_common.cuh:swz``: byte offset of 16-byte chunk ``chunk`` of
+    128-byte line ``line`` under the 128-byte swizzle."""
+    return line * 128 + ((chunk ^ (line & 7)) << 4)
+
+
+def _u_image_sm90(umat: torch.Tensor) -> np.ndarray:
+    """A mirror of ``conv_winograd_sm90.cu``'s resident-U copy: ``umat``
+    (4, 192, 64) bf16 viewed as 12 (cin, cout) blocks in (a, dx) order;
+    thread item ``i`` copies cin ``8*kc .. 8*kc+7`` of column ``n`` of block
+    ``blk`` as one 16-byte chunk to ``u_offset(blk, n, kc)``.  Returns the
+    98,304-byte image as int16 bf16 bit patterns (-1 where nothing was
+    written)."""
+    u = umat.contiguous().view(torch.int16).numpy().reshape(12, 64, 64)
+    img = np.full(12 * 8192 // 2, -1, np.int32)
+    for i in range(12 * 64 * 8):
+        n, kc, blk = i % 64, (i // 64) % 8, i // (64 * 8)
+        off = (blk * 8192 + _swz(n, kc)) // 2
+        assert (img[off:off + 8] == -1).all(), "a chunk written twice"
+        img[off:off + 8] = u[blk, 8 * kc:8 * kc + 8, n]
+    return img
+
+
+def test_sm90_resident_u_layout_unpacks_to_transform_weights():
+    """The resident U, read back the way the kernel's wgmma reads B (the
+    (a, dx) block's descriptor start ``blk * 8192 + 32 * kc``, then K-major
+    B128: element (k, n) of the k16 slice at ``start + 128 n + 2 k`` with
+    address bits 4-6 XORed with bits 7-9), is ``transform_weights``' U_a
+    rounded to bf16, element for element; every byte is written once."""
+    rng = np.random.default_rng(21)
+    w = rng.normal(0, 0.3, (3, 3, 64, 64)).astype(np.float32)
+    umat = make_wino_layer(w).umat
+    img = _u_image_sm90(umat)
+    assert (img != -1).all()
+    want = transform_weights(w).to(torch.bfloat16).view(torch.int16).numpy()
+    got = np.empty_like(want)
+    for a in range(4):
+        for dx in range(3):
+            for kc in range(4):
+                start = (a * 3 + dx) * 8192 + 32 * kc
+                k = np.arange(16)[:, None]
+                n = np.arange(64)[None, :]
+                addr = start + 128 * n + 2 * k
+                addr = addr ^ (((addr >> 7) & 7) << 4)
+                got[a, dx * 64 + 16 * kc + k, n] = img[addr // 2]
+    assert np.array_equal(got, want)
+
+
+def test_cpu_wrapper_never_imports_the_build(tmp_path):
+    """On CPU tensors ``winograd_chain`` runs its plain version for every
+    shape, 64 -> 64 included, and never imports the kernel build."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from upscale_video_tpu_torch.ops.conv_winograd import (
+            make_wino_layer, winograd_chain, winograd_chain_plain)
+        rng = np.random.default_rng(0)
+        layers = [make_wino_layer(rng.normal(0, 0.1, (3, 3, ci, co)).astype(
+            np.float32)) for ci, co in ((3, 64), (64, 64))]
+        x = torch.rand(1, 7, 9, 3)
+        assert torch.equal(winograd_chain(x, layers),
+                           winograd_chain_plain(x, layers))
+        assert winograd_chain.launches == winograd_chain.launches_sm90 == 0
+        assert "upscale_video_tpu_torch.kernels.build" not in sys.modules
+        print("ok")
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(tmp_path), env=env, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
 BLOCKED_RUN = textwrap.dedent("""
     import importlib.abc, runpy, sys
 
@@ -214,5 +299,6 @@ def test_wino_bench_runs_on_cpu_without_jax(tmp_path):
         assert any(l.startswith(f"[{impl}] body ") and "ms/layer" in l
                    for l in lines), out
     assert "[launches] winograd_chain=0 conv3x3_chain=0" in lines
+    assert "[launches_sm90] winograd_chain=0 conv3x3_chain=0" in lines
     parity = [l for l in lines if l.startswith("[parity] wino kernel")]
     assert len(parity) == 1 and parity[0].endswith("ok=True"), out

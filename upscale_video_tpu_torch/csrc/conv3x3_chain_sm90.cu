@@ -71,11 +71,6 @@ namespace uvt_sm90 {
 
 using namespace uvt_sm90_common;
 
-constexpr int kActNone = 0;
-constexpr int kActPrelu = 1;
-constexpr int kActLeaky = 2;
-constexpr int kActRelu = 3;
-
 constexpr int kC = 64;                    // cin == cout
 constexpr int kR = 4;                     // output rows per tile
 constexpr int kTW = 64;                   // output columns per tile (wgmma M)
@@ -96,17 +91,6 @@ constexpr int kSmem =
 static_assert(kSmem <= 232448, "shared memory plan exceeds the block limit");
 static_assert(kR * kTW * kLine <= kStageTx,
               "a tile's output must fit in its own halo stage");
-
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float y, float s) {
-  if (ACT == kActRelu) return fmaxf(y, 0.0f);
-  if (ACT == kActPrelu || ACT == kActLeaky) return y >= 0.0f ? y : y * s;
-  return y;
-}
 
 template <int ACT>
 __global__ void __launch_bounds__(kThreads, 1)

@@ -89,11 +89,6 @@ namespace uvt_k4_sm90 {
 
 using namespace uvt_sm90_common;
 
-constexpr int kActNone = 0;
-constexpr int kActPrelu = 1;
-constexpr int kActLeaky = 2;
-constexpr int kActRelu = 3;
-
 constexpr int kSlice = 64;                // channels per slice
 constexpr int kLine = kSlice * 2;         // one pixel of a slice: the 128-byte swizzle span
 constexpr int kTW = 64;                   // output columns per tile (wgmma M)
@@ -169,12 +164,6 @@ __device__ __forceinline__ void part_mma(float (&acc)[KR][N / 2], uint32_t part,
   } else {
     rows_mma<N, KR, 4, H0, H1>(acc, part, wdesc, warp, lane);
   }
-}
-
-__device__ __forceinline__ float activate(float y, float s, int act) {
-  if (act == kActRelu) return fmaxf(y, 0.0f);
-  if (act == kActPrelu || act == kActLeaky) return y >= 0.0f ? y : y * s;
-  return y;
 }
 
 // A 4 x 4 transpose of 32-bit words within a quad (lanes 4i..4i+3):

@@ -8,7 +8,9 @@
 // arithmetic rounds); four products M_a = V_a (x) U_a over the three column
 // taps, bf16 x bf16 accumulated in f32; then in f32
 //     y_even = ((bias + M0) + M1) + M2,   y_odd = ((bias + M1) - M2) - M3,
-// the activation, and ONE rounding to bf16 (__float2bfloat16_rn).
+// the activation, and ONE rounding to bf16 (__float2bfloat16_rn).  The
+// 64 -> 64 layers run on conv_winograd_sm90.cu instead; the wrapper picks
+// by shape (ops/conv_winograd.py:sm90_takes).
 //
 // Layout: K1's bordered bf16 NHWC buffers (conv3x3_core.cuh): reads src
 // (N, H+2, W+2, cin), writes only the interior of dst (N, H+2, W+2, cout),

@@ -1,9 +1,11 @@
 // PTX wrappers and host helpers shared by the Hopper (sm_90a) kernels:
-// conv3x3_chain_sm90.cu (K1's 64->64 layer), conv3x3_fused_sm90.cu (K4)
-// and rdb_block_sm90.cu (K5).  Device code: shared-memory addresses,
-// mbarriers, TMA and bulk copies, ldmatrix, the wgmma fences, groups and
-// m64nNk16 MMAs with A from registers (N 16, 32, 64), the B128 operand
-// descriptor.  Host code: cuTensorMapEncodeTiled through the runtime.
+// conv3x3_chain_sm90.cu (K1's 64->64 layer), conv3x3_fused_sm90.cu (K4),
+// rdb_block_sm90.cu (K5) and conv_winograd_sm90.cu (K7's 64->64 layer).
+// Device code: shared-memory addresses,
+// mbarriers, named barriers, TMA and bulk copies, ldmatrix, the wgmma
+// fences, groups and m64nNk16 MMAs with A from registers (N 16, 32, 64),
+// the B128 operand descriptor, the epilogues' activation.  Host code:
+// cuTensorMapEncodeTiled through the runtime.
 // Each source includes this header and names the namespace with a using
 // directive inside its own namespace.
 
@@ -15,6 +17,32 @@
 #include <stdint.h>
 
 namespace uvt_sm90_common {
+
+// The C entries' activation codes (ops/common.py ACT_*).
+constexpr int kActNone = 0;
+constexpr int kActPrelu = 1;
+constexpr int kActLeaky = 2;
+constexpr int kActRelu = 3;
+
+// The activation of one f32 value; s is its channel's PReLU slope or the
+// leaky constant.
+template <int ACT>
+__device__ __forceinline__ float activate(float y, float s) {
+  if (ACT == kActRelu) return fmaxf(y, 0.0f);
+  if (ACT == kActPrelu || ACT == kActLeaky) return y >= 0.0f ? y : y * s;
+  return y;
+}
+
+__device__ __forceinline__ float activate(float y, float s, int act) {
+  if (act == kActRelu) return fmaxf(y, 0.0f);
+  if (act == kActPrelu || act == kActLeaky) return y >= 0.0f ? y : y * s;
+  return y;
+}
+
+// Named barrier `id` over `count` threads (a warpgroup's own barrier).
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
 
 // Byte offset of 16-byte chunk `chunk` of 128-byte line `line` under the
 // 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B and wgmma's B128

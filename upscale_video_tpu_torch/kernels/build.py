@@ -33,7 +33,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu", "sr_tail.cu",
            "rdb_block_sm90.cu", "nlmeans.cu", "conv3x3_fused.cu",
-           "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_chain_q8.cu")
+           "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_winograd_sm90.cu",
+           "conv_chain_q8.cu")
 HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh", "sm90_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "uvt_nl_means": ([_P] * 2 + [_I] * 3 + [ctypes.c_float] * 2 + [_P], _I),
     # src, dst, umat, bias, slope, n, h, w, cin, cout, act, stream
     "uvt_conv_winograd_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    "uvt_conv_winograd_layer_sm90": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # src, dst, wmat, scale, bias, slope, inv_out, n, h, w, cin, cout, act,
     # to_int8, stream
     "uvt_conv3x3_chain_q8_layer": ([_P] * 6 + [ctypes.c_float] + [_I] * 7

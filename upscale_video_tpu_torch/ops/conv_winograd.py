@@ -21,9 +21,13 @@ Activations live in K1's bordered bf16 NHWC buffers ``(N, H+2, W+2, C)``
 with a zero ring (:mod:`upscale_video_tpu_torch.ops.conv_chain`), one
 kernel launch per layer over the frame batch.  :func:`winograd_chain`
 dispatches on the input's device: a CPU tensor takes
-:func:`winograd_chain_plain`; a CUDA tensor launches the kernel in
-``csrc/conv_winograd.cu`` or raises.  ``winograd_chain.launches`` counts
-kernel launches (one per layer per call).
+:func:`winograd_chain_plain`; a CUDA tensor launches a kernel per layer or
+raises.  The kernel is chosen by the layer's shape alone
+(:func:`sm90_takes`): 64->64 layers run the persistent TMA + wgmma kernel
+in ``csrc/conv_winograd_sm90.cu``, every other shape the WMMA kernel in
+``csrc/conv_winograd.cu``.  ``winograd_chain.launches`` counts every layer
+launch, ``winograd_chain.launches_sm90`` those that went to the sm90
+kernel.
 """
 
 from __future__ import annotations
@@ -143,10 +147,19 @@ def winograd_chain_plain(x: torch.Tensor, layers: Sequence[WinoLayer],
     return y if crop else F.pad(y, (0, 0, 1, 1, 1, 1))
 
 
+def sm90_takes(cin: int, cout: int) -> bool:
+    """Whether a Winograd layer runs on the sm90 kernel: exactly 64 -> 64,
+    the width its resident U (98,304 B) and halo ring are sized for
+    (``csrc/conv_winograd_sm90.cu``)."""
+    return cin == 64 and cout == 64
+
+
 def launch_wino_layer(src: torch.Tensor, dst: torch.Tensor,
                       layer: WinoLayer) -> None:
     """One K7 launch: bordered ``src`` -> interior of bordered ``dst``
-    (whose ring must be zero) on the current stream."""
+    (whose ring must be zero) on the current stream, on the sm90 kernel
+    where :func:`sm90_takes` the layer's shape, else on the WMMA kernel; a
+    failed launch raises."""
     from upscale_video_tpu_torch.kernels import build
 
     n, hp, wp, cin = src.shape
@@ -157,15 +170,19 @@ def launch_wino_layer(src: torch.Tensor, dst: torch.Tensor,
             f"bordered buffers {tuple(src.shape)}/{src.dtype} -> "
             f"{tuple(dst.shape)}/{dst.dtype} do not fit layer "
             f"{layer.cin}->{layer.cout} (contiguous bf16 required)")
+    sm90 = sm90_takes(layer.cin, layer.cout)
     lib = build.library()
-    code = lib.uvt_conv_winograd_layer(
+    fn = lib.uvt_conv_winograd_layer_sm90 if sm90 else lib.uvt_conv_winograd_layer
+    code = fn(
         src.data_ptr(), dst.data_ptr(), layer.umat.data_ptr(),
         layer.bias.data_ptr(), layer.slope.data_ptr(),
         n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
         torch.cuda.current_stream(src.device).cuda_stream,
     )
-    build.check(code, "conv_winograd layer launch")
+    build.check(code, "conv_winograd sm90 layer launch" if sm90
+                else "conv_winograd layer launch")
     winograd_chain.launches += 1
+    winograd_chain.launches_sm90 += sm90
 
 
 def winograd_chain(x: torch.Tensor, layers: Sequence[WinoLayer],
@@ -186,3 +203,4 @@ def winograd_chain(x: torch.Tensor, layers: Sequence[WinoLayer],
 
 
 winograd_chain.launches = 0
+winograd_chain.launches_sm90 = 0

@@ -72,8 +72,15 @@ def report(ms: Dict[str, float], frames: int, layers: int, flop: float,
 
 
 def launches_line(counters: Sequence) -> None:
+    """``[launches]``: each wrapper's launch count; then, for the wrappers
+    that route some shapes to an sm90 kernel, ``[launches_sm90]``: how
+    many of those launches went there."""
     print("[launches] " + " ".join(f"{fn.__name__}={fn.launches}"
                                    for fn in counters), flush=True)
+    sm90 = [fn for fn in counters if hasattr(fn, "launches_sm90")]
+    if sm90:
+        print("[launches_sm90] " + " ".join(
+            f"{fn.__name__}={fn.launches_sm90}" for fn in sm90), flush=True)
 
 
 def parity_line(what: str, got: torch.Tensor, want: torch.Tensor,

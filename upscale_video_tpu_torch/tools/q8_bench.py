@@ -70,6 +70,7 @@ def main(argv=None) -> int:
               "cudnn": lambda: cudnn_body(xb, cw)}
     impls = args.impls.split(",")
     conv3x3_chain_q8.launches = conv3x3_chain.launches = 0
+    conv3x3_chain.launches_sm90 = 0
     ms = bench_common.time_impls({i: bodies[i] for i in impls}, args.reps, dev)
     flop = 2 * 9 * args.height * args.width * c * c * n
     bench_common.report(ms, 1, n, flop, "TOP/s-equiv")

@@ -83,7 +83,8 @@ def main(argv=None) -> int:
               "direct": lambda: conv3x3_chain(x, k1),
               "wino": lambda: winograd_chain(x, k7)}
     impls = args.impls.split(",")
-    conv3x3_chain.launches = winograd_chain.launches = 0
+    for fn in (conv3x3_chain, winograd_chain):
+        fn.launches = fn.launches_sm90 = 0
     ms = bench_common.time_impls({i: bodies[i] for i in impls}, args.reps, dev)
     flop = 2 * 9 * args.height * args.width * args.channels ** 2 * args.layers
     bench_common.report(ms, 1, args.layers, flop, "TFLOP/s-direct-equiv")
