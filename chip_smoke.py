@@ -37,13 +37,21 @@ contracts, counting kernel launches:
   and every 64->64 K7 launch of ``wino_bench`` must be on the sm90 kernel.
 
 Weights are synthetic (seed 0).  K1 runs its 64->64 layers on the
-persistent TMA + wgmma kernel (``csrc/conv3x3_chain_sm90.cu``) and every
-other shape on the WMMA kernel: ``[K1_sm90]`` holds one sm90 layer per
-activation against the plain version at 4x1080p and two ragged shapes
-(ring checked), ``[K1_ab]`` times one 64->64 PReLU layer at 4x1080p on
-the WMMA kernel (called directly), the sm90 kernel and cuDNN, and every CLI run
-counts the sm90 launches (the default step's 16 body layers, two of the
-last RRDBNet chain's three).  K4 runs every bf16 conv with cin a multiple
+persistent TMA + wgmma kernel (``csrc/conv3x3_chain_sm90.cu``), its
+24->24, 3->64, 3->24, 24->3 and 64->3 layers on the narrow Hopper kernel
+(``csrc/conv3x3_chain_narrow_sm90.cu``) and every other shape on the WMMA
+kernel: ``[K1_sm90]`` holds one sm90 layer per activation against the
+plain version at 4x1080p and two ragged shapes (ring checked),
+``[K1_ab]`` times one 64->64 PReLU layer at 4x1080p on the WMMA kernel
+(called directly), the sm90 kernel and cuDNN; ``[K1_narrow]`` holds each
+narrow shape per activation at 4x1080p and three ragged sizes, and at
+its path's size (4x1080p; the 64->3 layer also at ``-m r``'s and ESRGAN's
+4x sizes), finite, ring and padding checked, on the narrow kernel;
+``[K1_shapes_ab]`` times each of those layers on the narrow kernel, the
+WMMA kernel (called directly) and cuDNN, each with its share of the
+bound; and every CLI run counts the Hopper launches (all 17 of the
+default step's layers, all 10 of the anime chain's, all three of the last
+RRDBNet chain's) and the narrow ones among them.  K4 runs every bf16 conv with cin a multiple
 of 32 (up to 192) and cout a multiple of 16 on the persistent TMA + wgmma
 kernel (``csrc/conv3x3_fused_sm90.cu``) and the 3- and 12-channel heads on
 the WMMA kernel: ``[K4_sm90]`` holds every ``K4_SHAPES`` row against the
@@ -101,8 +109,10 @@ VALAR_BLOCKS = 69              # 23 RRDBs x 3 dense blocks: K5 launches/step
 VALAR_SOLOS = 3                # first, trunk, up1: K4 launches per step
 VALAR_SOLOS_SM90 = 2           # trunk and up1 (64->64) on K4's sm90 kernel
 VALAR_CHAIN = 3                # up2 -> hr -> last: one K1 chain per step
-LAST_CHAIN_SM90 = 2            # its 64->64 up2 and hr run on the sm90 kernel
-COMPACT_BODY = 16              # the Compact stack's 64->64 layers: sm90
+LAST_CHAIN_SM90 = 3            # all three on Hopper: up2 and hr (64->64) on
+                               # the sm90 kernel, last (64->3) on the narrow one
+COMPACT_HOPPER = 17            # all 17 layers on Hopper: the body on the sm90
+                               # kernel, the 3->64 head on the narrow one
 # each 3x3 conv of -m r with the factor its 1080p tiles are upscaled by
 # there: the three solo convs run on K4, the last three on K1
 VALAR_K4_LAYERS = (("conv_first", 1), ("conv_trunk", 1), ("conv_up1", 2))
@@ -183,6 +193,19 @@ VALAR_PLAIN_BOUNDS = {2: (50.0, 4), 23: (34.0, 255)}
 K6_ATOL, K6_RTOL = 1e-5, 1e-5
 PRELUDE = "a,n=3"              # the pre-SR path: denoise at 3, anime deblur
 ANIME_LAYERS = 10              # 3->24, 8 x 24->24 (PReLU), 24->3: one chain
+# the K1 shapes on the narrow Hopper kernel, each at its path's size:
+# (cin, cout, act, (n, h, w), where it runs)
+K1_NARROW_SHAPES = (
+    (24, 24, "prelu", (N, H, W), "anime layers 1-8"),
+    (3, 64, "prelu", (N, H, W), "default head"),
+    (3, 24, "prelu", (N, H, W), "anime layer 0"),
+    (24, 3, "none", (N, H, W), "anime layer 9"),
+    (64, 3, "none", (TILES[0], 4 * TILES[1], 4 * TILES[2]), "-m r conv_last"),
+    (64, 3, "none", (1, 4 * H, 4 * W), "ESRGAN conv_last"),
+)
+# [K1_narrow]'s ragged sizes: W no multiple of the 64-wide tile, H none of
+# its rows, and a frame smaller than one tile
+K1_NARROW_RAGGED = ((2, 37, 53), (1, 67, 130), (1, 5, 7))
 TTA_MIN_PSNR = 45.0            # --tta step vs the same step on the plain versions
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense, at
 # 700 W): HBM bytes/s and
@@ -354,8 +377,17 @@ def main() -> int:
         plain_ms=f"{k1_plain_ms:.3f}",
         cudnn_ms=f"{k1_lib_ms:.3f}", bound_ms=f"{k1_bound[0]:.3f}",
         bound_by=k1_bound[1], tflops=f"{flop / k1_ms / 1e9:.1f}",
-        per="17-layer stack, 4x1080p (16 layers on sm90, 1 on WMMA)")
+        per="17-layer stack, 4x1080p (16 layers on sm90, the 3->64 head "
+            "on the narrow kernel)")
+    # where the stack's time goes: one call under torch.profiler, device
+    # time of the 64->64 layers, the narrow head and the rest (the embed
+    # and the zeroed bordered buffers)
+    say("K1_profile", per="17-layer stack, 4x1080p, one call",
+        **profile_shares(lambda: conv3x3_chain(main_x, layers, crop=False),
+                         {"sm90": "chain_layer_sm90", "narrow":
+                          "chain_layer_narrow", "wmma": "chain_layer"}))
     k1_layer_ms = k1_sm90_phases(dev, errs)
+    k1_shapes = k1_narrow_phases(dev, errs)
 
     # K2 against its plain version on the same bordered K1 output
     for layout in ("planar", "frames"):
@@ -456,41 +488,64 @@ def main() -> int:
     ax = frames_to_model(torch.from_numpy(
         rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).to(dev)
     ).to(torch.bfloat16)
+    before = k1_counts()
     got = conv3x3_chain(ax, alayers)
-    want = conv3x3_chain_plain(ax, alayers)
     torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(k1_counts(), before)]
+    want = conv3x3_chain_plain(ax, alayers)
     worst, differ, ok = compare(got, want, K1_ANIME_ATOL, K1_ANIME_RTOL)
+    ok = ok and launched == [ANIME_LAYERS] * 3
     say("K1_anime", shape=f"{N}x{H}x{W}", layers=len(alayers),
         widths="3->24,8x24->24,24->3", max_abs_err=worst,
         mean_abs_want=want.float().abs().mean().item(),
-        frac_differ=f"{differ:.3e}", bound="atol=2**-10,rtol=2**-7", ok=ok)
+        frac_differ=f"{differ:.3e}", bound="atol=2**-10,rtol=2**-7",
+        launches=launched[0], hopper_launches=launched[1],
+        narrow_launches=launched[2], ok=ok)
     if not ok:
-        raise SystemExit("K1 disagrees with its plain version on the anime chain")
+        raise SystemExit("K1 disagrees with its plain version on the anime "
+                         "chain, or a layer missed the narrow kernel")
     errs["K1"] = max(errs["K1"], worst)
     del got, want
     # each anime layer alone at the same shape, unit-scale inputs
     for i, layer in enumerate(alayers):
         x = torch.randn((N, H, W, layer.cin), generator=torch.Generator(
             device=dev).manual_seed(i), device=dev).to(torch.bfloat16)
+        before = k1_counts()
         got = conv3x3_chain(x, [layer])
         want = conv3x3_chain_plain(x, [layer])
+        launched = [a - b for a, b in zip(k1_counts(), before)]
         worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+        ok = ok and launched == [1, 1, 1]
         say("K1_anime_layer", layer=i, cin=layer.cin, cout=layer.cout,
             act=layer.act, max_abs_err=worst,
             mean_abs_want=want.float().abs().mean().item(),
-            frac_differ=f"{differ:.3e}", bound="atol=2**-10,rtol=2**-7", ok=ok)
+            frac_differ=f"{differ:.3e}", bound="atol=2**-10,rtol=2**-7",
+            hopper_launches=launched[1], narrow_launches=launched[2], ok=ok)
         if not ok:
             raise SystemExit(f"K1 disagrees with its plain version at anime "
                              f"layer {i}")
         errs["K1"] = max(errs["K1"], worst)
         del x, got, want
-    a_ms = cuda_ms(lambda: conv3x3_chain(ax, alayers), 5)
     a_plain_ms = cuda_ms(lambda: conv3x3_chain_plain(ax, alayers), 2)
     a_lib_ms = cuda_ms(lambda: cudnn_stack(ax, alayers), 5)
     a_flop = 2 * 9 * N * H * W * sum(l.cin * l.cout for l in alayers)
+    # the chain's bound: each layer's input read and output written once
+    # (the per-layer HBM floor; every layer is bytes-bound)
+    a_bound = 0.0
+    for l in alayers:
+        nbytes, flop = conv_work(N, H, W, l.cin, l.cout)
+        a_bound += roofline(nbytes, {"bf16": flop})[0]
+    before = k1_counts()
+    a_ms = cuda_ms(lambda: conv3x3_chain(ax, alayers), 5)  # 7 calls
+    launched = [a - b for a, b in zip(k1_counts(), before)]
     say("K1_anime_time", ms=f"{a_ms:.3f}", plain_ms=f"{a_plain_ms:.3f}",
         cudnn_ms=f"{a_lib_ms:.3f}", tflops=f"{a_flop / a_ms / 1e9:.1f}",
-        per="10-layer nf-24 chain, 4x1080p")
+        bound_ms=f"{a_bound:.3f}", bound_by="bytes",
+        share_of_bound=f"{a_bound / a_ms:.3f}",
+        calls=7, launches=launched[0], hopper_launches=launched[1],
+        narrow_launches=launched[2], per="10-layer nf-24 chain, 4x1080p")
+    if a_ms >= a_lib_ms:
+        raise SystemExit("K1's anime chain is no faster than cuDNN's")
     del ax, anime
     torch.cuda.empty_cache()
 
@@ -530,7 +585,7 @@ def main() -> int:
     # the -m r path's six 3x3 convs, each with its activation at the shape
     # the 1080p step gives it (the frame's 8 tiles at 1x, 2x, 4x): K4 for
     # the solo 3->64 and 64->64 none and 64->64 leaky, K1 for the chain's
-    # 64->64 leaky twice and 64->3 none (cout % 8 != 0), each layer alone
+    # 64->64 leaky twice (sm90) and 64->3 none (narrow), each layer alone
     from upscale_video_tpu_torch.models.executor import _solo_args
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -749,7 +804,8 @@ def main() -> int:
     HermeticBackend.concat = observe_concat
     counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K3": sr_tail_fused,
                 "K4": conv3x3_fused, "K5": rdb_block, "K6": nl_means_denoise}
-    launches = dict.fromkeys([*counters, "K1_sm90", "K4_sm90", "K5_sm90"], 0)
+    launches = dict.fromkeys(
+        [*counters, "K1_sm90", "K1_narrow", "K4_sm90", "K5_sm90"], 0)
     e2e = {}
 
     def drive(tmp, name, c420, frames, rate, extra, synthetic=True):
@@ -761,13 +817,14 @@ def main() -> int:
         for fn in counters.values():
             fn.launches = 0
         conv3x3_chain.launches_sm90 = conv3x3_fused.launches_sm90 = 0
-        rdb_block.launches_sm90 = 0
+        conv3x3_chain.launches_narrow = rdb_block.launches_sm90 = 0
         t0 = time.perf_counter()
         rc = cli_main(["-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
                        *(["--synthetic_models"] if synthetic else []), *extra])
         wall = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
         counts["K1_sm90"] = conv3x3_chain.launches_sm90
+        counts["K1_narrow"] = conv3x3_chain.launches_narrow
         counts["K4_sm90"] = conv3x3_fused.launches_sm90
         counts["K5_sm90"] = rdb_block.launches_sm90
         for k, v in counts.items():
@@ -804,16 +861,18 @@ def main() -> int:
                   and k["K3"] == k["K4"] == k["K5"] == k["K6"] == 0)
             say("e2e", path="default", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=steps, k1_launches=k["K1"],
-                k1_sm90_launches=k["K1_sm90"],
+                k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
                 k2_launches=k["K2"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
             if not ok:
                 raise SystemExit(f"end-to-end run on the {name} clip failed")
-            if k["K1_sm90"] != COMPACT_BODY * steps:
+            if (k["K1_sm90"] != COMPACT_HOPPER * steps
+                    or k["K1_narrow"] != steps):
                 raise SystemExit(
-                    f"the default step's 64->64 body ran {k['K1_sm90']} layers "
-                    f"on the sm90 kernel, not {COMPACT_BODY * steps}")
+                    f"the default step ran {k['K1_sm90']} K1 layers on Hopper "
+                    f"({k['K1_narrow']} narrow), not {COMPACT_HOPPER * steps} "
+                    f"({steps})")
         # -m r: one frame per step, every dense block one K5 launch over
         # the frame's 8 tiles, the three solo 3x3 convs one K4 launch each,
         # the last three one K1 chain
@@ -829,13 +888,14 @@ def main() -> int:
                   and k["K4_sm90"] == VALAR_SOLOS_SM90 * vsteps
                   and k["K1"] == VALAR_CHAIN * vsteps
                   and k["K1_sm90"] == LAST_CHAIN_SM90 * vsteps
+                  and k["K1_narrow"] == vsteps
                   and k["K2"] == k["K3"] == k["K6"] == 0)
             say("e2e", path="-m r", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=vsteps,
                 k5_launches=k["K5"], k5_launches_sm90=k["K5_sm90"],
                 k4_launches=k["K4"],
                 k4_sm90_launches=k["K4_sm90"], k1_launches=k["K1"],
-                k1_sm90_launches=k["K1_sm90"],
+                k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
                 k2_launches=k["K2"], fragments_before_concat=frags,
                 workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
@@ -848,12 +908,13 @@ def main() -> int:
                 tmp, name, c420, CLIP_FRAMES, CLIP_RATE, ["-m", PRELUDE])
             ok = (ok and geom == (2 * W, 2 * H) and k["K6"] == steps
                   and k["K1"] == (ANIME_LAYERS + 17) * steps
-                  and k["K1_sm90"] == COMPACT_BODY * steps
+                  and k["K1_sm90"] == (ANIME_LAYERS + COMPACT_HOPPER) * steps
+                  and k["K1_narrow"] == (ANIME_LAYERS + 1) * steps
                   and k["K2"] == steps and k["K3"] == k["K4"] == k["K5"] == 0)
             say("e2e", path=f"-m {PRELUDE}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=steps, k6_launches=k["K6"], k1_launches=k["K1"],
-                k1_sm90_launches=k["K1_sm90"],
+                k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
                 k2_launches=k["K2"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
@@ -874,12 +935,13 @@ def main() -> int:
                   and k["K4_sm90"] == (esrgan_k4(ESRGAN_RRDBS) - 1) * esteps
                   and k["K1"] == 3 * esteps
                   and k["K1_sm90"] == LAST_CHAIN_SM90 * esteps
+                  and k["K1_narrow"] == esteps
                   and k["K2"] == k["K3"] == k["K5"] == k["K6"] == 0)
             say("e2e", path=f"-m sr={ESRGAN_STEM}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=esteps, k4_launches=k["K4"],
                 k4_sm90_launches=k["K4_sm90"], k1_launches=k["K1"],
-                k1_sm90_launches=k["K1_sm90"],
+                k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
                 k2_launches=k["K2"], k3_launches=k["K3"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
@@ -898,8 +960,8 @@ def main() -> int:
                   and k["K4"] == (WIDE_CONVS + 1) * wsteps
                   and k["K4_sm90"] == WIDE_CONVS * wsteps
                   and k["K3"] == wsteps
-                  and k["K1"] == k["K1_sm90"] == k["K2"] == k["K5"]
-                  == k["K6"] == 0)
+                  and k["K1"] == k["K1_sm90"] == k["K1_narrow"] == k["K2"]
+                  == k["K5"] == k["K6"] == 0)
             say("e2e", path=f"-m sr={WIDE_STEM}", clip=name,
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=wsteps, k4_launches=k["K4"],
@@ -928,19 +990,21 @@ def main() -> int:
     teng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True, tta=True)
     for fn in counters.values():
         fn.launches = 0
-    conv3x3_chain.launches_sm90 = 0
+    conv3x3_chain.launches_sm90 = conv3x3_chain.launches_narrow = 0
     out = teng.step(frames[:1])
     torch.cuda.synchronize()
     k = {name: fn.launches for name, fn in counters.items()}
     k["K1_sm90"] = conv3x3_chain.launches_sm90
+    k["K1_narrow"] = conv3x3_chain.launches_narrow
     out = out.cpu().numpy()
     ref = plain_call(teng.step, frames[:1]).cpu().numpy()
     quality = psnr(out, ref)
     ok = (quality >= TTA_MIN_PSNR and out.shape == (1, 2 * H, 2 * W, 3)
-          and k["K1"] == 8 * 17 and k["K1_sm90"] == 8 * COMPACT_BODY
-          and k["K2"] == 8)
+          and k["K1"] == 8 * 17 and k["K1_sm90"] == 8 * COMPACT_HOPPER
+          and k["K1_narrow"] == 8 and k["K2"] == 8)
     say("tta", shape=out.shape, k1_launches=k["K1"],
-        k1_sm90_launches=k["K1_sm90"], k2_launches=k["K2"],
+        k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
+        k2_launches=k["K2"],
         psnr_vs_plain_db=f"{quality:.2f}",
         max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
         bound=f">={TTA_MIN_PSNR}dB", ok=ok)
@@ -1047,15 +1111,19 @@ def main() -> int:
     kernels = [
         {"name": "conv3x3_chain", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/conv3x3_chain_sm90.cu",
+         "source_narrow":
+             "upscale_video_tpu_torch/csrc/conv3x3_chain_narrow_sm90.cu",
          "source_wmma": "upscale_video_tpu_torch/csrc/conv3x3_chain.cu",
          "replaces": "upscale_video_tpu/ops/conv_chain.py:61",
          "launches": launches["K1"], "launches_sm90": launches["K1_sm90"],
+         "launches_narrow": launches["K1_narrow"],
          "max_abs_err": errs["K1"],
          "ms": k1_ms, "ms_wmma": k1_wmma_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": k1_lib_ms, "layer_ms": k1_layer_ms,
          "anime_ms": a_ms, "anime_plain_ms": a_plain_ms,
-         "anime_library_ms": a_lib_ms},
+         "anime_library_ms": a_lib_ms, "anime_bound_ms": a_bound,
+         "anime_bound_by": "bytes", "shapes": k1_shapes},
         {"name": "sr_tail_chain", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/sr_tail.cu",
          "replaces": "upscale_video_tpu/ops/tail_pallas.py:155",
@@ -1239,6 +1307,147 @@ def k1_sm90_phases(dev, errs) -> float:
     if out["sm90"] >= out["wmma"]:
         raise SystemExit("K1's sm90 layer is no faster than its WMMA layer")
     return out["sm90"]
+
+
+def k1_counts():
+    """K1's launch counters: every launch, those on either Hopper kernel,
+    those on the narrow one."""
+    from upscale_video_tpu_torch.ops.conv_chain import conv3x3_chain
+
+    return [conv3x3_chain.launches, conv3x3_chain.launches_sm90,
+            conv3x3_chain.launches_narrow]
+
+
+def k1_narrow_phases(dev, errs) -> dict:
+    """[K1_narrow] and [K1_shapes_ab]: each narrow shape on the narrow
+    Hopper kernel against its plain version at 4x1080p and the
+    ``K1_NARROW_RAGGED`` sizes under every activation, and each path size
+    of ``K1_NARROW_SHAPES`` under its path's activation: the one-layer
+    class, finite, ring zero, an 8-wide output's channels 3..7 zero, and
+    on the narrow kernel (its counter moved by one; a miss ends the run).
+    Then [K1_shapes_ab]; returns its figures."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import (
+        ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
+    )
+    from upscale_video_tpu_torch.ops.conv_chain import (
+        chain_kernel, conv3x3_chain_plain, embed, in_width,
+        launch_chain_layer, out_width,
+    )
+
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    acts = {"none": ACT_NONE, "prelu": ACT_PRELU}
+    shapes = list(dict.fromkeys((cin, cout) for cin, cout, *_ in K1_NARROW_SHAPES))
+    cases = [(cin, cout, size, act)
+             for cin, cout in shapes for size in ((N, H, W),) + K1_NARROW_RAGGED
+             for act in (ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU)]
+    cases += [(cin, cout, size, acts[act])
+              for cin, cout, act, size, _ in K1_NARROW_SHAPES if size != (N, H, W)]
+    for cin, cout, size, act in cases:
+        if chain_kernel(cin, cout) != "narrow":
+            raise SystemExit(f"K1's {cin}->{cout} layer is not routed to the "
+                             "narrow kernel")
+        lay = narrow_layer(rng, cin, cout, act, dev)
+        x = torch.randn((*size, cin), generator=gen, device=dev).to(torch.bfloat16)
+        src = embed(x, width=in_width(lay))
+        dst = torch.zeros((*src.shape[:3], out_width(lay)), dtype=torch.bfloat16,
+                          device=dev)
+        before = k1_counts()
+        launch_chain_layer(src, dst, lay)
+        torch.cuda.synchronize()
+        on_narrow = k1_counts()[2] - before[2] == 1
+        want = conv3x3_chain_plain(x, [lay], crop=False)
+        worst, differ, ok = compare(dst[..., :cout], want, K1_LAYER_ATOL,
+                                    K1_LAYER_RTOL)
+        ring = torch.ones(dst.shape[1:3], dtype=torch.bool, device=dev)
+        ring[1:-1, 1:-1] = False
+        ring_zero = int(torch.count_nonzero(dst[:, ring])) == 0
+        pad_zero = int(torch.count_nonzero(dst[..., cout:])) == 0
+        finite = all(bool(torch.isfinite(d).all()) for d in dst)
+        say("K1_narrow", shape="x".join(map(str, size)), layer=f"{cin}->{cout}",
+            act=act, max_abs_err=worst, frac_differ=f"{differ:.3e}",
+            bound=f"atol={K1_LAYER_ATOL},rtol={K1_LAYER_RTOL}", finite=finite,
+            ring_zero=ring_zero, pad_zero=pad_zero, on_narrow=on_narrow,
+            ok=ok and finite and ring_zero and pad_zero and on_narrow)
+        if not on_narrow:
+            raise SystemExit(f"a {cin}->{cout} K1 layer missed the narrow kernel")
+        if not (ok and finite and ring_zero and pad_zero):
+            raise SystemExit(f"K1's narrow kernel disagrees with its plain "
+                             f"version at {cin}->{cout} {size}, act {act}")
+        errs["K1"] = max(errs.get("K1", 0.0), worst)
+        del x, src, dst, want
+        torch.cuda.empty_cache()
+    return k1_shapes_ab(dev)
+
+
+def narrow_layer(rng, cin, cout, act, dev):
+    """A seeded K1 layer of one narrow shape (weights N(0, 0.15), bias
+    N(0, 0.05), PReLU slopes U(0.1, 0.3), the leaky slope 0.2)."""
+    from upscale_video_tpu_torch.ops.common import ACT_LEAKY, ACT_PRELU
+    from upscale_video_tpu_torch.ops.conv_chain import make_layer
+
+    slope = (rng.uniform(0.1, 0.3, (cout,)).astype(np.float32)
+             if act == ACT_PRELU else 0.2 if act == ACT_LEAKY else None)
+    return make_layer(rng.normal(0, 0.15, (3, 3, cin, cout)).astype(np.float32),
+                      rng.normal(0, 0.05, (cout,)).astype(np.float32), slope,
+                      act, device=dev)
+
+
+def k1_shapes_ab(dev, impls=("narrow", "wmma", "cudnn")) -> dict:
+    """[K1_shapes_ab]: each ``K1_NARROW_SHAPES`` row alone at its path's
+    size, timed on each of ``impls``: the narrow Hopper kernel (what the
+    port launches), K1's WMMA kernel called directly, and cuDNN's bf16
+    conv (no activation), each with its share of the layer's bound (the
+    real channels read and written once, ``conv_work``).  Returns
+    ``{"cin->cout@NxHxW": {impl: ms, "bound_ms": ..}}``."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import ACT_NONE, ACT_PRELU
+    from upscale_video_tpu_torch.ops.conv_chain import (
+        embed, in_width, launch_chain_layer, out_width,
+    )
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for cin, cout, act, (n, h, w), where in K1_NARROW_SHAPES:
+        lay = narrow_layer(rng, cin, cout,
+                           ACT_PRELU if act == "prelu" else ACT_NONE, dev)
+        x = torch.randn((n, h, w, cin), generator=gen, device=dev).to(torch.bfloat16)
+        nbytes, flop = conv_work(n, h, w, cin, cout)
+        bound = roofline(nbytes, {"bf16": flop})
+        fns = {}
+        if "narrow" in impls:
+            nsrc = embed(x, width=in_width(lay))
+            ndst = torch.zeros((*nsrc.shape[:3], out_width(lay)),
+                               dtype=torch.bfloat16, device=dev)
+            fns["narrow"] = lambda: launch_chain_layer(nsrc, ndst, lay)
+        if "wmma" in impls:
+            src = embed(x)
+            dst = torch.zeros((*src.shape[:3], cout), dtype=torch.bfloat16,
+                              device=dev)
+            fns["wmma"] = lambda: wmma_layer(src, dst, lay)
+        if "cudnn" in impls:
+            w_cl = conv_weight_cl(lay.wmat)
+            b16 = lay.bias.to(torch.bfloat16)
+            fns["cudnn"] = lambda: cudnn_conv(x, w_cl, b16)
+        key = f"{cin}->{cout}@{n}x{h}x{w}"
+        row = {"bound_ms": bound[0], "bound_by": bound[1], "where": where}
+        for name, fn in fns.items():
+            row[name] = cuda_ms(fn, 10)
+        for name in fns:
+            ms = row[name]
+            say("K1_shapes_ab", shape=key, act=act, where=repr(where),
+                impl=name, ms=f"{ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+                bound_by=bound[1], share_of_bound=f"{bound[0] / ms:.3f}",
+                gb_per_s=f"{nbytes / ms / 1e6:.1f}",
+                vs_cudnn=f"{ms / row['cudnn']:.3f}" if "cudnn" in row else "-")
+        out[key] = row
+        del fns, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def k4_phases(dev, errs) -> dict:
@@ -1937,11 +2146,16 @@ def srvgg_state_dict(seed: int, num_conv: int, nf: int, scale: int):
     return sd
 
 
-def profile_shares(fn) -> dict:
+K_GROUPS = {"k5": "rdb_block", "k4": "conv3x3_fused", "k1": "chain_layer",
+            "cat": "CatArray"}
+
+
+def profile_shares(fn, groups=K_GROUPS) -> dict:
     """One call of ``fn`` under torch.profiler: its device kernel time
-    summed for K5, K4, K1, torch.cat and the rest (with the three largest
-    of the rest), or ``device_ms="not measured"`` where the profiler saw no
-    device time."""
+    summed per group (a kernel joins the first group whose pattern its
+    name holds; by default K5, K4, K1 and torch.cat) and for the rest
+    (with the three largest of the rest), or ``device_ms="not measured"``
+    where the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1949,8 +2163,6 @@ def profile_shares(fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"k5": "rdb_block", "k4": "conv3x3_fused", "k1": "chain_layer",
-              "cat": "CatArray"}
     sums, rest, cats = dict.fromkeys(groups, 0.0), {}, set()
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:

@@ -6,7 +6,7 @@ file imports no jax, so on a GPU host without jax it runs on its own::
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: K1 (its WMMA and its sm90 kernel alike) rounds each layer
+Tolerances: K1 (its WMMA and its two Hopper kernels alike) rounds each layer
 once to bf16 after an f32 accumulation whose order differs from cuDNN's,
 so a value may land one bf16 ulp away and the ulp propagates (the JAX
 suite's chain bounds, tests/test_conv_chain.py:58,70; one layer alone
@@ -40,8 +40,8 @@ from upscale_video_tpu_torch.ops.conv3x3 import (
 )
 from upscale_video_tpu_torch.ops.conv3x3 import sm90_takes as k4_sm90_takes
 from upscale_video_tpu_torch.ops.conv_chain import (
-    conv3x3_chain, conv3x3_chain_plain, embed, launch_chain_layer, make_layer,
-    sm90_takes,
+    NARROW_SHAPES, chain_kernel, conv3x3_chain, conv3x3_chain_plain, embed,
+    in_width, launch_chain_layer, make_layer, out_width, sm90_takes,
 )
 from upscale_video_tpu_torch.ops.nlmeans import (
     nl_means_denoise, nl_means_denoise_plain,
@@ -89,20 +89,30 @@ def _ring_is_zero(buf):
     [(128, 128, ACT_PRELU), (128, 100, ACT_NONE)],
     [(3, 64, ACT_PRELU), (64, 64, ACT_LEAKY), (64, 64, ACT_PRELU),
      (64, 12, ACT_NONE)],
+    [(3, 24, ACT_PRELU), (24, 24, ACT_PRELU), (24, 3, ACT_NONE)],
+    [(64, 64, ACT_LEAKY), (64, 3, ACT_NONE)],
+    [(24, 3, ACT_RELU), (3, 16, ACT_PRELU), (16, 3, ACT_NONE),
+     (3, 24, ACT_LEAKY)],
 ])
 def test_chain_kernel_matches_plain(dev, specs):
-    """A stack mixing both kernels (sm90 for 64 -> 64, WMMA for the rest);
-    the counters split as ``sm90_takes`` says."""
+    """A stack mixing the three kernels (sm90 for 64 -> 64, narrow for its
+    five shapes, WMMA for the rest; a 3-channel buffer between the narrow
+    kernel and WMMA changes width); the counters split as
+    ``chain_kernel`` says."""
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.uniform(0, 1, (2, 37, 53, specs[0][0]))
                          .astype(np.float32)).to(dev, torch.bfloat16)
     layers = _layers(rng, specs, dev)
-    before = (conv3x3_chain.launches, conv3x3_chain.launches_sm90)
+    before = (conv3x3_chain.launches, conv3x3_chain.launches_sm90,
+              conv3x3_chain.launches_narrow)
     got = conv3x3_chain(x, layers, crop=False)
     torch.cuda.synchronize()
     assert conv3x3_chain.launches - before[0] == len(layers)
     assert conv3x3_chain.launches_sm90 - before[1] == sum(
         sm90_takes(ci, co) for ci, co, _ in specs)
+    assert conv3x3_chain.launches_narrow - before[2] == sum(
+        chain_kernel(ci, co) == "narrow" for ci, co, _ in specs)
+    assert got.shape == (2, 39, 55, specs[-1][1])
     want = conv3x3_chain_plain(x, layers, crop=False)
     torch.testing.assert_close(got.float(), want.float(), atol=5e-2, rtol=2e-2)
     assert _ring_is_zero(got)
@@ -153,18 +163,61 @@ def test_sm90_layer_matches_plain(dev, shape, act):
     assert _ring_is_zero(dst)
 
 
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 67, 130), (1, 5, 7)])
+@pytest.mark.parametrize("cin,cout", sorted(NARROW_SHAPES))
+@pytest.mark.parametrize("act", [ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU])
+def test_narrow_layer_matches_plain(dev, shape, cin, cout, act):
+    """One layer of each narrow shape on the narrow kernel, W no multiple
+    of its 64-wide tile, H none of its rows, one frame smaller than a
+    tile: within one bf16 ulp (``2**-10 + 2**-7 * |v|``), finite, the ring
+    zero, an 8-wide output's channels 3..7 zero, on the narrow kernel."""
+    rng = np.random.default_rng(5 + act + cin + cout)
+    (layer,) = _layers(rng, [(cin, cout, act)], dev)
+    x = torch.from_numpy(rng.normal(0, 1, (*shape, cin)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    want = conv3x3_chain_plain(x, [layer], crop=False).float()
+    src = embed(x, width=in_width(layer))
+    dst = torch.zeros((*src.shape[:3], out_width(layer)), dtype=torch.bfloat16,
+                      device=dev)
+    before = (conv3x3_chain.launches_sm90, conv3x3_chain.launches_narrow)
+    launch_chain_layer(src, dst, layer)
+    torch.cuda.synchronize()
+    assert conv3x3_chain.launches_sm90 - before[0] == 1
+    assert conv3x3_chain.launches_narrow - before[1] == 1
+    got = dst[..., :cout].float()
+    assert bool(torch.isfinite(dst.float()).all())
+    assert bool(((got - want).abs() <= 2.0 ** -10 + 2.0 ** -7 * want.abs()).all())
+    assert _ring_is_zero(dst)
+    assert int(torch.count_nonzero(dst[..., cout:])) == 0
+
+
+def test_narrow_kernel_refuses_a_layer_without_its_pack(dev):
+    """A narrow shape launches its kernel with the packed weights or
+    raises: no fallback to another kernel."""
+    rng = np.random.default_rng(6)
+    (layer,) = _layers(rng, [(24, 24, ACT_PRELU)], dev)
+    x = torch.zeros((1, 5, 7, 24), device=dev, dtype=torch.bfloat16)
+    before = conv3x3_chain.launches
+    with pytest.raises(ValueError, match="packed weights"):
+        conv3x3_chain(x, [layer._replace(wpack=None)])
+    with pytest.raises(ValueError, match="packed weights"):
+        conv3x3_chain(x, [layer._replace(wpack=layer.wpack[:-8])])
+    assert conv3x3_chain.launches == before
+
+
 def test_engine_step_launches_each_kernel(dev):
     from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 
     eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True)
     frames = torch.randint(0, 256, (4, 24, 40, 3), dtype=torch.uint8)
     k1, k2 = conv3x3_chain.launches, sr_tail_chain.launches
-    sm90 = conv3x3_chain.launches_sm90
+    sm90, narrow = conv3x3_chain.launches_sm90, conv3x3_chain.launches_narrow
     out = eng.planar_step(frames)
     torch.cuda.synchronize()
     assert tuple(out.shape) == (4, 24, 40, 12)
     assert conv3x3_chain.launches - k1 == 17
-    assert conv3x3_chain.launches_sm90 - sm90 == 16  # the 64 -> 64 body
+    assert conv3x3_chain.launches_sm90 - sm90 == 17  # all on Hopper
+    assert conv3x3_chain.launches_narrow - narrow == 1  # the 3 -> 64 head
     assert sr_tail_chain.launches - k2 == 1
 
 
@@ -290,11 +343,14 @@ def test_prelude_step_launches_each_kernel(dev):
     frames = torch.randint(0, 256, (4, 24, 40, 3), dtype=torch.uint8)
     k1, k2, k6 = (conv3x3_chain.launches, sr_tail_chain.launches,
                   nl_means_denoise.launches)
+    sm90, narrow = conv3x3_chain.launches_sm90, conv3x3_chain.launches_narrow
     out = eng.planar_step(frames)
     torch.cuda.synchronize()
     assert tuple(out.shape) == (4, 24, 40, 12)
     assert nl_means_denoise.launches - k6 == 1
     assert conv3x3_chain.launches - k1 == 10 + 17
+    assert conv3x3_chain.launches_sm90 - sm90 == 10 + 17  # all on Hopper
+    assert conv3x3_chain.launches_narrow - narrow == 10 + 1
     assert sr_tail_chain.launches - k2 == 1
 
 
@@ -364,12 +420,15 @@ def test_esrgan_forward_runs_every_solo_3x3_conv_on_k4(dev, monkeypatch):
     model = make_synthetic_rrdb_model(num_rrdb=1, device=dev, variant="esrgan")
     k4, k1 = conv3x3_fused.launches, conv3x3_chain.launches
     k4_sm90 = conv3x3_fused.launches_sm90
+    k1_sm90, k1_narrow = conv3x3_chain.launches_sm90, conv3x3_chain.launches_narrow
     out = model(torch.rand(1, 12, 16, 3, device=dev), "frames")
     torch.cuda.synchronize()
     assert tuple(out.shape) == (1, 48, 64, 3)
     assert conv3x3_fused.launches - k4 == 1 + 15 + 2
     assert conv3x3_fused.launches_sm90 - k4_sm90 == 15 + 2  # all but conv_first
     assert conv3x3_chain.launches - k1 == 3
+    assert conv3x3_chain.launches_sm90 - k1_sm90 == 3  # all on Hopper
+    assert conv3x3_chain.launches_narrow - k1_narrow == 1  # conv_last, 64 -> 3
     assert not [s for s, d in seen if d == "cuda" and s[2:] == (3, 3)]
 
 

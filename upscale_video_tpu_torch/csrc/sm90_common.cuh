@@ -1,10 +1,11 @@
 // PTX wrappers and host helpers shared by the Hopper (sm_90a) kernels:
-// conv3x3_chain_sm90.cu (K1's 64->64 layer), conv3x3_fused_sm90.cu (K4),
-// rdb_block_sm90.cu (K5) and conv_winograd_sm90.cu (K7's 64->64 layer).
+// conv3x3_chain_sm90.cu (K1's 64->64 layer), conv3x3_chain_narrow_sm90.cu
+// (K1's narrow shapes), conv3x3_fused_sm90.cu (K4), rdb_block_sm90.cu (K5)
+// and conv_winograd_sm90.cu (K7's 64->64 layer).
 // Device code: shared-memory addresses,
 // mbarriers, named barriers, TMA and bulk copies, ldmatrix, the wgmma
-// fences, groups and m64nNk16 MMAs with A from registers (N 16, 32, 64),
-// the B128 operand descriptor, the epilogues' activation.  Host code:
+// fences, groups and m64nNk16 MMAs with A from registers (N 8, 16, 24, 32,
+// 64), the B128 operand descriptor, the epilogues' activation.  Host code:
 // cuTensorMapEncodeTiled through the runtime.
 // Each source includes this header and names the namespace with a using
 // directive inside its own namespace.
@@ -174,6 +175,32 @@ __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(float (&d)[4], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<24>(float (&d)[12], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
       : "memory");
 }

@@ -31,7 +31,8 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu", "sr_tail.cu",
+SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu",
+           "conv3x3_chain_narrow_sm90.cu", "sr_tail.cu",
            "rdb_block_sm90.cu", "nlmeans.cu", "conv3x3_fused.cu",
            "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_winograd_sm90.cu",
            "conv_chain_q8.cu")
@@ -47,6 +48,8 @@ _SIGNATURES = {
     # src, dst, wmat, bias, slope, n, h, w, cin, cout, act, stream
     "uvt_conv3x3_chain_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "uvt_conv3x3_chain_layer_sm90": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # src, dst, wpack, bias, slope, n, h, w, cin, cout, act, stream
+    "uvt_conv3x3_chain_layer_narrow_sm90": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # src, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream
     "uvt_sr_tail": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # u, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream

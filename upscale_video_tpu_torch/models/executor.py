@@ -47,7 +47,9 @@ from upscale_video_tpu_torch.ops.common import (
     ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
 )
 from upscale_video_tpu_torch.ops.conv3x3 import conv3x3_fused
-from upscale_video_tpu_torch.ops.conv_chain import ChainLayer, conv3x3_chain
+from upscale_video_tpu_torch.ops.conv_chain import (
+    ChainLayer, conv3x3_chain, pack_narrow_weights,
+)
 from upscale_video_tpu_torch.ops.pixel import model_to_frames
 from upscale_video_tpu_torch.ops.rdb import RDBWeights, pack_rdb_weights, rdb_block
 from upscale_video_tpu_torch.ops.tail import LAYOUTS, sr_tail_chain, sr_tail_fused
@@ -259,8 +261,22 @@ def chain_layers(items: List[dict], state) -> List[ChainLayer]:
             value = float(it["slope_attr"][0]) if act == ACT_LEAKY else 0.0
             slope = torch.full((cout,), value, dtype=torch.float32,
                                device=lw.wmat.device)
-        layers.append(ChainLayer(lw.wmat, lw.bias, slope, act))
+        layers.append(ChainLayer(lw.wmat, lw.bias, slope, act,
+                                 getattr(lw, "wpack_narrow", None)))
     return layers
+
+
+def pack_chain_weights(items: List[dict], state) -> None:
+    """Add each chain layer's packed weights for K1's narrow kernel
+    (``wpack_narrow``, :func:`~upscale_video_tpu_torch.ops.conv_chain.
+    pack_narrow_weights`) to ``state`` where that kernel takes its shape
+    in bf16, once: a second layout's forward finds them packed."""
+    for it in items:
+        lw = state[it["name"]]
+        if not hasattr(lw, "wpack_narrow"):
+            pack = pack_narrow_weights(lw.wmat)
+            if pack is not None:
+                lw.register_buffer("wpack_narrow", pack)
 
 
 def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
@@ -324,6 +340,11 @@ class SRVGGForward(nn.Module):
         self.compute_dtype = compute_dtype
         self.emit = emit
         self.device = torch.device(device)
+
+    def prepare(self, state: nn.ModuleDict) -> None:
+        """Pack the chain's narrow-kernel weights into ``state``
+        (:func:`pack_chain_weights`), at plan time."""
+        pack_chain_weights(self.items, state)
 
     def forward(self, state, x: torch.Tensor) -> torch.Tensor:
         squeeze = x.ndim == 3
@@ -715,11 +736,14 @@ class GraphForward(nn.Module):
 
     def prepare(self, state: nn.ModuleDict) -> None:
         """Add each dense block's packed K5 weights to ``state`` under its
-        trigger's name (the trigger Eltwise has no weights of its own).
+        trigger's name (the trigger Eltwise has no weights of its own), and
+        each chain's narrow-kernel weights (:func:`pack_chain_weights`).
         Called at plan time (``Model.frames_forward``), where a second
         layout's forward finds them packed; :meth:`forward` only reads them."""
         from upscale_video_tpu_torch.models.zoo import LayerWeights
 
+        for chain in self.chains.values():
+            pack_chain_weights(chain["items"], state)
         for name, block in self.rdb_triggers.items():
             if name in state:
                 continue

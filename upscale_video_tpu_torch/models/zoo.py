@@ -21,7 +21,7 @@ from upscale_video_tpu_torch.models.bin_loader import (
     emit_bin, load_weights_file, synthesize_weights,
 )
 from upscale_video_tpu_torch.models.executor import (
-    GraphForward, build_forward, probe_srvgg_tail,
+    build_forward, probe_srvgg_tail,
 )
 from upscale_video_tpu_torch.models.param_parser import (
     NcnnGraph, NcnnLayer, emit_param, parse_param_file,
@@ -52,7 +52,8 @@ class LayerWeights(nn.Module):
     (zeros when the layer has none); ``slope`` (C,) f32 for a PReLU; and,
     added by the RRDBNet forward, a dense block's packed K5 weights
     ``wpack``/``bpack`` (and ``wpack_sm90``, the Hopper kernel's stream,
-    for a bf16 pack) under its trigger's name."""
+    for a bf16 pack) under its trigger's name; added by any forward, a
+    chain conv's ``wpack_narrow`` (K1's narrow kernel, bf16, its shapes)."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()
@@ -123,13 +124,13 @@ class Model(nn.Module):
         self._forwards: Dict[str, nn.Module] = {}
 
     def frames_forward(self, emit: str = "frames") -> nn.Module:
-        """The built forward for one output layout (cached).  Building an
-        RRDBNet forward packs its dense blocks' K5 weights into ``state``."""
+        """The built forward for one output layout (cached).  Building a
+        forward packs its K1 chains' narrow-kernel weights into ``state``,
+        and an RRDBNet's its dense blocks' K5 weights."""
         if emit not in self._forwards:
             fwd = build_forward(self.graph, self.device, self.compute_dtype,
                                 emit, self.residual_dtype)
-            if isinstance(fwd, GraphForward):
-                fwd.prepare(self.state)
+            fwd.prepare(self.state)
             self._forwards[emit] = fwd
         return self._forwards[emit]
 

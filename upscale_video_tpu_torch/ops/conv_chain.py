@@ -11,10 +11,15 @@ the tail kernel (:mod:`upscale_video_tpu_torch.ops.tail`).
 :func:`conv3x3_chain` dispatches on the input's device: a CPU tensor takes
 :func:`conv3x3_chain_plain`; a CUDA tensor launches a kernel per layer or
 raises.  The kernel is chosen by the layer's shape alone
-(:func:`sm90_takes`): 64->64 layers run the persistent TMA + wgmma kernel
-in ``csrc/conv3x3_chain_sm90.cu``, every other shape the WMMA kernel in
+(:func:`chain_kernel`): 64->64 layers run the persistent TMA + wgmma kernel
+in ``csrc/conv3x3_chain_sm90.cu``; 24->24, 3->64, 3->24, 24->3 and 64->3
+(:data:`NARROW_SHAPES`) the narrow Hopper kernel in
+``csrc/conv3x3_chain_narrow_sm90.cu``, whose 3-channel buffers are 8
+channels wide and whose weights are packed once (:func:`pack_narrow_weights`,
+``ChainLayer.wpack``); every other shape the WMMA kernel in
 ``csrc/conv3x3_chain.cu``.  ``conv3x3_chain.launches`` counts every layer
-launch, ``conv3x3_chain.launches_sm90`` those that went to the sm90 kernel.
+launch, ``conv3x3_chain.launches_sm90`` those on either Hopper kernel and
+``conv3x3_chain.launches_narrow`` those on the narrow one.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ class ChainLayer(NamedTuple):
     slope: torch.Tensor  # (cout,) f32: PReLU slopes, or the leaky slope
                          # broadcast; zeros when unused
     act: int             # ACT_NONE / ACT_PRELU / ACT_LEAKY / ACT_RELU
+    wpack: Optional[torch.Tensor] = None  # the narrow kernel's packed
+                         # weights (pack_narrow_weights), for its shapes in bf16
 
     @property
     def cin(self) -> int:
@@ -60,7 +67,8 @@ def make_layer(weight_hwio, bias=None, slope=None, act: int = ACT_NONE,
         raise ValueError(f"3x3 weights expected, got {tuple(w.shape)}")
     wmat = w.reshape(9 * cin, cout).to(device=device, dtype=dtype).contiguous()
     return ChainLayer(wmat, per_channel(bias, cout, device),
-                      per_channel(slope, cout, device), int(act))
+                      per_channel(slope, cout, device), int(act),
+                      pack_narrow_weights(wmat))
 
 
 def per_channel(v, cout: int, device: "torch.device | str" = "cpu"
@@ -171,68 +179,163 @@ def check_cuda(x: torch.Tensor, layers: Sequence,
                 raise ValueError(f"layer {i}: tensors must be contiguous")
 
 
+# the shapes the narrow Hopper kernel (csrc/conv3x3_chain_narrow_sm90.cu)
+# takes: the anime chain's 3->24, 24->24 and 24->3, the default head's
+# 3->64, the RRDBNets' 64->3 conv_last
+NARROW_SHAPES = frozenset({(24, 24), (3, 64), (3, 24), (24, 3), (64, 3)})
+# a 3-channel bordered buffer's width on the narrow kernel: 16 bytes a
+# pixel, so TMA's strides and ldmatrix's rows are 16-byte aligned
+NARROW_PAD3 = 8
+
+
+def chain_kernel(cin: int, cout: int) -> str:
+    """The kernel a chain layer runs on, by its shape alone: ``"sm90"``
+    (64 -> 64, ``csrc/conv3x3_chain_sm90.cu``, whose resident weights and
+    3-stage halo ring are sized for that width), ``"narrow"``
+    (:data:`NARROW_SHAPES`, ``csrc/conv3x3_chain_narrow_sm90.cu``) or
+    ``"wmma"`` (every other shape, ``csrc/conv3x3_chain.cu``)."""
+    if cin == 64 and cout == 64:
+        return "sm90"
+    return "narrow" if (cin, cout) in NARROW_SHAPES else "wmma"
+
+
 def sm90_takes(cin: int, cout: int) -> bool:
-    """Whether a chain layer runs on the sm90 kernel: exactly 64 -> 64, the
-    width its resident weights (73,728 B) and 3-stage halo ring are sized
-    for (``csrc/conv3x3_chain_sm90.cu``)."""
-    return cin == 64 and cout == 64
+    """Whether a chain layer runs on a Hopper kernel (either sm90 kernel,
+    :func:`chain_kernel`)."""
+    return chain_kernel(cin, cout) != "wmma"
+
+
+def in_width(layer) -> int:
+    """The channel width of the bordered buffer ``layer`` reads on the
+    kernel path: a 3-channel input of the narrow kernel is 8 wide (its
+    channels 3..7 zero), every other input its ``cin``."""
+    return (NARROW_PAD3 if layer.cin == 3
+            and chain_kernel(layer.cin, layer.cout) == "narrow" else layer.cin)
+
+
+def out_width(layer) -> int:
+    """The channel width of the bordered buffer ``layer`` writes on the
+    kernel path: the narrow kernel's 3-channel output is 8 wide (its zero
+    padded weights and bias write channels 3..7 as 0), every other output
+    its ``cout``."""
+    return (NARROW_PAD3 if layer.cout == 3
+            and chain_kernel(layer.cin, layer.cout) == "narrow" else layer.cout)
+
+
+def narrow_plan(cin: int, cout: int) -> Tuple[int, int, int, int]:
+    """The narrow kernel's plan of a shape: ``(cs, n, ks, atoms)``, the
+    input buffer's channels (3 stored 8 wide), wgmma's N (cout rounded up
+    to 8), the k16 steps of the dx-folded K (3*cs rounded up to 16) and
+    the 64-wide K atoms that hold them, per dy."""
+    cs = NARROW_PAD3 if cin == 3 else cin
+    ks = -(-3 * cs // 16)
+    return cs, -(-cout // 8) * 8, ks, -(-ks // 4)
+
+
+def pack_narrow_weights(wmat: torch.Tensor) -> Optional[torch.Tensor]:
+    """A bf16 ``(9*cin, cout)`` weight matrix of a shape the narrow kernel
+    takes as its resident B image (flat bf16 on ``wmat``'s device), else
+    None (other shapes and the f32 CPU path need none).  ``B[dy, k, col]``
+    with k = ``dx * cs + c`` holds ``wmat[(dy*3 + dx)*cin + c, col]``,
+    every padded K row (c >= cin, k >= 3*cs) and column (col >= cout)
+    zero; per dy, ``atoms`` blocks of ``n`` lines of 64 values (one
+    128-byte line per output channel, K-major), 16-byte chunk ``j`` of
+    line ``col`` stored at chunk ``j ^ (col % 8)``: wgmma's 128-byte-
+    swizzled B layout, read through ``desc_sw128``
+    (``csrc/sm90_common.cuh``).  Packed once per layer (``make_layer``,
+    the executor's ``prepare``), never per call."""
+    cin, cout = wmat.shape[0] // 9, wmat.shape[1]
+    if wmat.dtype != torch.bfloat16 or chain_kernel(cin, cout) != "narrow":
+        return None
+    cs, n, _, atoms = narrow_plan(cin, cout)
+    b = torch.zeros((3, 3, cs, n), dtype=torch.float32)
+    b[:, :, :cin, :cout] = wmat.detach().to("cpu", torch.float32).view(3, 3, cin, cout)
+    full = torch.zeros((3, 64 * atoms, n), dtype=torch.float32)
+    full[:, :3 * cs] = b.view(3, 3 * cs, n)
+    k = torch.arange(64 * atoms).view(1, -1, 1)
+    col = torch.arange(n).view(1, 1, -1)
+    dy = torch.arange(3).view(-1, 1, 1)
+    index = ((dy * atoms + k // 64) * n * 64 + col * 64
+             + ((k % 64 // 8) ^ (col % 8)) * 8 + k % 8)
+    img = torch.zeros(3 * atoms * n * 64, dtype=torch.float32)
+    img[index.reshape(-1)] = full.reshape(-1)
+    return img.to(device=wmat.device, dtype=torch.bfloat16)
 
 
 def launch_chain_layer(src: torch.Tensor, dst: torch.Tensor,
                        layer: ChainLayer) -> None:
     """One K1 launch: bordered ``src`` -> interior of bordered ``dst``
-    (whose ring must be zero) on the current stream, on the sm90 kernel
-    where :func:`sm90_takes` the layer's shape, else on the WMMA kernel; a
-    failed launch raises."""
+    (whose ring must be zero) on the current stream, on the kernel
+    :func:`chain_kernel` names for the layer's shape; the buffers are
+    :func:`in_width` and :func:`out_width` channels wide.  A failed launch,
+    or a narrow layer without its packed weights, raises."""
     from upscale_video_tpu_torch.kernels import build
 
-    n, hp, wp, cin = src.shape
-    if (dst.shape != (n, hp, wp, layer.cout) or cin != layer.cin
+    n, hp, wp, cs = src.shape
+    kernel = chain_kernel(layer.cin, layer.cout)
+    if (dst.shape != (n, hp, wp, out_width(layer)) or cs != in_width(layer)
             or not src.is_contiguous() or not dst.is_contiguous()
             or src.dtype != torch.bfloat16 or dst.dtype != torch.bfloat16):
         raise ValueError(
             f"bordered buffers {tuple(src.shape)}/{src.dtype} -> "
             f"{tuple(dst.shape)}/{dst.dtype} do not fit layer "
             f"{layer.cin}->{layer.cout} (contiguous bf16 required)")
-    sm90 = sm90_takes(layer.cin, layer.cout)
     lib = build.library()
-    fn = lib.uvt_conv3x3_chain_layer_sm90 if sm90 else lib.uvt_conv3x3_chain_layer
+    weights = layer.wmat
+    fn = {"sm90": lib.uvt_conv3x3_chain_layer_sm90,
+          "narrow": lib.uvt_conv3x3_chain_layer_narrow_sm90,
+          "wmma": lib.uvt_conv3x3_chain_layer}[kernel]
+    if kernel == "narrow":
+        weights = layer.wpack
+        _, ncol, _, atoms = narrow_plan(layer.cin, layer.cout)
+        if (weights is None or weights.dtype != torch.bfloat16
+                or weights.device != src.device or not weights.is_contiguous()
+                or weights.numel() != 3 * atoms * ncol * 64
+                or weights.data_ptr() % 16):
+            raise ValueError(
+                f"layer {layer.cin}->{layer.cout}: the narrow kernel needs "
+                "its packed weights (ChainLayer.wpack from "
+                "pack_narrow_weights, contiguous bf16 on the input's device)")
     code = fn(
-        src.data_ptr(), dst.data_ptr(), layer.wmat.data_ptr(),
+        src.data_ptr(), dst.data_ptr(), weights.data_ptr(),
         layer.bias.data_ptr(), layer.slope.data_ptr(),
         n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
         torch.cuda.current_stream(src.device).cuda_stream,
     )
-    build.check(code, "conv3x3_chain sm90 layer launch" if sm90
-                else "conv3x3_chain layer launch")
+    build.check(code, f"conv3x3_chain {kernel} layer launch")
     conv3x3_chain.launches += 1
-    conv3x3_chain.launches_sm90 += sm90
+    conv3x3_chain.launches_sm90 += kernel != "wmma"
+    conv3x3_chain.launches_narrow += kernel == "narrow"
 
 
-def embed(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16
-          ) -> torch.Tensor:
-    """(N, H, W, C) -> ring-zeroed bordered (N, H+2, W+2, C) of ``dtype``."""
+def embed(x: torch.Tensor, dtype: torch.dtype = torch.bfloat16,
+          width: Optional[int] = None) -> torch.Tensor:
+    """(N, H, W, C) -> ring-zeroed bordered (N, H+2, W+2, ``width``) of
+    ``dtype`` (``width`` C by default; channels C.. are zero)."""
     n, h, w, c = x.shape
-    buf = torch.zeros((n, h + 2, w + 2, c), dtype=dtype, device=x.device)
-    buf[:, 1:h + 1, 1:w + 1, :] = x
+    buf = torch.zeros((n, h + 2, w + 2, width or c), dtype=dtype,
+                      device=x.device)
+    buf[:, 1:h + 1, 1:w + 1, :c] = x
     return buf
 
 
 def run_bordered(src: torch.Tensor, layers: Sequence,
                  launch: Callable[[torch.Tensor, torch.Tensor, object], None],
-                 dtypes: Optional[Sequence[torch.dtype]] = None
-                 ) -> torch.Tensor:
+                 dtypes: Optional[Sequence[torch.dtype]] = None,
+                 widths: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Launch each layer from bordered ``src`` into a ring-zeroed bordered
-    buffer of its width and ``dtypes[i]`` (bf16 by default); returns the
-    last.  A consumed input recycles as a later layer's output: its ring
-    is still zero and the next write covers its whole interior."""
+    buffer ``widths[i]`` channels wide (its cout by default) of
+    ``dtypes[i]`` (bf16 by default); returns the last.  A consumed input
+    recycles as a later layer's output: its ring is still zero and the
+    next write covers its whole interior."""
     n, hp, wp, _ = src.shape
     free: Dict[Tuple[int, torch.dtype], List[torch.Tensor]] = {}
     for i, layer in enumerate(layers):
         dt = dtypes[i] if dtypes else torch.bfloat16
-        pool = free.get((layer.cout, dt))
+        width = widths[i] if widths else layer.cout
+        pool = free.get((width, dt))
         dst = pool.pop() if pool else torch.zeros(
-            (n, hp, wp, layer.cout), dtype=dt, device=src.device)
+            (n, hp, wp, width), dtype=dt, device=src.device)
         launch(src, dst, layer)
         free.setdefault((src.shape[-1], src.dtype), []).append(src)
         src = dst
@@ -252,9 +355,25 @@ def conv3x3_chain(x: torch.Tensor, layers: Sequence[ChainLayer],
     _check_layers(layers, x.shape[-1])
     check_cuda(x, layers, [l.wmat for l in layers])
     h, w = x.shape[1:3]
-    out = run_bordered(embed(x), layers, launch_chain_layer)
-    return out[:, 1:h + 1, 1:w + 1, :].contiguous() if crop else out
+    cout = layers[-1].cout
+    out = run_bordered(embed(x, width=in_width(layers[0])), layers,
+                       _launch_adapted, widths=[out_width(l) for l in layers])
+    if crop:
+        return out[:, 1:h + 1, 1:w + 1, :cout].contiguous()
+    return out if out.shape[-1] == cout else out[..., :cout].contiguous()
+
+
+def _launch_adapted(src: torch.Tensor, dst: torch.Tensor,
+                    layer: ChainLayer) -> None:
+    """:func:`launch_chain_layer`, after giving a 3-channel ``src`` the
+    width the layer reads where its producer wrote another (the narrow
+    kernel's 8-wide buffer between it and the WMMA kernel, either way)."""
+    need = in_width(layer)
+    if src.shape[-1] != need:
+        src = F.pad(src[..., :layer.cin], (0, need - layer.cin)).contiguous()
+    launch_chain_layer(src, dst, layer)
 
 
 conv3x3_chain.launches = 0
 conv3x3_chain.launches_sm90 = 0
+conv3x3_chain.launches_narrow = 0
