@@ -9,6 +9,7 @@ path's shapes, and drives the ported paths end to end through
 contracts, counting kernel launches:
 
 - the default path: 2x Compact (K1 + K2), 4 frames per step, 1080p -> 4K;
+  its 4:2:0 contract writes the packed layout from K2's one launch;
 - ``-m r``: the 4x Valar RRDBNet at full width and depth (23 RRDBs, K5
   per dense block on its Hopper kernel ``csrc/rdb_block_sm90.cu``, K4 for
   conv_first, conv_trunk and conv_up1, one K1 chain for the last three
@@ -28,6 +29,19 @@ contracts, counting kernel launches:
 - ``-m sr=`` of a wide SRVGGNetCompact (nf 160, 4x), converted the same
   way: K4 per body conv (PReLU fused; the 160->160 body on sm90), one K3
   launch per step.
+
+K2 and K3 run on their Hopper kernels (``csrc/sr_tail_sm90.cu``: K2 on
+K1's narrow ring mainloop for Cf 64, K3 on K4's halo mainloop for Cf a
+multiple of 32 up to 192, at 2x and 4x) and every other shape on the WMMA
+kernels of ``csrc/sr_tail.cu``: ``[K2]`` holds K2 at the main path's
+4x1080p in every layout (planar, frames, model, yuv420 in both ranges)
+against its plain version, ``[K2_ab]`` times it beside its WMMA kernel,
+the plain version and cuDNN's bf16 conv of the same shape alone (a
+yardstick), ``[K2_yuv_ab]`` the fused 4:2:0 launch against planar +
+``yuv420_from_planar``; ``[K3]`` and ``[K3_ab]`` do the same for K3 at
+``K3_CASES``; every CLI run, ``--tta`` and ``[yuv420_step]`` check that
+each K2 and K3 launch ran on the Hopper kernel and no 4:2:0 pack ran
+outside it.
 
 - the conv-body research path: ``upscale_video_tpu_torch.tools.wino_bench``
   (cuDNN, K1, K7 row-Winograd) and ``tools.q8_bench`` (K8 int8, K1,
@@ -146,6 +160,9 @@ K4_SHAPES = ((3, 64, "none", H, W), (64, 32, "leaky", H, W),
              (12, 64, "none", 37, 53))
 K4_DENSE = ((64, 32), (96, 32), (128, 32), (160, 32), (192, 64))
 K3_CASES = ((64, 2), (64, 4), (160, 2), (160, 4))  # (Cf, s) at 4x1080p
+# the tails' layouts, (layout, full_range): yuv420 in both ranges
+TAIL_LAYOUTS = (("planar", False), ("frames", False), ("model", False),
+                ("yuv420", False), ("yuv420", True))
 TILES = (8, 576, 512)          # one 1080p frame: 2x4 tiles of 544x480 + halo
 # K1 after 17 layers: each layer rounds once to bf16 after an f32 sum whose
 # order differs from cuDNN's, so a value may land one bf16 ulp apart and
@@ -163,6 +180,10 @@ K1_LAYER_ATOL, K1_LAYER_RTOL = 2.0 ** -10, 2.0 ** -7
 # one-rounding class above.
 K1_ANIME_ATOL, K1_ANIME_RTOL = 2.0 ** -10, 2.0 ** -7
 K2_MAX_LSB = 1                 # u8: an ulp-level difference at a boundary
+TAIL_YARDSTICK = ("cuDNN bf16 conv of the tail's shape alone (F.conv2d, "
+                  "channels-last): a yardstick, not the same function")
+# (yuv420: the pack of a planar byte one LSB away moves its 4:2:0 bytes by
+# at most one LSB; the pack itself equals yuv420_from_planar's arithmetic)
 E2E_MIN_PSNR = 40.0            # bf16 CUDA step vs the f32 plain path, dB
 # K5: a per-source piece may round one bf16 ulp away from the plain
 # version's (tensor-core vs cuDNN f32 summation order); through 0.2 * c5 it
@@ -326,10 +347,7 @@ def main() -> int:
         conv3x3_chain, conv3x3_chain_plain, embed, run_bordered,
     )
     from upscale_video_tpu_torch.ops.pixel import frames_to_model
-    from upscale_video_tpu_torch.ops.tail import (
-        LAYOUTS, sr_tail_chain, sr_tail_chain_plain, sr_tail_fused,
-        sr_tail_fused_plain,
-    )
+    from upscale_video_tpu_torch.ops.tail import sr_tail_chain, sr_tail_fused
 
     model = make_synthetic_model(scale=2, seed=0, device=dev)
     fwd = model.frames_forward("planar")
@@ -389,32 +407,9 @@ def main() -> int:
     k1_layer_ms = k1_sm90_phases(dev, errs)
     k1_shapes = k1_narrow_phases(dev, errs)
 
-    # K2 against its plain version on the same bordered K1 output
-    for layout in ("planar", "frames"):
-        got = sr_tail_chain(main_buf, main_x, tail.wmat, tail.bias, 2, layout)
-        want = sr_tail_chain_plain(main_buf, main_x, tail.wmat, tail.bias, 2,
-                                   layout)
-        torch.cuda.synchronize()
-        d = (got.int() - want.int()).abs()
-        worst = d.max().item()
-        say("K2", layout=layout, shape=tuple(got.shape), max_abs_err=worst,
-            frac_differ=f"{(d > 0).float().mean().item():.3e}",
-            bound=K2_MAX_LSB, ok=worst <= K2_MAX_LSB)
-        if worst > K2_MAX_LSB:
-            raise SystemExit(f"K2 ({layout}) disagrees with its plain version")
-        errs["K2"] = max(errs.get("K2", 0.0), float(worst))
-        del got, want, d
-    k2_ms = cuda_ms(lambda: sr_tail_chain(main_buf, main_x, tail.wmat,
-                                          tail.bias, 2, "planar"), 10)
-    k2_plain_ms = cuda_ms(lambda: sr_tail_chain_plain(
-        main_buf, main_x, tail.wmat, tail.bias, 2, "planar"), 3)
-    k2_bound = roofline(main_buf.numel() * 2 + main_x.numel() * 2
-                        + tail.wmat.numel() * 2 + tail.bias.numel() * 4
-                        + N * H * W * 12,
-                        {"bf16": 2 * 9 * main_buf.shape[-1] * 12 * N * H * W})
-    say("K2_time", ms=f"{k2_ms:.3f}", plain_ms=f"{k2_plain_ms:.3f}",
-        bound_ms=f"{k2_bound[0]:.3f}", bound_by=k2_bound[1],
-        per="one launch, 4x1080p -> planar u8")
+    # K2 against its plain version on the same bordered K1 output, in every
+    # layout, then timed beside its WMMA kernel, the plain version and cuDNN
+    k2_row = k2_phases(errs, main_buf, main_x, tail)
     del main_buf
     torch.cuda.empty_cache()
 
@@ -634,47 +629,9 @@ def main() -> int:
 
     k4_row = k4_phases(dev, errs)
 
-    # K3 against its plain version at 4x1080p in all three layouts: the
-    # wide SRVGG's tail (Cf 160) and a 64-wide one, at 2x and 4x
-    for cf, s in K3_CASES:
-        g = torch.Generator(device=dev).manual_seed(cf + s)
-        u = (torch.randn((N, H, W, cf), generator=g, device=dev) * 0.5
-             ).to(torch.bfloat16)
-        skip = torch.rand((N, H, W, 3), generator=g, device=dev).to(torch.bfloat16)
-        wmat = (torch.randn((9 * cf, 3 * s * s), generator=g, device=dev)
-                * 0.3 / (9 * cf) ** 0.5).to(torch.bfloat16)
-        bias = torch.randn((3 * s * s,), generator=g, device=dev) * 0.05
-        for layout in LAYOUTS:
-            got = sr_tail_fused(u, skip, wmat, bias, s, layout)
-            want = sr_tail_fused_plain(u, skip, wmat, bias, s, layout)
-            torch.cuda.synchronize()
-            worst = max((a.float() - b.float()).abs().max().item()
-                        for a, b in zip(got, want))
-            bound = K3_MODEL_ATOL if layout == "model" else K2_MAX_LSB
-            say("K3", shape=f"{N}x{H}x{W}x{cf}", scale=s, layout=layout,
-                max_abs_err=worst, bound=bound, ok=worst <= bound)
-            if worst > bound:
-                raise SystemExit(f"K3 ({layout}, Cf {cf}, s {s}) disagrees "
-                                 "with its plain version")
-            if layout != "model":
-                errs["K3"] = max(errs.get("K3", 0.0), worst)
-            del got, want
-        if (cf, s) == K3_CASES[-1]:
-            k3_args = (u, skip, wmat, bias, s, "planar")
-        else:
-            del u, skip
-        torch.cuda.empty_cache()
-    k3_ms = cuda_ms(lambda: sr_tail_fused(*k3_args), 10)
-    k3_plain_ms = cuda_ms(lambda: sr_tail_fused_plain(*k3_args), 2)
-    cf, s = K3_CASES[-1]
-    k3_bound = roofline(N * H * W * (2 * cf + 2 * 3 + 3 * s * s)
-                        + 9 * cf * 3 * s * s * 2 + 3 * s * s * 4,
-                        {"bf16": 2 * 9 * cf * 3 * s * s * N * H * W})
-    say("K3_time", ms=f"{k3_ms:.3f}", plain_ms=f"{k3_plain_ms:.3f}",
-        bound_ms=f"{k3_bound[0]:.3f}", bound_by=k3_bound[1],
-        per=f"one launch, {N}x1080p, Cf {cf}, 4x -> planar u8")
-    del k3_args, u, skip
-    torch.cuda.empty_cache()
+    # K3 against its plain version at 4x1080p in every layout: the wide
+    # SRVGG's tail (Cf 160) and a 64-wide one, at 2x and 4x; then timed
+    k3_row = k3_phases(dev, errs)
 
     # sr= imports: RealESRGAN_x4plus's architecture at full depth and at 2
     # RRDBs, and a wide SRVGGNetCompact, as state dicts made from a seed,
@@ -767,20 +724,20 @@ def main() -> int:
         raise SystemExit(f"sr={WIDE_STEM}: {len(wfwd.solos)} K4 convs planned")
     small = torch.from_numpy(np.stack(
         [write_frame(270, 480, t, rng) for t in range(N)])).to(dev)
-    k4, k4_sm90, k3 = (conv3x3_fused.launches, conv3x3_fused.launches_sm90,
-                       sr_tail_fused.launches)
+    k4, k4_sm90, k3, k3_sm90 = (conv3x3_fused.launches, conv3x3_fused.launches_sm90,
+                                sr_tail_fused.launches, sr_tail_fused.launches_sm90)
     out = weng.planar_step(small)
     torch.cuda.synchronize()
     launched = (conv3x3_fused.launches - k4, conv3x3_fused.launches_sm90 - k4_sm90,
-                sr_tail_fused.launches - k3)
+                sr_tail_fused.launches - k3, sr_tail_fused.launches_sm90 - k3_sm90)
     out = out.cpu().numpy()
     ref = plain_call(weng.planar_step, small).cpu().numpy()
     quality = psnr(out, ref)
     ok = (quality >= WIDE_MIN_PSNR
-          and launched == (WIDE_CONVS + 1, WIDE_CONVS, 1))
+          and launched == (WIDE_CONVS + 1, WIDE_CONVS, 1, 1))
     say("wide_srvgg_step_vs_plain", shape=out.shape, nf=WIDE_NF,
         k4_launches=launched[0], k4_sm90_launches=launched[1],
-        k3_launches=launched[2],
+        k3_launches=launched[2], k3_sm90_launches=launched[3],
         psnr_db=f"{quality:.2f}",
         max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
         bound=f">={WIDE_MIN_PSNR}dB", ok=ok)
@@ -805,7 +762,25 @@ def main() -> int:
     counters = {"K1": conv3x3_chain, "K2": sr_tail_chain, "K3": sr_tail_fused,
                 "K4": conv3x3_fused, "K5": rdb_block, "K6": nl_means_denoise}
     launches = dict.fromkeys(
-        [*counters, "K1_sm90", "K1_narrow", "K4_sm90", "K5_sm90"], 0)
+        [*counters, "K1_sm90", "K1_narrow", "K2_sm90", "K3_sm90", "K4_sm90",
+         "K5_sm90", "yuv_composed"], 0)
+
+    def tail_counts(k):
+        """K2's and K3's Hopper shares and their composed 4:2:0 packs."""
+        k["K2_sm90"] = sr_tail_chain.launches_sm90
+        k["K3_sm90"] = sr_tail_fused.launches_sm90
+        k["yuv_composed"] = sr_tail_chain.yuv_composed + sr_tail_fused.yuv_composed
+        return k
+
+    def zero_tail_counts():
+        for fn in (sr_tail_chain, sr_tail_fused):
+            fn.launches_sm90 = fn.yuv_composed = 0
+
+    def tails_on_hopper(k):
+        """Every K2 and K3 launch of a product path on its Hopper kernel,
+        every 4:2:0 pack folded into it."""
+        return (k["K2_sm90"] == k["K2"] and k["K3_sm90"] == k["K3"]
+                and k["yuv_composed"] == 0)
     e2e = {}
 
     def drive(tmp, name, c420, frames, rate, extra, synthetic=True):
@@ -818,6 +793,7 @@ def main() -> int:
             fn.launches = 0
         conv3x3_chain.launches_sm90 = conv3x3_fused.launches_sm90 = 0
         conv3x3_chain.launches_narrow = rdb_block.launches_sm90 = 0
+        zero_tail_counts()
         t0 = time.perf_counter()
         rc = cli_main(["-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
                        *(["--synthetic_models"] if synthetic else []), *extra])
@@ -827,6 +803,7 @@ def main() -> int:
         counts["K1_narrow"] = conv3x3_chain.launches_narrow
         counts["K4_sm90"] = conv3x3_fused.launches_sm90
         counts["K5_sm90"] = rdb_block.launches_sm90
+        tail_counts(counts)
         for k, v in counts.items():
             launches[k] += v
         with Y4MSource(out_path) as o:
@@ -837,7 +814,7 @@ def main() -> int:
         left = sorted(os.listdir(os.path.join(work, "upscale_video")))
         frags = seen_fragments[-1]
         os.remove(out_path)
-        ok = (rc == 0 and count == frames
+        ok = (rc == 0 and count == frames and tails_on_hopper(counts)
               and cs.startswith("C420" if c420 else "C444")
               and "1.y4m" in frags and "2.y4m" in frags
               and "metadata.json" in frags
@@ -862,7 +839,8 @@ def main() -> int:
             say("e2e", path="default", clip=name, out=f"{geom[0]}x{geom[1]}",
                 colorspace=cs, frames=count, steps=steps, k1_launches=k["K1"],
                 k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
-                k2_launches=k["K2"], k5_launches=k["K5"],
+                k2_launches=k["K2"], k2_sm90_launches=k["K2_sm90"],
+                yuv_composed=k["yuv_composed"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
             if not ok:
@@ -915,7 +893,8 @@ def main() -> int:
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=steps, k6_launches=k["K6"], k1_launches=k["K1"],
                 k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
-                k2_launches=k["K2"], k5_launches=k["K5"],
+                k2_launches=k["K2"], k2_sm90_launches=k["K2_sm90"],
+                yuv_composed=k["yuv_composed"], k5_launches=k["K5"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.2f}", ok=ok)
             if not ok:
@@ -966,6 +945,7 @@ def main() -> int:
                 out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
                 steps=wsteps, k4_launches=k["K4"],
                 k4_sm90_launches=k["K4_sm90"], k3_launches=k["K3"],
+                k3_sm90_launches=k["K3_sm90"], yuv_composed=k["yuv_composed"],
                 k1_launches=k["K1"], k2_launches=k["K2"],
                 fragments_before_concat=frags, workdir_after=left,
                 wall_s=f"{wall:.2f}", wall_fps=f"{e2e[name]:.3f}", ok=ok)
@@ -983,6 +963,20 @@ def main() -> int:
         rng.integers(0, 256, (N, H * W * 3 // 2), dtype=np.uint8)).to(dev)
     yuv = eng.yuv_step(True, planar=True, i420_in=(H, W, True))
     pyuv = peng.yuv_step(True, planar=True, i420_in=(H, W, True))
+    # the default 4:2:0 step: the tail writes the packed layout in its one
+    # Hopper launch, no yuv420_from_planar
+    zero_tail_counts()
+    k2_before = sr_tail_chain.launches
+    packed = yuv(flat)
+    torch.cuda.synchronize()
+    k = tail_counts({"K2": sr_tail_chain.launches - k2_before, "K3": 0})
+    ok = (k["K2"] == 1 and tails_on_hopper(k)
+          and tuple(packed.shape) == (N, H, W, 6))
+    say("yuv420_step", shape=tuple(packed.shape), k2_launches=k["K2"],
+        k2_sm90_launches=k["K2_sm90"], yuv_composed=k["yuv_composed"], ok=ok)
+    if not ok:
+        raise SystemExit("the default 4:2:0 step did not fold the pack into K2")
+    del packed
 
     # --tta: one 1080p frame of the default step, 8 dihedral passes (K1
     # and K2's f32 layout at 1080x1920 and 1920x1080), against the same
@@ -991,9 +985,10 @@ def main() -> int:
     for fn in counters.values():
         fn.launches = 0
     conv3x3_chain.launches_sm90 = conv3x3_chain.launches_narrow = 0
+    zero_tail_counts()
     out = teng.step(frames[:1])
     torch.cuda.synchronize()
-    k = {name: fn.launches for name, fn in counters.items()}
+    k = tail_counts({name: fn.launches for name, fn in counters.items()})
     k["K1_sm90"] = conv3x3_chain.launches_sm90
     k["K1_narrow"] = conv3x3_chain.launches_narrow
     out = out.cpu().numpy()
@@ -1001,10 +996,10 @@ def main() -> int:
     quality = psnr(out, ref)
     ok = (quality >= TTA_MIN_PSNR and out.shape == (1, 2 * H, 2 * W, 3)
           and k["K1"] == 8 * 17 and k["K1_sm90"] == 8 * COMPACT_HOPPER
-          and k["K1_narrow"] == 8 and k["K2"] == 8)
+          and k["K1_narrow"] == 8 and k["K2"] == 8 and tails_on_hopper(k))
     say("tta", shape=out.shape, k1_launches=k["K1"],
         k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
-        k2_launches=k["K2"],
+        k2_launches=k["K2"], k2_sm90_launches=k["K2_sm90"],
         psnr_vs_plain_db=f"{quality:.2f}",
         max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
         bound=f">={TTA_MIN_PSNR}dB", ok=ok)
@@ -1104,9 +1099,11 @@ def main() -> int:
     # library_ms: K1's is cuDNN's bf16 conv (F.conv2d with bias, one call
     # per layer, channels-last) over the same 17 layers, without the
     # PReLUs; K4's the same over one ESRGAN dense block's five convs,
-    # without the leaky ReLUs; K2, K3, K5 and K6 have no PyTorch call
-    # computing their function; K7's is the same cuDNN call over the 16-layer
-    # conv body; PyTorch has no int8 convolution on CUDA for K8
+    # without the leaky ReLUs; K2's and K3's the tail conv alone on cuDNN,
+    # a yardstick (no PyTorch call computes their function: skip, shuffle,
+    # u8 or 4:2:0); K5 and K6 have no PyTorch call computing their
+    # function; K7's is the same cuDNN call over the 16-layer conv body;
+    # PyTorch has no int8 convolution on CUDA for K8
     model_dir.cleanup()
     kernels = [
         {"name": "conv3x3_chain", "route": "cuda",
@@ -1125,17 +1122,19 @@ def main() -> int:
          "anime_library_ms": a_lib_ms, "anime_bound_ms": a_bound,
          "anime_bound_by": "bytes", "shapes": k1_shapes},
         {"name": "sr_tail_chain", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/sr_tail.cu",
+         "source": "upscale_video_tpu_torch/csrc/sr_tail_sm90.cu",
+         "source_sm90": "upscale_video_tpu_torch/csrc/sr_tail_sm90.cu",
+         "source_wmma": "upscale_video_tpu_torch/csrc/sr_tail.cu",
          "replaces": "upscale_video_tpu/ops/tail_pallas.py:155",
-         "launches": launches["K2"], "max_abs_err": errs["K2"],
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "launches": launches["K2"], "launches_sm90": launches["K2_sm90"],
+         "max_abs_err": errs["K2"], **k2_row, "library_call": TAIL_YARDSTICK},
         {"name": "sr_tail_fused", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/sr_tail.cu",
+         "source": "upscale_video_tpu_torch/csrc/sr_tail_sm90.cu",
+         "source_sm90": "upscale_video_tpu_torch/csrc/sr_tail_sm90.cu",
+         "source_wmma": "upscale_video_tpu_torch/csrc/sr_tail.cu",
          "replaces": "upscale_video_tpu/ops/tail_pallas.py:31",
-         "launches": launches["K3"], "max_abs_err": errs["K3"],
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound[0],
-         "bound_by": k3_bound[1], "library_ms": None},
+         "launches": launches["K3"], "launches_sm90": launches["K3_sm90"],
+         "max_abs_err": errs["K3"], **k3_row, "library_call": TAIL_YARDSTICK},
         {"name": "conv3x3_fused", "route": "cuda",
          "source": "upscale_video_tpu_torch/csrc/conv3x3_fused_sm90.cu",
          "source_wmma": "upscale_video_tpu_torch/csrc/conv3x3_fused.cu",
@@ -1198,8 +1197,13 @@ def plain_kernels():
     )
     from upscale_video_tpu_torch.pipeline import chain
 
+    def tail_chain_plain(buf, skip, wmat, bias, scale, layout="planar",
+                         full_range=False, wpack=None):
+        return tail.sr_tail_chain_plain(buf, skip, wmat, bias, scale, layout,
+                                        full_range)
+
     swaps = [(executor, "conv3x3_chain", conv_chain.conv3x3_chain_plain),
-             (executor, "sr_tail_chain", tail.sr_tail_chain_plain),
+             (executor, "sr_tail_chain", tail_chain_plain),
              (executor, "sr_tail_fused", tail.sr_tail_fused_plain),
              (executor, "conv3x3_fused", conv3x3.conv3x3_fused_plain),
              (executor, "rdb_block", rdb.rdb_block_plain),
@@ -1224,6 +1228,163 @@ def plain_call(fn, *args):
     """``fn(*args)`` with every kernel swapped for its plain version."""
     with plain_kernels():
         return fn(*args)
+
+
+def tail_check(name, got, want, **where) -> float:
+    """One tail layout against its plain version: u8 within K2_MAX_LSB,
+    f32 within K3_MODEL_ATOL; prints the share of values that differ."""
+    import torch
+
+    torch.cuda.synchronize()
+    layout = where["layout"]
+    bound = K3_MODEL_ATOL if layout == "model" else K2_MAX_LSB
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SystemExit(f"{name} ({layout}) returned {tuple(got.shape)}/{got.dtype}, "
+                         f"not {tuple(want.shape)}/{want.dtype}")
+    worst, differ = 0.0, 0
+    for g, w in zip(got, want):  # one frame at a time to bound memory
+        d = (g.float() - w.float()).abs()
+        worst = max(worst, d.max().item())
+        differ += int((d > 0).sum().item())
+    ok = worst <= bound and bool(torch.isfinite(got.float()).all())
+    say(name, **where, shape=tuple(got.shape), max_abs_err=worst,
+        frac_differ=f"{differ / got.numel():.3e}", bound=bound, ok=ok)
+    if not ok:
+        raise SystemExit(f"{name} ({where}) disagrees with its plain version")
+    return worst
+
+
+def k2_phases(errs, buf, x, tail) -> dict:
+    """[K2]: K2's Hopper kernel against its plain version on the main path's
+    bordered K1 output (4x1080p, Cf 64, 2x) in every layout; [K2_ab]: the
+    planar launch on the Hopper kernel, the WMMA kernel (called directly),
+    the plain version and, as a yardstick, cuDNN's bf16 conv of the same
+    shape alone (it is not the same function: no skip, shuffle or u8);
+    [K2_yuv_ab]: the fused yuv420 launch against the planar launch followed
+    by yuv420_from_planar (Hopper and WMMA)."""
+    import torch
+    import torch.nn.functional as F
+
+    from upscale_video_tpu_torch.kernels import build
+    from upscale_video_tpu_torch.ops.tail import sr_tail_chain, sr_tail_chain_plain
+    from upscale_video_tpu_torch.ops.yuv import yuv420_from_planar
+
+    args = (buf, x, tail.wmat, tail.bias, 2)
+    for layout, full in TAIL_LAYOUTS:
+        before = sr_tail_chain.launches_sm90
+        got = sr_tail_chain(*args, layout, full, tail.wpack_tail)
+        if sr_tail_chain.launches_sm90 != before + 1:
+            raise SystemExit("K2 at Cf 64 did not run on its Hopper kernel")
+        worst = tail_check("K2", got, sr_tail_chain_plain(*args, layout, full),
+                           layout=layout, full_range=full, kernel="sm90")
+        if layout != "model":
+            errs["K2"] = max(errs.get("K2", 0.0), worst)
+        del got
+    n, hp, wp, cf = buf.shape
+    h, w = hp - 2, wp - 2
+    planar = torch.empty((n, h, w, 12), dtype=torch.uint8, device=buf.device)
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def wmma():
+        build.check(lib.uvt_sr_tail(buf.data_ptr(), x.data_ptr(), tail.wmat.data_ptr(),
+                                    tail.bias.data_ptr(), planar.data_ptr(), n, h, w, cf,
+                                    2, 0, stream), "sr_tail (WMMA)")
+        return planar
+
+    w_cl, b16 = conv_weight_cl(tail.wmat), tail.bias.to(torch.bfloat16)
+    sm90 = lambda layout="planar", full=False: sr_tail_chain(  # noqa: E731
+        *args, layout, full, tail.wpack_tail)
+    ms = cuda_ms(sm90, 20)
+    ms_wmma = cuda_ms(wmma, 10)
+    plain_ms = cuda_ms(lambda: sr_tail_chain_plain(*args, "planar"), 3)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(buf.permute(0, 3, 1, 2), w_cl, b16), 10)
+    ms_again = cuda_ms(sm90, 20)
+    fixed = buf.numel() * 2 + x.numel() * 2 + tail.wmat.numel() * 2 + tail.bias.numel() * 4
+    flop = {"bf16": 2 * 9 * cf * 12 * n * h * w}
+    bound = roofline(fixed + n * h * w * 12, flop)
+    say("K2_ab", ms=f"{ms:.4f}", ms_again=f"{ms_again:.4f}", wmma_ms=f"{ms_wmma:.4f}",
+        plain_ms=f"{plain_ms:.4f}", cudnn_yardstick_ms=f"{cudnn_ms:.4f}",
+        bound_ms=f"{bound[0]:.4f}", bound_by=bound[1], share=f"{bound[0] / ms:.3f}",
+        per="one launch, 4x1080p, Cf 64 -> planar u8 (cuDNN: the 64->12 conv alone)")
+    yuv_ms = cuda_ms(lambda: sm90("yuv420", True), 20)
+    composed_ms = cuda_ms(lambda: yuv420_from_planar(sm90(), 2, True), 10)
+    wmma_composed_ms = cuda_ms(lambda: yuv420_from_planar(wmma(), 2, True), 10)
+    yuv_bound = roofline(fixed + n * h * w * 6, flop)
+    say("K2_yuv_ab", fused_ms=f"{yuv_ms:.4f}", planar_then_pack_ms=f"{composed_ms:.4f}",
+        wmma_planar_then_pack_ms=f"{wmma_composed_ms:.4f}",
+        bound_ms=f"{yuv_bound[0]:.4f}", bound_by=yuv_bound[1],
+        share=f"{yuv_bound[0] / yuv_ms:.3f}",
+        per="4x1080p -> packed 4:2:0 u8, full range")
+    return {"ms": ms, "ms_wmma": ms_wmma, "plain_ms": plain_ms, "library_ms": cudnn_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "yuv420_ms": yuv_ms,
+            "yuv420_composed_ms": composed_ms, "yuv420_bound_ms": yuv_bound[0]}
+
+
+def k3_phases(dev, errs) -> dict:
+    """[K3]: K3's Hopper kernel against its plain version at 4x1080p for
+    each K3_CASES tail in every layout; [K3_ab]: the nf-160 import's
+    160 -> 48 tail (planar) on the Hopper kernel, the WMMA kernel (called
+    directly), the plain version and cuDNN's bf16 conv of the same shape
+    alone as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from upscale_video_tpu_torch.kernels import build
+    from upscale_video_tpu_torch.ops.tail import sr_tail_fused, sr_tail_fused_plain
+
+    for cf, s in K3_CASES:
+        g = torch.Generator(device=dev).manual_seed(cf + s)
+        u = (torch.randn((N, H, W, cf), generator=g, device=dev) * 0.5
+             ).to(torch.bfloat16)
+        skip = torch.rand((N, H, W, 3), generator=g, device=dev).to(torch.bfloat16)
+        wmat = (torch.randn((9 * cf, 3 * s * s), generator=g, device=dev)
+                * 0.3 / (9 * cf) ** 0.5).to(torch.bfloat16)
+        bias = torch.randn((3 * s * s,), generator=g, device=dev) * 0.05
+        args = (u, skip, wmat, bias, s)
+        for layout, full in TAIL_LAYOUTS:
+            before = sr_tail_fused.launches_sm90
+            got = sr_tail_fused(*args, layout, full)
+            if sr_tail_fused.launches_sm90 != before + 1:
+                raise SystemExit(f"K3 at Cf {cf} did not run on its Hopper kernel")
+            worst = tail_check("K3", got, sr_tail_fused_plain(*args, layout, full),
+                               cf=cf, scale=s, layout=layout, full_range=full)
+            if layout != "model":
+                errs["K3"] = max(errs.get("K3", 0.0), worst)
+            del got
+        if (cf, s) != K3_CASES[-1]:
+            del u, skip, args
+        torch.cuda.empty_cache()
+    cf, s = K3_CASES[-1]
+    planar = torch.empty((N, H, W, 3 * s * s), dtype=torch.uint8, device=dev)
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def wmma():
+        build.check(lib.uvt_sr_tail_plain(u.data_ptr(), skip.data_ptr(), wmat.data_ptr(),
+                                          bias.data_ptr(), planar.data_ptr(), N, H, W,
+                                          cf, s, 0, stream), "sr_tail_plain (WMMA)")
+
+    w_cl, b16 = conv_weight_cl(wmat), bias.to(torch.bfloat16)
+    ms = cuda_ms(lambda: sr_tail_fused(*args, "planar"), 10)
+    ms_wmma = cuda_ms(wmma, 5)
+    plain_ms = cuda_ms(lambda: sr_tail_fused_plain(*args, "planar"), 2)
+    cudnn_ms = cuda_ms(lambda: cudnn_conv(u, w_cl, b16), 10)
+    ms_again = cuda_ms(lambda: sr_tail_fused(*args, "planar"), 10)
+    yuv_ms = cuda_ms(lambda: sr_tail_fused(*args, "yuv420", True), 10)
+    bound = roofline(N * H * W * (2 * cf + 2 * 3 + 3 * s * s)
+                     + 9 * cf * 3 * s * s * 2 + 3 * s * s * 4,
+                     {"bf16": 2 * 9 * cf * 3 * s * s * N * H * W})
+    say("K3_ab", ms=f"{ms:.4f}", ms_again=f"{ms_again:.4f}", wmma_ms=f"{ms_wmma:.4f}",
+        plain_ms=f"{plain_ms:.4f}", cudnn_yardstick_ms=f"{cudnn_ms:.4f}",
+        yuv420_ms=f"{yuv_ms:.4f}", bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+        share=f"{bound[0] / ms:.3f}",
+        per=f"one launch, {N}x1080p, Cf {cf}, {s}x -> planar u8 (cuDNN: the "
+            f"{cf}->{3 * s * s} conv alone)")
+    del u, skip, args, planar
+    torch.cuda.empty_cache()
+    return {"ms": ms, "ms_wmma": ms_wmma, "plain_ms": plain_ms, "library_ms": cudnn_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "yuv420_ms": yuv_ms}
 
 
 def k1_sm90_phases(dev, errs) -> float:

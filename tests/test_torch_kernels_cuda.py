@@ -118,25 +118,133 @@ def test_chain_kernel_matches_plain(dev, specs):
     assert _ring_is_zero(got)
 
 
-@pytest.mark.parametrize("s", [2, 4])
-@pytest.mark.parametrize("layout", ["planar", "frames", "model"])
-def test_tail_kernel_matches_plain(dev, s, layout):
-    rng = np.random.default_rng(2)
-    n, h, w, cf = 2, 37, 53, 64
+TAIL_LAYOUTS = [("planar", False), ("frames", False), ("model", False),
+                ("yuv420", False), ("yuv420", True)]
+
+
+def _tail_inputs(rng, n, h, w, cf, s, dev, bordered):
     inner = torch.from_numpy(rng.normal(0, 0.5, (n, h, w, cf)).astype(np.float32))
-    buf = torch.nn.functional.pad(inner, (0, 0, 1, 1, 1, 1)).to(dev, torch.bfloat16)
-    skip = torch.from_numpy(rng.uniform(0, 1, (n, h, w, 3)).astype(np.float32)
-                            ).to(dev, torch.bfloat16)
-    wmat = torch.from_numpy(rng.normal(0, 0.05, (9 * cf, 3 * s * s))
-                            .astype(np.float32)).to(dev, torch.bfloat16)
-    bias = torch.from_numpy(rng.normal(0, 0.05, (3 * s * s,))
-                            .astype(np.float32)).to(dev)
-    got = sr_tail_chain(buf, skip, wmat, bias, s, layout)
-    torch.cuda.synchronize()
-    want = sr_tail_chain_plain(buf, skip, wmat, bias, s, layout)
+    x = torch.nn.functional.pad(inner, (0, 0, 1, 1, 1, 1)) if bordered else inner
+    skip = torch.from_numpy(rng.uniform(0, 1, (n, h, w, 3)).astype(np.float32))
+    wmat = torch.from_numpy(rng.normal(0, 0.3 / np.sqrt(9 * cf), (9 * cf, 3 * s * s))
+                            .astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.05, (3 * s * s,)).astype(np.float32))
+    return (x.to(dev, torch.bfloat16), skip.to(dev, torch.bfloat16),
+            wmat.to(dev, torch.bfloat16), bias.to(dev))
+
+
+def _tail_close(got, want, layout):
     assert got.shape == want.shape and got.dtype == want.dtype
     diff = (got.float() - want.float()).abs().max().item()
     assert diff <= (1e-4 if layout == "model" else 1.0)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 1, 70), (3, 9, 130)])
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("layout,full", TAIL_LAYOUTS)
+def test_tail_kernel_matches_plain(dev, shape, s, layout, full):
+    """K2 on its Hopper kernel (Cf 64) in every layout, ragged frames (W no
+    multiple of the 64-wide tile, H none of its rows) and a one-row one."""
+    from upscale_video_tpu_torch.ops.tail import pack_tail_weights
+
+    buf, skip, wmat, bias = _tail_inputs(np.random.default_rng(2), *shape, 64, s, dev,
+                                         bordered=True)
+    before = (sr_tail_chain.launches, sr_tail_chain.launches_sm90)
+    got = sr_tail_chain(buf, skip, wmat, bias, s, layout, full,
+                        pack_tail_weights(wmat, s))
+    torch.cuda.synchronize()
+    assert (sr_tail_chain.launches - before[0],
+            sr_tail_chain.launches_sm90 - before[1]) == (1, 1)
+    _tail_close(got, sr_tail_chain_plain(buf, skip, wmat, bias, s, layout, full), layout)
+
+
+@pytest.mark.parametrize("layout,full", TAIL_LAYOUTS)
+def test_wmma_tail_composes_yuv420(dev, layout, full):
+    """A Cf the Hopper kernel does not take runs the WMMA kernel; its
+    ``yuv420`` is the planar launch then yuv420_from_planar, counted."""
+    buf, skip, wmat, bias = _tail_inputs(np.random.default_rng(3), 2, 21, 35, 48, 2, dev,
+                                         bordered=True)
+    before = (sr_tail_chain.launches, sr_tail_chain.launches_sm90,
+              sr_tail_chain.yuv_composed)
+    got = sr_tail_chain(buf, skip, wmat, bias, 2, layout, full)
+    torch.cuda.synchronize()
+    assert (sr_tail_chain.launches - before[0], sr_tail_chain.launches_sm90 - before[1],
+            sr_tail_chain.yuv_composed - before[2]) == (1, 0, int(layout == "yuv420"))
+    _tail_close(got, sr_tail_chain_plain(buf, skip, wmat, bias, 2, layout, full), layout)
+
+
+def test_hopper_tails_refuse_bad_shapes(dev):
+    """The C entries refuse what their kernels do not take (the wrapper
+    raises, nothing runs); K2's Hopper tail refuses a call without its
+    packed weights."""
+    lib = build.library()
+    buf, skip, wmat, bias = _tail_inputs(np.random.default_rng(4), 1, 9, 20, 64, 2, dev,
+                                         bordered=True)
+    out = torch.empty((1, 9, 20, 12), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for scale, layout in ((3, 0), (2, 4)):
+        code = lib.uvt_sr_tail_sm90(buf.data_ptr(), skip.data_ptr(), wmat.data_ptr(),
+                                    bias.data_ptr(), out.data_ptr(), 1, 9, 20, scale,
+                                    layout, 0, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(code, "sr_tail_sm90")
+    u = buf[:, 1:-1, 1:-1, :].contiguous()
+    for cin in (48, 224):
+        code = lib.uvt_sr_tail_plain_sm90(u.data_ptr(), skip.data_ptr(), wmat.data_ptr(),
+                                          bias.data_ptr(), out.data_ptr(), 1, 9, 20, cin,
+                                          2, 0, 0, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(code, "sr_tail_plain_sm90")
+    before = sr_tail_chain.launches
+    with pytest.raises(ValueError, match="packed weights"):
+        sr_tail_chain(buf, skip, wmat, bias, 2)
+    assert sr_tail_chain.launches == before
+
+
+def test_hopper_tails_raise_when_the_build_fails(dev, monkeypatch, tmp_path):
+    """No nvcc: both Hopper tails raise; neither runs the WMMA kernel nor
+    the plain version."""
+    from upscale_video_tpu_torch.ops.tail import pack_tail_weights
+
+    buf, skip, wmat, bias = _tail_inputs(np.random.default_rng(5), 1, 9, 20, 64, 2, dev,
+                                         bordered=True)
+    wpack = pack_tail_weights(wmat, 2)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "library_path", lambda: tmp_path / "missing.so")
+    monkeypatch.setattr(build, "find_nvcc", no_nvcc)
+    before = (sr_tail_chain.launches, sr_tail_fused.launches)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sr_tail_chain(buf, skip, wmat, bias, 2, "yuv420", True, wpack)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sr_tail_fused(buf[:, 1:-1, 1:-1, :].contiguous(), skip, wmat, bias, 2)
+    assert (sr_tail_chain.launches, sr_tail_fused.launches) == before
+
+
+def test_hopper_tails_raise_when_a_launch_fails(dev, monkeypatch):
+    """A launch the runtime refuses raises: no quiet WMMA or plain retry."""
+    from upscale_video_tpu_torch.ops.tail import pack_tail_weights
+
+    lib = build.library()
+    buf, skip, wmat, bias = _tail_inputs(np.random.default_rng(6), 1, 9, 20, 64, 4, dev,
+                                         bordered=True)
+
+    class Refusing:
+        def __getattr__(self, name):
+            if name.startswith("uvt_sr_tail"):
+                return lambda *args: 1  # cudaErrorInvalidValue
+            return getattr(lib, name)
+
+    monkeypatch.setattr(build, "library", lambda: Refusing())
+    before = (sr_tail_chain.launches, sr_tail_fused.launches)
+    with pytest.raises(RuntimeError, match="uvt_sr_tail_sm90 launch"):
+        sr_tail_chain(buf, skip, wmat, bias, 4, "planar", False, pack_tail_weights(wmat, 4))
+    with pytest.raises(RuntimeError, match="uvt_sr_tail_plain_sm90 launch"):
+        sr_tail_fused(buf[:, 1:-1, 1:-1, :].contiguous(), skip, wmat, bias, 4, "model")
+    assert (sr_tail_chain.launches, sr_tail_fused.launches) == before
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 128), (2, 37, 53), (1, 67, 130)])
@@ -212,6 +320,7 @@ def test_engine_step_launches_each_kernel(dev):
     frames = torch.randint(0, 256, (4, 24, 40, 3), dtype=torch.uint8)
     k1, k2 = conv3x3_chain.launches, sr_tail_chain.launches
     sm90, narrow = conv3x3_chain.launches_sm90, conv3x3_chain.launches_narrow
+    k2_sm90 = sr_tail_chain.launches_sm90
     out = eng.planar_step(frames)
     torch.cuda.synchronize()
     assert tuple(out.shape) == (4, 24, 40, 12)
@@ -219,6 +328,7 @@ def test_engine_step_launches_each_kernel(dev):
     assert conv3x3_chain.launches_sm90 - sm90 == 17  # all on Hopper
     assert conv3x3_chain.launches_narrow - narrow == 1  # the 3 -> 64 head
     assert sr_tail_chain.launches - k2 == 1
+    assert sr_tail_chain.launches_sm90 - k2_sm90 == 1  # the tail on Hopper
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -400,6 +510,43 @@ def test_plain_input_tail_kernel_matches_plain(dev, cf, s, layout):
     assert diff <= (1e-4 if layout == "model" else 1.0)
 
 
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 1, 70)])
+@pytest.mark.parametrize("cin", [64, 96, 160, 192])
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("layout,full", TAIL_LAYOUTS)
+def test_plain_input_tail_sm90_matches_plain(dev, shape, cin, s, layout, full):
+    """K3 on its Hopper kernel at K4's Hopper cin set (half slices at 96
+    and 160; one consumer at s 4 above cin 128) in every layout."""
+    u, skip, wmat, bias = _tail_inputs(np.random.default_rng(cin * s), *shape, cin, s,
+                                       dev, bordered=False)
+    before = (sr_tail_fused.launches, sr_tail_fused.launches_sm90)
+    got = sr_tail_fused(u, skip, wmat, bias, s, layout, full)
+    torch.cuda.synchronize()
+    assert (sr_tail_fused.launches - before[0],
+            sr_tail_fused.launches_sm90 - before[1]) == (1, 1)
+    _tail_close(got, sr_tail_fused_plain(u, skip, wmat, bias, s, layout, full), layout)
+
+
+def test_yuv_step_runs_tail_and_pack_in_one_launch(dev, monkeypatch):
+    """The default 4:2:0 step (I420 in, planar) ends in one K2 launch on
+    its Hopper kernel writing the packed layout: no yuv420_from_planar."""
+    from upscale_video_tpu_torch.ops import tail as tail_ops
+    from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
+
+    def refused(*args, **kwargs):
+        raise AssertionError("yuv420_from_planar ran on the default 4:2:0 step")
+
+    eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True)
+    flat = torch.randint(0, 256, (4, 24 * 40 * 3 // 2), dtype=torch.uint8)
+    monkeypatch.setattr(tail_ops, "yuv420_from_planar", refused)
+    before = (sr_tail_chain.launches, sr_tail_chain.launches_sm90)
+    out = eng.yuv_step(True, planar=True, i420_in=(24, 40, True))(flat)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (4, 24, 40, 6) and out.dtype == torch.uint8
+    assert (sr_tail_chain.launches - before[0],
+            sr_tail_chain.launches_sm90 - before[1]) == (1, 1)
+
+
 def test_esrgan_forward_runs_every_solo_3x3_conv_on_k4(dev, monkeypatch):
     """A 1-RRDB basicsr RRDBNet on the card: its 18 solo 3x3 convs are K4
     launches, its last three one K1 chain, and no SAME 3x3 conv reaches
@@ -494,11 +641,13 @@ def test_wide_srvgg_step_launches_k4_and_k3(dev):
 
     g = make_srvgg_graph(scale=4, num_conv=2, num_feat=160)
     model = Model("wide", 4, g, synthesize_weights(g, seed=0), dev)
-    k4, k3 = conv3x3_fused.launches, sr_tail_fused.launches
+    k4, k3, k3_sm90 = (conv3x3_fused.launches, sr_tail_fused.launches,
+                       sr_tail_fused.launches_sm90)
     out = model(torch.rand(2, 12, 16, 3, device=dev), "planar")
     torch.cuda.synchronize()
     assert tuple(out.shape) == (2, 12, 16, 48) and out.dtype == torch.uint8
     assert conv3x3_fused.launches - k4 == 3 and sr_tail_fused.launches - k3 == 1
+    assert sr_tail_fused.launches_sm90 - k3_sm90 == 1  # 160 -> 48 on Hopper
 
 
 def _wino_layers(rng, specs, dev):

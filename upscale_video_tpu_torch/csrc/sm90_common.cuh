@@ -1,11 +1,11 @@
 // PTX wrappers and host helpers shared by the Hopper (sm_90a) kernels:
 // conv3x3_chain_sm90.cu (K1's 64->64 layer), conv3x3_chain_narrow_sm90.cu
-// (K1's narrow shapes), conv3x3_fused_sm90.cu (K4), rdb_block_sm90.cu (K5)
-// and conv_winograd_sm90.cu (K7's 64->64 layer).
+// (K1's narrow shapes), conv3x3_fused_sm90.cu (K4), rdb_block_sm90.cu (K5),
+// conv_winograd_sm90.cu (K7's 64->64 layer) and sr_tail_sm90.cu (K2, K3).
 // Device code: shared-memory addresses,
-// mbarriers, named barriers, TMA and bulk copies, ldmatrix, the wgmma
+// mbarriers, named barriers, TMA, bulk and 4-byte async copies, ldmatrix, the wgmma
 // fences, groups and m64nNk16 MMAs with A from registers (N 8, 16, 24, 32,
-// 64), the B128 operand descriptor, the epilogues' activation.  Host code:
+// 48, 64), the B128 operand descriptor, the epilogues' activation.  Host code:
 // cuTensorMapEncodeTiled through the runtime.
 // Each source includes this header and names the namespace with a using
 // directive inside its own namespace.
@@ -116,6 +116,27 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// A 4-byte asynchronous copy global -> shared (cp.async, both addresses
+// 4-byte aligned), its group commit and the wait for all but N groups.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The origin of an output tile: frame f, first row y0, first column x0.
+struct TileAt {
+  int f, y0, x0;
+};
+
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
@@ -214,6 +235,24 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[
       "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1)
       : "memory");
 }

@@ -32,11 +32,12 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu",
-           "conv3x3_chain_narrow_sm90.cu", "sr_tail.cu",
+           "conv3x3_chain_narrow_sm90.cu", "sr_tail.cu", "sr_tail_sm90.cu",
            "rdb_block_sm90.cu", "nlmeans.cu", "conv3x3_fused.cu",
            "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_winograd_sm90.cu",
            "conv_chain_q8.cu")
-HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh", "sm90_common.cuh")
+HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh", "sm90_common.cuh",
+           "conv3x3_ring_sm90.cuh", "conv3x3_halo_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "uvt_sr_tail": ([_P] * 5 + [_I] * 6 + [_P], _I),
     # u, skip, wmat, bias, out, n, h, w, cin, scale, layout, stream
     "uvt_sr_tail_plain": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # src, skip, wpack, bias, out, n, h, w, scale, layout, full_range, stream
+    "uvt_sr_tail_sm90": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # u, skip, wmat, bias, out, n, h, w, cin, scale, layout, full_range, stream
+    "uvt_sr_tail_plain_sm90": ([_P] * 5 + [_I] * 7 + [_P], _I),
     # x, out, wmat, bias, slope, leaky, n, h, w, cin, cout, act, out_f32, stream
     "uvt_conv3x3_fused": ([_P] * 5 + [ctypes.c_float] + [_I] * 7 + [_P], _I),
     # x, out, wmat, bias, slope, leaky, n, h, w, cin, c_in_total, cout,

@@ -52,7 +52,9 @@ from upscale_video_tpu_torch.ops.conv_chain import (
 )
 from upscale_video_tpu_torch.ops.pixel import model_to_frames
 from upscale_video_tpu_torch.ops.rdb import RDBWeights, pack_rdb_weights, rdb_block
-from upscale_video_tpu_torch.ops.tail import LAYOUTS, sr_tail_chain, sr_tail_fused
+from upscale_video_tpu_torch.ops.tail import (
+    LAYOUTS, pack_tail_weights, sr_tail_chain, sr_tail_fused,
+)
 
 SUPPORTED_OPS = frozenset({
     "Input", "Split", "Convolution", "PReLU", "PixelShuffle", "Interp",
@@ -326,7 +328,9 @@ class SRVGGForward(nn.Module):
     the model-domain float input ``(N, H, W, 3)`` (BGR, [0, 1]).  ``emit``
     is one of the tail layouts: ``"model"`` returns float32 model-domain
     ``(N, sH, sW, 3)``, ``"frames"`` uint8 RGB, ``"planar"`` uint8
-    ``(N, H, W, 3*s*s)``.
+    ``(N, H, W, 3*s*s)``, ``"yuv420"`` the packed 4:2:0 uint8 ``(N, H, W,
+    s*s + 2*(s//2)**2)`` (``forward``'s ``full_range``), tail and pack in
+    one K2 launch.
     """
 
     def __init__(self, plan: dict, device: torch.device,
@@ -343,10 +347,19 @@ class SRVGGForward(nn.Module):
 
     def prepare(self, state: nn.ModuleDict) -> None:
         """Pack the chain's narrow-kernel weights into ``state``
-        (:func:`pack_chain_weights`), at plan time."""
+        (:func:`pack_chain_weights`) and the tail's Hopper weights
+        (``wpack_tail``, :func:`~upscale_video_tpu_torch.ops.tail.
+        pack_tail_weights`) where that kernel takes its shape in bf16, at
+        plan time."""
         pack_chain_weights(self.items, state)
+        tw = state[self.tail["conv"]]
+        if not hasattr(tw, "wpack_tail"):
+            pack = pack_tail_weights(tw.wmat, self.scale)
+            if pack is not None:
+                tw.register_buffer("wpack_tail", pack)
 
-    def forward(self, state, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, state, x: torch.Tensor,
+                full_range: bool = False) -> torch.Tensor:
         squeeze = x.ndim == 3
         if squeeze:
             x = x[None]
@@ -355,7 +368,8 @@ class SRVGGForward(nn.Module):
         x = x.to(device=self.device, dtype=self.compute_dtype).contiguous()
         buf = conv3x3_chain(x, chain_layers(self.items, state), crop=False)
         tw = state[self.tail["conv"]]
-        y = sr_tail_chain(buf, x, tw.wmat, tw.bias, self.scale, self.emit)
+        y = sr_tail_chain(buf, x, tw.wmat, tw.bias, self.scale, self.emit,
+                          full_range, getattr(tw, "wpack_tail", None))
         return y[0] if squeeze else y
 
 
@@ -659,7 +673,7 @@ class GraphForward(nn.Module):
       conv reads are the ones its Concat would have made.
     - A graph ending in the SRVGG tail (``probe_srvgg_tail``) runs its tail
       conv, shuffle, skip Interp and add as one K3 launch, which writes the
-      ``emit`` layout itself (``planar`` too).
+      ``emit`` layout itself (``planar`` and ``yuv420`` too).
     - ``residual_dtype=torch.float32`` with bf16 compute is ``mixed``: the
       inputs of every Eltwise and BinaryOp are upcast to f32 and their
       results flow on in f32 (``_spine_cast``, executor.py:1214); the next
@@ -673,7 +687,9 @@ class GraphForward(nn.Module):
 
     ``x``: model-domain ``(N, H, W, 3)`` (BGR, [0, 1]).  ``emit="model"``
     returns float32 ``(N, sH, sW, 3)``; ``"frames"`` uint8 RGB;
-    ``"planar"`` (SRVGG tail only) uint8 ``(N, H, W, 3*s*s)``.
+    ``"planar"`` (SRVGG tail only) uint8 ``(N, H, W, 3*s*s)``; ``"yuv420"``
+    (SRVGG tail only) the packed 4:2:0 uint8 of ``forward``'s
+    ``full_range``.
     """
 
     EMITS = LAYOUTS
@@ -693,8 +709,8 @@ class GraphForward(nn.Module):
                 f"{graph.input_blobs} / {graph.output_blobs}")
         consumers = _consumers(graph)
         self.tail = _find_tail(graph, consumers)
-        if emit == "planar" and self.tail is None:
-            raise ValueError("emit 'planar' needs the SRVGG shuffle tail")
+        if emit in ("planar", "yuv420") and self.tail is None:
+            raise ValueError(f"emit {emit!r} needs the SRVGG shuffle tail")
         tail_names = (self.tail["absorbed"] | {self.tail["conv"]}
                       if self.tail else set())
         blocks, absorbed = _plan_rdb_blocks(graph, consumers)
@@ -755,7 +771,8 @@ class GraphForward(nn.Module):
             state[name] = LayerWeights(wpack=rw.wpack, bpack=rw.bpack,
                                        wpack_sm90=rw.wpack_sm90)
 
-    def forward(self, state, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, state, x: torch.Tensor,
+                full_range: bool = False) -> torch.Tensor:
         squeeze = x.ndim == 3
         if squeeze:
             x = x[None]
@@ -820,7 +837,8 @@ class GraphForward(nn.Module):
                 blobs[self.tail["out"]] = sr_tail_fused(
                     blobs[layer.inputs[0]].to(cd).contiguous(),
                     blobs[self.tail["skip_blob"]].to(cd).contiguous(),
-                    tw.wmat, tw.bias, self.tail["scale"], self.emit)
+                    tw.wmat, tw.bias, self.tail["scale"], self.emit,
+                    full_range)
             elif layer.name not in self.absorbed:
                 ins = [blobs[b] for b in layer.inputs]
                 if self.residual_f32 and layer.type in ("Eltwise", "BinaryOp"):

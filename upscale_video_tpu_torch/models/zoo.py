@@ -53,7 +53,9 @@ class LayerWeights(nn.Module):
     added by the RRDBNet forward, a dense block's packed K5 weights
     ``wpack``/``bpack`` (and ``wpack_sm90``, the Hopper kernel's stream,
     for a bf16 pack) under its trigger's name; added by any forward, a
-    chain conv's ``wpack_narrow`` (K1's narrow kernel, bf16, its shapes)."""
+    chain conv's ``wpack_narrow`` (K1's narrow kernel, bf16, its shapes);
+    added by the SRVGG forward, its tail conv's ``wpack_tail`` (K2's
+    Hopper kernel, bf16, its shapes)."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()

@@ -234,20 +234,31 @@ def narrow_plan(cin: int, cout: int) -> Tuple[int, int, int, int]:
 
 def pack_narrow_weights(wmat: torch.Tensor) -> Optional[torch.Tensor]:
     """A bf16 ``(9*cin, cout)`` weight matrix of a shape the narrow kernel
-    takes as its resident B image (flat bf16 on ``wmat``'s device), else
-    None (other shapes and the f32 CPU path need none).  ``B[dy, k, col]``
-    with k = ``dx * cs + c`` holds ``wmat[(dy*3 + dx)*cin + c, col]``,
-    every padded K row (c >= cin, k >= 3*cs) and column (col >= cout)
-    zero; per dy, ``atoms`` blocks of ``n`` lines of 64 values (one
-    128-byte line per output channel, K-major), 16-byte chunk ``j`` of
-    line ``col`` stored at chunk ``j ^ (col % 8)``: wgmma's 128-byte-
-    swizzled B layout, read through ``desc_sw128``
-    (``csrc/sm90_common.cuh``).  Packed once per layer (``make_layer``,
-    the executor's ``prepare``), never per call."""
+    takes as its resident B image (:func:`pack_ring_weights` with the
+    shape's :func:`narrow_plan`), else None (other shapes and the f32 CPU
+    path need none).  Packed once per layer (``make_layer``, the
+    executor's ``prepare``), never per call."""
     cin, cout = wmat.shape[0] // 9, wmat.shape[1]
     if wmat.dtype != torch.bfloat16 or chain_kernel(cin, cout) != "narrow":
         return None
-    cs, n, _, atoms = narrow_plan(cin, cout)
+    cs, n, _, _ = narrow_plan(cin, cout)
+    return pack_ring_weights(wmat, cs, n)
+
+
+def pack_ring_weights(wmat: torch.Tensor, cs: int, n: int) -> torch.Tensor:
+    """The resident B image of the ring mainloop
+    (``csrc/conv3x3_ring_sm90.cuh``, K1's narrow layers and K2's Hopper
+    tail) for a ``(9*cin, cout)`` weight matrix read from a bordered buffer
+    ``cs >= cin`` channels wide, wgmma's N ``n >= cout``: flat bf16 on
+    ``wmat``'s device.  ``B[dy, k, col]`` with k = ``dx * cs + c`` holds
+    ``wmat[(dy*3 + dx)*cin + c, col]``, every padded K row (c >= cin,
+    k >= 3*cs) and column (col >= cout) zero; per dy, ``atoms`` (3*cs
+    rounded up to 64, over 64) blocks of ``n`` lines of 64 values (one
+    128-byte line per output column, K-major), 16-byte chunk ``j`` of line
+    ``col`` stored at chunk ``j ^ (col % 8)``: wgmma's 128-byte-swizzled B
+    layout, read through ``desc_sw128`` (``csrc/sm90_common.cuh``)."""
+    cin, cout = wmat.shape[0] // 9, wmat.shape[1]
+    atoms = -(-3 * cs // 64)
     b = torch.zeros((3, 3, cs, n), dtype=torch.float32)
     b[:, :, :cin, :cout] = wmat.detach().to("cpu", torch.float32).view(3, 3, cin, cout)
     full = torch.zeros((3, 64 * atoms, n), dtype=torch.float32)

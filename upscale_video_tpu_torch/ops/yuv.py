@@ -8,7 +8,10 @@ final uint8 RGB, chroma box-averaged over each 2x2 (convert-then-average).
 
 The device-side conversions (:func:`yuv420_from_planar`,
 :func:`yuv420_from_frames`, :func:`i420_to_model`) are plain torch: the
-JAX package runs them as XLA code, not as a kernel.  The host assembly
+JAX package runs them as XLA code, not as a kernel.
+:func:`yuv420_from_planar` is also the plain version of the SRVGG tails'
+``"yuv420"`` layout (:mod:`~upscale_video_tpu_torch.ops.tail`), whose
+Hopper kernels compute it in their epilogue.  The host assembly
 :func:`packed_to_i420` is numpy.
 """
 

@@ -3,7 +3,8 @@
 Port of ``upscale_video_tpu/pipeline/chain.py:35-162, 166-522, 747-822``,
 restricted to the chains the port covers, on one device.  A step is
 uint8 frames -> model domain -> the pre-SR stages -> the SR stage -> the
-contract's uint8 layout (-> optional 4:2:0 pack):
+contract's uint8 layout (the packed 4:2:0 one written by an SRVGG tail
+itself, or packed after the frames):
 
 - pre-SR stages (``_prelude``, in the JAX order): ``n=K``, NL-means at
   strength K over the frame batch (one K6 launch), then ``a``, the 1x
@@ -40,9 +41,7 @@ from upscale_video_tpu_torch.ops.nlmeans import nl_means_denoise
 from upscale_video_tpu_torch.ops.pixel import frames_to_model, model_to_frames
 from upscale_video_tpu_torch.ops.tiling import fit_tile_grid, tiled_apply
 from upscale_video_tpu_torch.ops.tta import tta_apply
-from upscale_video_tpu_torch.ops.yuv import (
-    i420_to_model, yuv420_from_frames, yuv420_from_planar,
-)
+from upscale_video_tpu_torch.ops.yuv import i420_to_model, yuv420_from_frames
 
 log = logging.getLogger(__name__)
 
@@ -316,7 +315,9 @@ class ChainEngine:
     def yuv_step(self, full_range: bool, planar: bool,
                  i420_in: Optional[Tuple[int, int, bool]] = None) -> Callable:
         """Step emitting the packed 4:2:0 contract from RGB frames or, with
-        ``i420_in=(src_h, src_w, in_full_range)``, flat I420 input."""
+        ``i420_in=(src_h, src_w, in_full_range)``, flat I420 input.  With
+        ``planar`` the SR model's tail emits the packed layout (``emit=
+        "yuv420"``: on the card one tail launch, no separate pack)."""
         if self._yuv_steps is None:
             self._yuv_steps = {}
         key = (full_range, planar, i420_in)
@@ -335,10 +336,9 @@ class ChainEngine:
                 src_h, src_w, in_full = i420_in
                 m = i420_to_model(x, src_h, src_w, in_full, order)
             m = self._prelude(m)
-            if planar:
-                y = self.sr_model.frames_forward("planar")(
-                    self.sr_model.state, m)
-                return yuv420_from_planar(y, s, full_range)
+            if planar:  # the tail writes the packed 4:2:0 layout itself
+                return self.sr_model.frames_forward("yuv420")(
+                    self.sr_model.state, m, full_range=full_range)
             return yuv420_from_frames(self._frames(m), full_range)
 
         self._yuv_steps[key] = fn
