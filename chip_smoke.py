@@ -15,7 +15,8 @@ contracts, counting kernel launches:
   conv_first, conv_trunk and conv_up1, one K1 chain for the last three
   convs), mixed precision, 544-budget tiles with halo 16, 1 frame per
   step, 1080p -> 4K;
-- ``-m a,n=3``: NL-means at strength 3 (K6, one launch per step), the 1x
+- ``-m a,n=3``: NL-means at strength 3 (K6 on its Hopper kernel
+  ``csrc/nlmeans_sm90.cu``, one launch per step), the 1x
   SubCompact anime deblur model (nf 24, one 10-layer K1 chain), then the
   default 2x Compact (K1 + K2), 4 frames per step;
 - ``--tta`` on the default path: one 1080p frame through the 8 dihedral
@@ -82,8 +83,10 @@ K4's sm90 kernel and on cuDNN), and ``[valar_profile]`` splits one 1080p
 every path's shapes (the Compact stack and the anime chain at 4x1080p;
 ``-m r``'s last three convs on a 1080p frame's tiles at 4x), K4 at every
 ESRGAN conv shape at 1080p (and ``-m r``'s three solo convs), K3 at
-4x1080p, K6 at 4x1080p, and the whole 1080p ``-m r``, ESRGAN and ``--tta``
-steps against the same steps on the plain versions; K7 over the benches'
+4x1080p, K6 at 4x1080p, 2x37x53 and 1x7x33 (``[K6_time]`` beside
+its registers and its main loop's instructions from ``cuobjdump``, each
+pipe's count priced as an estimated floor), and the whole 1080p ``-m r``,
+ESRGAN and ``--tta`` steps against the same steps on the plain versions; K7 over the benches'
 16-layer body at 4x1080p, a ragged 3->64->64 stack (split 1 WMMA + 1
 sm90 launch, ring checked) and one layer alone (K7 runs its 64->64 layers on the persistent TMA + wgmma kernel
 ``csrc/conv_winograd_sm90.cu`` and every other shape on the WMMA kernel:
@@ -209,8 +212,9 @@ VALAR_MIN_PSNR = 36.0          # mixed -m r step vs the f32 plain path, dB
 # the same 36 dB.  23 RRDBs take the model's bf16 quality class, 34 dB.
 VALAR_PLAIN_BOUNDS = {2: (50.0, 4), 23: (34.0, 255)}
 # K6: the box sum and channel mean in another f32 order than the plain
-# version, and reciprocal scales; weights exp(-d/h^2) amplify d's ulps by
-# d/h^2 (<= ~20 where a weight still counts), so a few f32 ulps of v
+# version (shared row pairs, shuffle pairs), the scales folded into one and
+# the SFU's ex2; weights exp(-d/h^2) amplify d's ulps by d/h^2 (<= ~20
+# where a weight still counts), so a few f32 ulps of v
 K6_ATOL, K6_RTOL = 1e-5, 1e-5
 PRELUDE = "a,n=3"              # the pre-SR path: denoise at 3, anime deblur
 ANIME_LAYERS = 10              # 3->24, 8 x 24->24 (PReLU), 24->3: one chain
@@ -263,6 +267,89 @@ def smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock, as ``nvidia-smi`` reports it."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+# an SM's rates in warp instructions a clock on compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput): issue 4
+# (one a scheduler); f32 add, multiply, fma and min/max 4 (128 lanes);
+# shuffles and 32-bit shared loads 1 (32 lanes, 32 banks); the SFU's ex2
+# 0.5 (16 lanes).  [K6_time]'s estimated floors price K6's SASS with them.
+SM90_WARP_RATES = {"issue": 4.0, "f32": 4.0, "mio": 1.0, "sfu": 0.5}
+SASS_PIPE = {"FADD": "f32", "FMUL": "f32", "FFMA": "f32", "FMNMX": "f32",
+             "SHFL": "mio", "LDS": "mio", "MUFU": "sfu"}
+
+
+def cuobjdump(*args: str) -> str:
+    """``cuobjdump`` (beside nvcc) over the kernel library built in this
+    run: it reads the compiled code, it compiles nothing."""
+    from upscale_video_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    r = subprocess.run([tool, *args, str(build.library_path())],
+                       capture_output=True, text=True, timeout=300, check=True)
+    return r.stdout
+
+
+def kernel_resources(tag: str):
+    """``(mangled name, {"REG": .., "STACK": .., "SHARED": .., "LOCAL": ..})``
+    of the one kernel of the built library whose name holds ``tag``."""
+    import re
+
+    lines = cuobjdump("--dump-resource-usage").splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Function (\S+):", line)
+        if m and tag in m.group(1):
+            usage = " ".join(lines[i:i + 2])
+            return m.group(1), {k: int(v) for k, v in
+                                re.findall(r"\b([A-Z]+):(\d+)", usage)}
+    raise SystemExit(f"no kernel named *{tag}* in the built library")
+
+
+def sass_loop_mix(kernel: str) -> dict:
+    """The instructions of ``kernel``'s longest loop in the built library's
+    SASS (from the target of its longest backward branch to that branch),
+    counted by pipe (``SASS_PIPE``, else "other") and in all ("issue")."""
+    import re
+    from collections import Counter
+
+    labels, pending, insts = {}, [], []
+    for line in cuobjdump("-sass", "-fun", kernel).splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((name, addr) for name in pending)
+            pending = []
+            insts.append((addr, m.group(2).strip()))
+    loops = []
+    for addr, text in insts:
+        m = re.search(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b)", text)
+        if m:
+            target = labels[m.group(1)] if m.group(1) else int(m.group(2), 16)
+            if target < addr:
+                loops.append((addr - target, target, addr))
+    if not loops:
+        raise SystemExit(f"no loop in the SASS of {kernel}")
+    _, lo, hi = max(loops)
+    mix = Counter()
+    for addr, text in insts:
+        if lo <= addr <= hi:
+            op = re.sub(r"^@\S+\s+", "", text).split()[0].split(".")[0]
+            mix[SASS_PIPE.get(op, "other")] += 1
+            mix["issue"] += 1
+    return dict(mix)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -434,26 +521,28 @@ def main() -> int:
     del eng, ref_eng
     torch.cuda.empty_cache()
 
-    # K6 against its plain version: the main-path batch (4x1080p) and a
-    # ragged one, at the path's strength 3 and at the strongest, 30
+    # K6 against its plain version: the main-path batch (4x1080p) and two
+    # ragged ones (2x37x53; 1x7x33, narrower than a warp's 28 columns), at
+    # the path's strength 3, at the strongest, 30, and with sigma 5
     from upscale_video_tpu_torch.ops.nlmeans import (
-        FLOPS_PER_PAIR, nl_means_denoise, nl_means_denoise_plain,
+        FLOPS_PER_PAIR, ROWS, SEARCH_RADIUS, WARPS_X, WARPS_Y,
+        nl_means_denoise, nl_means_denoise_plain, nlm_launch_plan,
     )
 
-    for (n, h, w) in ((N, H, W), (2, 37, 53)):
+    for (n, h, w) in ((N, H, W), (2, 37, 53), (1, 7, 33)):
         x = image_like(n, h, w, seed=n * h, device=dev)
-        for strength in (3.0, 30.0):
-            got = nl_means_denoise(x, strength)
-            want = nl_means_denoise_plain(x, strength)
+        for strength, sigma in ((3.0, 0.0), (30.0, 0.0), (3.0, 5.0)):
+            got = nl_means_denoise(x, strength, sigma)
+            want = nl_means_denoise_plain(x, strength, sigma)
             torch.cuda.synchronize()
             worst, differ, ok = compare(got, want, K6_ATOL, K6_RTOL)
             ok = ok and bool(torch.isfinite(got).all())
-            say("K6", shape=f"{n}x{h}x{w}x3", h=strength, max_abs_err=worst,
-                frac_differ=f"{differ:.3e}",
+            say("K6", shape=f"{n}x{h}x{w}x3", h=strength, sigma=sigma,
+                max_abs_err=worst, frac_differ=f"{differ:.3e}",
                 bound=f"atol={K6_ATOL},rtol={K6_RTOL}", ok=ok)
             if not ok:
                 raise SystemExit(f"K6 disagrees with its plain version at "
-                                 f"{n}x{h}x{w}, h={strength}")
+                                 f"{n}x{h}x{w}, h={strength}, sigma={sigma}")
             errs["K6"] = max(errs.get("K6", 0.0), worst)
             del got, want
         if (n, h, w) == (N, H, W):
@@ -463,9 +552,30 @@ def main() -> int:
     pairs = 81 * N * H * W
     k6_bound = roofline(2 * k6_x.numel() * 4,
                         {"f32": FLOPS_PER_PAIR * pairs, "exp": pairs})
-    say("K6_time", ms=f"{k6_ms:.3f}", plain_ms=f"{k6_plain_ms:.3f}",
-        bound_ms=f"{k6_bound[0]:.3f}", bound_by=k6_bound[1],
+    # estimates, not readings: the kernel's main loop (the dx loop, one trip
+    # per column offset) counted from its SASS, each pipe's count over that
+    # pipe's rate at the card's top SM clock, for every warp of the launch
+    k6_name, k6_res = kernel_resources("nl_means_sm90")
+    mix = sass_loop_mix(k6_name)
+    trips = 2 * SEARCH_RADIUS + 1
+    if mix.get("sfu") != trips * ROWS:  # one ex2 a (pixel, offset) pair
+        raise SystemExit(f"K6's SASS loop holds {mix.get('sfu')} MUFU, not "
+                         f"the {trips * ROWS} pairs of one dx trip")
+    warps = int(np.prod(nlm_launch_plan(N, H, W))) * WARPS_X * WARPS_Y
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    est = {p: 1e3 * warps * trips * mix.get(p, 0)
+           / (sms * SM90_WARP_RATES[p] * clock) for p in SM90_WARP_RATES}
+    say("K6_time", ms=f"{k6_ms:.4f}", plain_ms=f"{k6_plain_ms:.3f}",
+        bound_ms=f"{k6_bound[0]:.4f}", bound_by=k6_bound[1],
+        share_of_bound=f"{k6_bound[0] / k6_ms:.3f}",
         gpairs_per_s=f"{pairs / k6_ms / 1e6:.1f}",
+        sass_loop=",".join(f"{k}:{v}" for k, v in sorted(mix.items())),
+        sass_per_pair=f"{mix['issue'] / mix['sfu']:.2f}",
+        **{f"est_{p}_floor_ms": f"{t:.4f}" for p, t in est.items()},
+        top_clock_mhz=f"{clock / 1e6:.0f}",
+        regs=k6_res.get("REG"), stack=k6_res.get("STACK"),
+        local=k6_res.get("LOCAL"), shared=k6_res.get("SHARED"),
         per="one launch, 4x1080p, h=3")
     del k6_x
     torch.cuda.empty_cache()
@@ -1147,7 +1257,7 @@ def main() -> int:
          "launches": launches["K5"], "launches_sm90": launches["K5_sm90"],
          "max_abs_err": errs["K5"], **k5_row},
         {"name": "nl_means", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/nlmeans.cu",
+         "source": "upscale_video_tpu_torch/csrc/nlmeans_sm90.cu",
          "replaces": "upscale_video_tpu/ops/nlmeans_pallas.py:54",
          "launches": launches["K6"], "max_abs_err": errs["K6"],
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],

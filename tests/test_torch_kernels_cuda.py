@@ -16,8 +16,9 @@ each per-source piece to bf16 after a tensor-core f32 sum whose order
 differs from cuDNN's, so a piece may land one bf16 ulp away and move the
 output by ``2**-6 + 2**-7 * |want|`` at these weights (N(0, 0.05), whose
 pieces stay under |4|).  K6 sums the 5x5 box and the channel mean in f32 in
-another order than the plain version and scales by reciprocals, so its
-outputs agree within ``1e-5 + 1e-5 * |want|`` (measured: a few 1e-7).
+another order than the plain version, folds the scales into one and takes
+the SFU's ex2, so its outputs agree within ``1e-5 + 1e-5 * |want|``
+(measured: about 1e-6).
 K7's sm90 layer, like K1's, rounds once to bf16 after f32 sums in another
 order: ``2**-10 + 2**-7 * |want|``.
 K4 (its WMMA and its sm90 kernel alike) rounds once to bf16 after an f32
@@ -415,15 +416,20 @@ def _noisy_gradient(rng, n, h, w):
     return np.clip(base + rng.normal(0, 0.03, (n, h, w, 3)), 0, 1).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 5, 4)])
-@pytest.mark.parametrize("h", [3.0, 30.0])
-def test_nl_means_kernel_matches_plain(dev, shape, h):
+@pytest.mark.parametrize("sigma", [0.0, 5.0])
+@pytest.mark.parametrize(
+    "shape", [(2, 37, 53), (1, 5, 4), (1, 1, 1), (1, 7, 33), (3, 70, 97)])
+@pytest.mark.parametrize("h", [3.0, 30.0, 0.0])
+def test_nl_means_kernel_matches_plain(dev, shape, h, sigma):
+    """Ragged against the kernel's strips (6 rows a thread, 24 a block) and
+    warps (28 output columns), narrower than a warp, one pixel; h = 0
+    takes inv_h2's 1e12 floor."""
     x = torch.from_numpy(_noisy_gradient(np.random.default_rng(5), *shape)).to(dev)
     before = nl_means_denoise.launches
-    got = nl_means_denoise(x, h)
+    got = nl_means_denoise(x, h, sigma)
     torch.cuda.synchronize()
     assert nl_means_denoise.launches - before == 1
-    want = nl_means_denoise_plain(x, h)
+    want = nl_means_denoise_plain(x, h, sigma)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert bool((got - want).abs().le(1e-5 + 1e-5 * want.abs()).all())
 

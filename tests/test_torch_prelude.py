@@ -45,7 +45,8 @@ from upscale_video_tpu_torch.models.zoo import (
 from upscale_video_tpu_torch.ops import nlmeans
 from upscale_video_tpu_torch.ops.conv_chain import conv3x3_chain
 from upscale_video_tpu_torch.ops.nlmeans import (
-    nl_means_denoise, nl_means_denoise_plain, reflect_index,
+    MAX_GRID_YZ, OUT_COLS, ROWS, TILE_H, TILE_W, WARPS_X, WARPS_Y,
+    nl_means_denoise, nl_means_denoise_plain, nlm_launch_plan, reflect_index,
 )
 from upscale_video_tpu_torch.ops.tta import dihedral, inverse_dihedral
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
@@ -132,6 +133,50 @@ def test_nl_means_wrapper_refuses_other_devices():
     before = nl_means_denoise.launches
     nl_means_denoise(torch.zeros(1, 4, 4, 3), 3.0)
     assert nl_means_denoise.launches == before  # the CPU runs the plain version
+
+
+# --- K6's launch plan (the grid csrc/nlmeans_sm90.cu launches) -------------
+
+def _covered(grid, h, w):
+    """How often the kernel stores each pixel of one frame on ``grid``:
+    block (bx, by), warp wy * WARPS_X + wx, lane < 28 and strip row r store
+    (by TILE_H + wy ROWS + r, bx TILE_W + wx 28 + lane) where in the frame."""
+    count = np.zeros((h, w), np.int64)
+    for wy in range(WARPS_Y):
+        for wx in range(WARPS_X):
+            ys = (np.arange(grid[1])[:, None] * TILE_H + wy * ROWS
+                  + np.arange(ROWS)[None, :]).ravel()
+            xs = (np.arange(grid[0])[:, None] * TILE_W + wx * OUT_COLS
+                  + np.arange(OUT_COLS)[None, :]).ravel()
+            ys, xs = ys[ys < h], xs[xs < w]
+            np.add.at(count, (ys[:, None], xs[None, :]), 1)
+    return count
+
+
+@pytest.mark.parametrize("nhw", [(1, 1, 1), (1, 5, 4), (1, 7, 33), (2, 37, 53),
+                                 (3, 70, 97), (1, 24, 28), (1, 25, 29),
+                                 (4, 1080, 1920)])
+def test_nl_means_plan_covers_every_pixel_once(nhw):
+    n, h, w = nhw
+    grid = nlm_launch_plan(n, h, w)
+    assert grid[2] == n
+    np.testing.assert_array_equal(_covered(grid, h, w), 1)
+    # no block lies wholly outside the frame
+    assert (grid[0] - 1) * TILE_W < w <= grid[0] * TILE_W
+    assert (grid[1] - 1) * TILE_H < h <= grid[1] * TILE_H
+    assert grid[1] <= MAX_GRID_YZ and n <= MAX_GRID_YZ
+    assert grid[0] <= 2 ** 31 - 1
+    assert 32 * WARPS_X * WARPS_Y <= 1024
+
+
+def test_nl_means_plan_refuses_what_the_grid_cannot_hold():
+    with pytest.raises(ValueError, match="grid limit"):
+        nlm_launch_plan(MAX_GRID_YZ + 1, 8, 8)
+    with pytest.raises(ValueError, match="grid limit"):
+        nlm_launch_plan(1, MAX_GRID_YZ * TILE_H + 1, 8)
+    nlm_launch_plan(MAX_GRID_YZ, MAX_GRID_YZ * TILE_H, 8)
+    with pytest.raises(ValueError, match="empty"):
+        nlm_launch_plan(1, 0, 8)
 
 
 # --- the anime model: the graph and its forward ----------------------------

@@ -33,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu",
            "conv3x3_chain_narrow_sm90.cu", "sr_tail.cu", "sr_tail_sm90.cu",
-           "rdb_block_sm90.cu", "nlmeans.cu", "conv3x3_fused.cu",
+           "rdb_block_sm90.cu", "nlmeans_sm90.cu", "conv3x3_fused.cu",
            "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_winograd_sm90.cu",
            "conv_chain_q8.cu")
 HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh", "sm90_common.cuh",
@@ -67,7 +67,7 @@ _SIGNATURES = {
     # x, out, wstream, bpack, n, h, w, slope, stream
     "uvt_rdb_block_sm90": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
     # x, out, n, h, w, inv_h2, two_s2, stream
-    "uvt_nl_means": ([_P] * 2 + [_I] * 3 + [ctypes.c_float] * 2 + [_P], _I),
+    "uvt_nl_means_sm90": ([_P] * 2 + [_I] * 3 + [ctypes.c_float] * 2 + [_P], _I),
     # src, dst, umat, bias, slope, n, h, w, cin, cout, act, stream
     "uvt_conv_winograd_layer": ([_P] * 5 + [_I] * 6 + [_P], _I),
     "uvt_conv_winograd_layer_sm90": ([_P] * 5 + [_I] * 6 + [_P], _I),

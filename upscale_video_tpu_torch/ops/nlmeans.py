@@ -2,7 +2,8 @@
 
 Port of ``upscale_video_tpu/ops/nlmeans.py`` (``nl_means_denoise``, the
 semantics) and of the TPU kernel ``upscale_video_tpu/ops/nlmeans_pallas.py:54``
-``_nlm_kernel`` (replaced by ``csrc/nlmeans.cu``).  Over a batch of
+``_nlm_kernel`` (replaced by ``csrc/nlmeans_sm90.cu``: register-blocked
+column strips, 5-column box sums by warp shuffles).  Over a batch of
 model-domain frames ``(N, H, W, C)`` f32 in [0, 1]:
 
 - numpy ``reflect`` padding by 6 (no edge repeat; frames under 7 pixels
@@ -16,8 +17,9 @@ model-domain frames ``(N, H, W, C)`` f32 in [0, 1]:
 
 :func:`nl_means_denoise` dispatches on the input's device: a CPU tensor
 takes :func:`nl_means_denoise_plain`; a CUDA tensor launches the kernel (one
-launch for the whole batch, 3 channels) or raises.
-``nl_means_denoise.launches`` counts kernel launches.
+launch for the whole batch, 3 channels, on the grid that
+:func:`nlm_launch_plan` gives) or raises.  ``nl_means_denoise.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -35,6 +37,29 @@ PAD = PATCH_RADIUS + SEARCH_RADIUS
 # adds, 1 scale), the weight (sub, max, mul) and the accumulation (3 mul,
 # 4 add).  chip_smoke.py's bound for K6 counts these.
 FLOPS_PER_PAIR = 26
+# the kernel's geometry, as csrc/nlmeans_sm90.cu compiles it (kRows,
+# kWarpsX, kWarpsY) and computes its grid:
+# a warp's 32 lanes hold 32 patch columns, of which the first 28 store
+# output (the last 4 only feed the 5-column box sum); each thread takes
+# ROWS output rows of its column; a block is WARPS_X x WARPS_Y warps
+LANES = 32
+OUT_COLS = LANES - 2 * PATCH_RADIUS
+ROWS, WARPS_X, WARPS_Y = 6, 1, 4
+TILE_W, TILE_H = WARPS_X * OUT_COLS, WARPS_Y * ROWS  # a block's output
+MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
+
+
+def nlm_launch_plan(n: int, h: int, w: int) -> Tuple[int, int, int]:
+    """The grid ``(x, y, z)`` of blocks of ``TILE_H x TILE_W`` output pixels
+    that covers ``n`` frames of ``h x w`` once; raises where it would pass
+    CUDA's limits on gridDim.y and gridDim.z."""
+    if min(n, h, w) < 1:
+        raise ValueError(f"nl_means_denoise: empty batch {n}x{h}x{w}")
+    grid = (-(-w // TILE_W), -(-h // TILE_H), n)
+    if grid[1] > MAX_GRID_YZ or n > MAX_GRID_YZ:
+        raise ValueError(f"nl_means_denoise: {n}x{h}x{w} exceeds the grid "
+                         f"limit ({grid[1]} rows of blocks, {n} frames)")
+    return grid
 
 
 def reflect_index(n: int, pad: int) -> np.ndarray:
@@ -106,9 +131,10 @@ def nl_means_denoise(x: torch.Tensor, h: float,
     from upscale_video_tpu_torch.kernels import build
 
     n, hgt, wid, _ = x.shape
+    nlm_launch_plan(n, hgt, wid)  # raises where the grid cannot hold the batch
     out = torch.empty_like(x)
     inv_h2, two_s2 = filter_params(h, sigma)
-    code = build.library().uvt_nl_means(
+    code = build.library().uvt_nl_means_sm90(
         x.data_ptr(), out.data_ptr(), n, hgt, wid, inv_h2, two_s2,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
