@@ -49,7 +49,8 @@ outside it.
   cuDNN), each run at its defaults (16 x 64->64 PReLU convs on a 1080p
   frame) as a subprocess through ``python -m``; their ``[launches]`` lines
   give K7's and K8's launch counts, each counted from 0 in that process,
-  and every 64->64 K7 launch of ``wino_bench`` must be on the sm90 kernel.
+  and every 64->64 K7 launch of ``wino_bench`` and K8 launch of
+  ``q8_bench`` must be on the sm90 kernel.
 
 Weights are synthetic (seed 0).  K1 runs its 64->64 layers on the
 persistent TMA + wgmma kernel (``csrc/conv3x3_chain_sm90.cu``), its
@@ -94,7 +95,16 @@ sm90 launch, ring checked) and one layer alone (K7 runs its 64->64 layers on the
 ragged shapes against the plain version (finite, ring checked),
 ``[K7_ab]`` times one 64->64 PReLU layer at 4x1080p on the sm90 kernel,
 K7's WMMA kernel, K1's sm90 layer and cuDNN), K8
-over the body at 1x1080p and the ragged stack (bit for bit), then the
+over the body at 1x1080p (all 16 layers on the sm90 kernel) and the
+ragged 3->64->64 stack (1 mma.sync + 1 sm90 launch), bit for bit (K8 runs
+its 64->64 layers on the persistent TMA + wgmma kernel
+``csrc/conv_chain_q8_sm90.cu`` and every other shape on the mma.sync
+kernel ``csrc/conv_chain_q8.cu``: ``[K8_sm90]`` holds one sm90 layer,
+int8 and bf16 out, at 4x1080p (PReLU) and for each activation at five
+ragged shapes against its plain step bit for bit, ring checked;
+``[K8_ab]`` times one 64->64 PReLU int8 -> int8 layer at 4x1080p on the
+sm90 kernel and the mma.sync kernel (called directly), and the bf16-out
+layer, each with its share of the per-layer bound), then the
 body's A/B at 4x1080p (K1, K7, K7 on its WMMA kernel, K8, cuDNN, each with
 its bound and the per-layer HBM floor).  It then times each step against its plain version.  Every phase prints one line; any failure
 raises and the script exits non-zero without printing a result.  The last
@@ -240,6 +250,9 @@ PEAK_HBM = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12, "exp": 67e12 / 16}
 # the conv-body benches' default body: 16 x 64->64 3x3 convs with PReLU
 BODY_LAYERS, BODY_C = 16, 64
+# [K8_sm90]'s ragged sizes: a frame smaller than one 3x64 tile, W no
+# multiple of 64, H none of 3, N = 3, a frame under 64 columns
+K8_RAGGED = ((1, 5, 7), (2, 37, 53), (1, 67, 130), (3, 18, 70), (1, 9, 40))
 # K7 over that body and one layer alone take K1's bounds (K1_ATOL/RTOL,
 # K1_LAYER_ATOL/RTOL): each M_a is an f32 sum in another order than
 # cuDNN's, then the same f32 output transform and one bf16 rounding.  K8
@@ -1194,6 +1207,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k7_layer = k7_sm90_phases(dev, errs)
     torch.cuda.empty_cache()
+    k8_layer = k8_sm90_phases(dev, errs)
+    torch.cuda.empty_cache()
     body = conv_body_phases(dev, errs)
     torch.cuda.empty_cache()
     bench_launches = {}
@@ -1205,6 +1220,11 @@ def main() -> int:
     if k7_sm90 != k7_launches:
         raise SystemExit(f"wino_bench ran {k7_launches - k7_sm90} of its "
                          f"{k7_launches} 64->64 K7 layers off the sm90 kernel")
+    # and q8_bench's: every K8 launch on the sm90 kernel
+    k8_launches, k8_sm90 = bench_launches["conv3x3_chain_q8"]
+    if k8_sm90 != k8_launches:
+        raise SystemExit(f"q8_bench ran {k8_launches - (k8_sm90 or 0)} of its "
+                         f"{k8_launches} 64->64 K8 layers off the sm90 kernel")
 
     # library_ms: K1's is cuDNN's bf16 conv (F.conv2d with bias, one call
     # per layer, channels-last) over the same 17 layers, without the
@@ -1273,10 +1293,16 @@ def main() -> int:
          "layer_ms_wmma": k7_layer["wmma"],
          "layer_library_ms": k7_layer["cudnn"]},
         {"name": "conv3x3_chain_q8", "route": "cuda",
-         "source": "upscale_video_tpu_torch/csrc/conv_chain_q8.cu",
+         "source": "upscale_video_tpu_torch/csrc/conv_chain_q8_sm90.cu",
+         "source_mma_sync": "upscale_video_tpu_torch/csrc/conv_chain_q8.cu",
          "replaces": "upscale_video_tpu/ops/conv_chain_q8.py:68",
-         "launches": bench_launches["conv3x3_chain_q8"][0],
-         "max_abs_err": errs["K8"], **body["K8"], "library_ms": None},
+         "launches": k8_launches, "launches_sm90": k8_sm90,
+         "max_abs_err": errs["K8"], **body["K8"], "library_ms": None,
+         "layer_ms": k8_layer["sm90"], "layer_ms_mma_sync": k8_layer["mma_sync"],
+         "layer_bf16_out_ms": k8_layer["sm90_bf16_out"],
+         "layer_bound_ms": k8_layer["bound_ms"],
+         "layer_bound_by": k8_layer["bound_by"],
+         "layer_bf16_out_bound_ms": k8_layer["bf16_out_bound_ms"]},
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
@@ -2130,6 +2156,133 @@ def k7_sm90_phases(dev, errs) -> dict:
     return out
 
 
+def mma_q8_layer(src, dst, layer) -> None:
+    """One layer on K8's mma.sync kernel, called directly (the port sends
+    every 64->64 layer to the sm90 kernel): the yardstick the sm90 kernel
+    is timed against."""
+    import torch
+
+    from upscale_video_tpu_torch.kernels import build
+
+    n, hp, wp, _ = src.shape
+    code = build.library().uvt_conv3x3_chain_q8_layer(
+        src.data_ptr(), dst.data_ptr(), layer.wmat.data_ptr(),
+        layer.scale.data_ptr(), layer.bias.data_ptr(), layer.slope.data_ptr(),
+        layer.inv_out, n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
+        int(dst.dtype == torch.int8),
+        torch.cuda.current_stream(src.device).cuda_stream)
+    build.check(code, "conv3x3_chain_q8 mma.sync layer launch")
+
+
+def k8_sm90_phases(dev, errs) -> dict:
+    """[K8_sm90] and [K8_ab]: one 64->64 layer on K8's sm90 kernel, int8
+    (requantised) and bf16 out, against its plain step bit for bit, at
+    4x1080p (PReLU) and at ``K8_RAGGED`` for each activation, ring and
+    route checked; then one PReLU int8 -> int8 layer at 4x1080p timed on
+    the sm90 kernel and the mma.sync kernel (called directly), and the
+    bf16-out layer on sm90, in two rounds (the second in reverse order),
+    each with its share of the per-layer bound.  Returns each one's ms and
+    the int8 layer's bound."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.common import (
+        ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
+    )
+    from upscale_video_tpu_torch.ops.conv_chain import embed
+    from upscale_video_tpu_torch.ops.conv_chain_q8 import (
+        conv3x3_chain_q8, launch_q8_layer, make_q8_layer, q8_layer_plain,
+        sm90_takes,
+    )
+
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    c = BODY_C
+    if not sm90_takes(c, c):
+        raise SystemExit("K8's 64->64 layer is not routed to the sm90 kernel")
+
+    def layer(act):
+        # dequant scales that keep most requantised values inside +-127,
+        # so the rounding, not the clip, decides them
+        return make_q8_layer(
+            rng.integers(-127, 128, (3, 3, c, c)).astype(np.int8),
+            rng.uniform(2e-6, 6e-6, (c,)).astype(np.float32),
+            rng.normal(0, 0.05, (c,)).astype(np.float32),
+            rng.uniform(0.1, 0.3, (c,)).astype(np.float32),
+            np.float32(rng.uniform(80.0, 130.0)), act, device=dev)
+
+    outs = (torch.int8, torch.bfloat16)
+    cases = [((N, H, W), ACT_PRELU, dt) for dt in outs] + [
+        (shape, act, dt) for shape in K8_RAGGED
+        for act in (ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU) for dt in outs]
+    for shape, act, dt in cases:
+        x8 = torch.randint(-127, 128, (*shape, c), generator=gen, device=dev,
+                           dtype=torch.int8)
+        src = embed(x8, torch.int8)
+        lay = layer(act)
+        dst = torch.zeros(src.shape, dtype=dt, device=dev)
+        sm90 = conv3x3_chain_q8.launches_sm90
+        launch_q8_layer(src, dst, lay)
+        torch.cuda.synchronize()
+        want = q8_layer_plain(src, lay, dt)
+        worst, differ, _ = compare(dst, want, 0.0, 0.0)
+        ring = torch.ones(src.shape[1:3], dtype=torch.bool, device=dev)
+        ring[1:-1, 1:-1] = False
+        ring_zero = int(torch.count_nonzero(dst[:, ring])) == 0
+        on_sm90 = conv3x3_chain_q8.launches_sm90 - sm90 == 1
+        clipped = (want.abs() == 127).float().mean().item() if dt == torch.int8 else 0.0
+        ok = differ == 0 and ring_zero and on_sm90
+        say("K8_sm90", shape="x".join(map(str, shape)), act=act,
+            out=str(dt).replace("torch.", ""), max_abs_err=worst,
+            differ=int(round(differ * dst.numel())), bound="bit-equal",
+            frac_clipped=f"{clipped:.3f}", ring_zero=ring_zero,
+            on_sm90=on_sm90, ok=ok)
+        if not on_sm90:
+            raise SystemExit("a 64->64 K8 layer missed the sm90 kernel")
+        if not ok:
+            raise SystemExit(f"K8's sm90 layer disagrees with its plain "
+                             f"version at {shape}, act {act}, {dt}")
+        errs["K8"] = max(errs.get("K8", 0.0), worst)
+        del x8, src, dst, want
+
+    # the A/B at 4x1080p.  Bound: the bordered buffers read and written
+    # once with the weights and the per-channel fields (bytes) against
+    # 2*9*c*c int8 operations per pixel
+    x8 = torch.randint(-127, 128, (N, H, W, c), generator=gen, device=dev,
+                       dtype=torch.int8)
+    src = embed(x8, torch.int8)
+    d8 = torch.zeros_like(src)
+    db = torch.zeros(src.shape, dtype=torch.bfloat16, device=dev)
+    lay = layer(ACT_PRELU)
+    border = N * (H + 2) * (W + 2)
+    wbytes = 9 * c * c + 3 * c * 4
+    ops = {"int8": 2 * 9 * c * c * N * H * W}
+    bounds = {"sm90": roofline(2 * border * c + wbytes, ops),
+              "mma_sync": roofline(2 * border * c + wbytes, ops),
+              "sm90_bf16_out": roofline(3 * border * c + wbytes, ops)}
+    fns = {"sm90": lambda: launch_q8_layer(src, d8, lay),
+           "mma_sync": lambda: mma_q8_layer(src, d8, lay),
+           "sm90_bf16_out": lambda: launch_q8_layer(src, db, lay)}
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            times[name].append(cuda_ms(fns[name], 3 if name == "mma_sync" else 20))
+    out = {name: sum(t) / len(t) for name, t in times.items()}
+    smi = smi_line()
+    for name, ms in out.items():
+        bound = bounds[name]
+        say("K8_ab", impl=name, shape=f"{N}x{H}x{W}",
+            layer=f"{c}->{c} prelu int8->{'bf16' if name.endswith('bf16_out') else 'int8'}",
+            ms=f"{ms:.4f}", rounds=" ".join(f"{t:.4f}" for t in times[name]),
+            bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+            share_of_bound=f"{bound[0] / ms:.3f}",
+            vs_mma_sync=f"{ms / out['mma_sync']:.3f}", card=repr(smi))
+    if out["sm90"] >= out["mma_sync"]:
+        raise SystemExit("K8's sm90 layer is no faster than its mma.sync layer")
+    out["bound_ms"], out["bound_by"] = bounds["sm90"]
+    out["bf16_out_bound_ms"] = bounds["sm90_bf16_out"][0]
+    return out
+
+
 def conv_body_phases(dev, errs) -> dict:
     """[K7], [K8] and [conv_body_ab]: K7 and K8 against their plain
     versions, then the conv body's A/B at 4x1080p.  Returns the ``ms``,
@@ -2143,6 +2296,7 @@ def conv_body_phases(dev, errs) -> dict:
     )
     from upscale_video_tpu_torch.ops.conv_chain_q8 import (
         conv3x3_chain_q8, conv3x3_chain_q8_plain, make_q8_layer,
+        sm90_takes as q8_sm90_takes,
     )
     from upscale_video_tpu_torch.ops.conv_winograd import (
         make_wino_layer, sm90_takes, winograd_chain, winograd_chain_plain,
@@ -2217,14 +2371,19 @@ def conv_body_phases(dev, errs) -> dict:
     s8 = torch.randint(-127, 128, (2, 37, 53, 3), generator=gen, device=dev,
                        dtype=torch.int8)
     for what, xin, layers in (("body", x8_1, k8), ("ragged", s8, r8)):
+        before = (conv3x3_chain_q8.launches, conv3x3_chain_q8.launches_sm90)
         got = conv3x3_chain_q8(xin, layers)
         want = conv3x3_chain_q8_plain(xin, layers)
         torch.cuda.synchronize()
         worst, differ, _ = compare(got, want, 0.0, 0.0)
-        ok = differ == 0 and bool(torch.isfinite(got.float()).all())
+        launches = conv3x3_chain_q8.launches - before[0]
+        launches_sm90 = conv3x3_chain_q8.launches_sm90 - before[1]
+        ok = (differ == 0 and bool(torch.isfinite(got.float()).all())
+              and launches == len(layers)
+              and launches_sm90 == sum(q8_sm90_takes(l.cin, l.cout) for l in layers))
         say("K8", case=what, shape="x".join(map(str, xin.shape)),
-            layers=len(layers), max_abs_err=worst,
-            mean_abs_want=want.float().abs().mean().item(),
+            layers=len(layers), launches=launches, launches_sm90=launches_sm90,
+            max_abs_err=worst, mean_abs_want=want.float().abs().mean().item(),
             differ=int(round(differ * got.numel())), bound="bit-equal", ok=ok)
         if not ok:
             raise SystemExit(f"K8 disagrees with its plain version ({what})")
@@ -2277,7 +2436,7 @@ def conv_body_phases(dev, errs) -> dict:
         ms = cuda_ms(fn, 5)
         plain_ms = cuda_ms(plain, 2) if plain else None
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                     "bound_by": bound[1]}
+                     "bound_by": bound[1], "hbm_floor_ms": floor}
         say("conv_body_ab", impl=name, shape=f"{N}x{H}x{W}x{c}",
             layers=BODY_LAYERS, ms=f"{ms:.3f}",
             plain_ms="-" if plain_ms is None else f"{plain_ms:.3f}",

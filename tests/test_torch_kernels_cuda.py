@@ -21,6 +21,8 @@ the SFU's ex2, so its outputs agree within ``1e-5 + 1e-5 * |want|``
 (measured: about 1e-6).
 K7's sm90 layer, like K1's, rounds once to bf16 after f32 sums in another
 order: ``2**-10 + 2**-7 * |want|``.
+K8 (its mma.sync and its sm90 kernel alike) sums exactly in int32 and runs
+the plain version's f32 epilogue op for op: bit-equal.
 K4 (its WMMA and its sm90 kernel alike) rounds once to bf16 after an f32
 sum in another order than the plain version's: ``2**-10 + 2**-7 *
 |want|``; a call that reads a channel view and writes at a channel offset
@@ -737,34 +739,93 @@ def test_wino_sm90_layer_matches_plain(dev, shape, act):
     assert _ring_is_zero(dst)
 
 
+def _q8_layers(rng, specs, dev, scale=(1e-4, 3e-4)):
+    from upscale_video_tpu_torch.ops.conv_chain_q8 import make_q8_layer
+
+    return [make_q8_layer(
+        rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8),
+        rng.uniform(*scale, (cout,)).astype(np.float32),
+        rng.normal(0, 0.05, (cout,)).astype(np.float32),
+        rng.uniform(0.1, 0.3, (cout,)).astype(np.float32),
+        np.float32(rng.uniform(80.0, 130.0)), act, device=dev)
+        for cin, cout, act in specs]
+
+
 @pytest.mark.parametrize("shape,specs", [
     ((2, 37, 53), [(3, 64, ACT_PRELU), (64, 64, ACT_PRELU), (64, 64, ACT_PRELU)]),
     ((2, 20, 40), [(3, 32, ACT_RELU), (32, 64, ACT_PRELU), (64, 48, ACT_NONE)]),
     ((1, 13, 19), [(64, 64, ACT_LEAKY)] * 2),
     ((1, 33, 40), [(128, 128, ACT_PRELU), (128, 100, ACT_NONE)]),
     ((1, 9, 11), [(16, 24, ACT_PRELU), (24, 5, ACT_NONE)]),
+    # the sm90 kernel's 64->64 layers: a frame under 64 columns, rows no
+    # multiple of its 3-row tile, N = 3, each activation, a chain ending in
+    # the bf16 layer, 64->64 after a 3->64 mma.sync head
+    ((1, 21, 40), [(64, 64, ACT_PRELU)] * 3),
+    ((1, 67, 130), [(64, 64, ACT_RELU), (64, 64, ACT_PRELU)]),
+    ((3, 18, 70), [(64, 64, ACT_PRELU), (64, 64, ACT_NONE)]),
+    ((2, 37, 53), [(64, 64, ACT_NONE), (64, 64, ACT_PRELU), (64, 64, ACT_LEAKY),
+                   (64, 64, ACT_RELU)]),
+    ((1, 5, 7), [(3, 64, ACT_LEAKY), (64, 64, ACT_RELU), (64, 64, ACT_PRELU)]),
 ])
 def test_q8_kernel_equals_plain(dev, shape, specs):
     """K8 vs its plain version: exact int32 sums and the same f32 epilogue
-    ops, so every value is bit-equal, requantised layers included."""
+    ops, so every value is bit-equal, requantised layers included; each
+    64->64 layer runs on the sm90 kernel."""
     from upscale_video_tpu_torch.ops.conv_chain_q8 import (
-        conv3x3_chain_q8, conv3x3_chain_q8_plain, make_q8_layer,
+        conv3x3_chain_q8, conv3x3_chain_q8_plain, sm90_takes,
     )
 
     rng = np.random.default_rng(12)
-    layers = [make_q8_layer(
-        rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8),
-        rng.uniform(1e-4, 3e-4, (cout,)).astype(np.float32),
-        rng.normal(0, 0.05, (cout,)).astype(np.float32),
-        rng.uniform(0.1, 0.3, (cout,)).astype(np.float32),
-        np.float32(rng.uniform(80.0, 130.0)), act, device=dev)
-        for cin, cout, act in specs]
+    layers = _q8_layers(rng, specs, dev)
     x8 = torch.from_numpy(rng.integers(-127, 128, shape + (specs[0][0],))
                           .astype(np.int8)).to(dev)
-    before = conv3x3_chain_q8.launches
+    before = (conv3x3_chain_q8.launches, conv3x3_chain_q8.launches_sm90)
     got = conv3x3_chain_q8(x8, layers)
     torch.cuda.synchronize()
-    assert conv3x3_chain_q8.launches - before == len(specs)
+    assert conv3x3_chain_q8.launches - before[0] == len(specs)
+    assert conv3x3_chain_q8.launches_sm90 - before[1] == sum(
+        sm90_takes(cin, cout) for cin, cout, _ in specs)
     want = conv3x3_chain_q8_plain(x8, layers)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 40), (1, 67, 130), (3, 18, 70),
+                                   (1, 5, 7), (2, 37, 53)])
+@pytest.mark.parametrize("act", [ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU])
+@pytest.mark.parametrize("out", [torch.int8, torch.bfloat16])
+def test_q8_sm90_layer_equals_plain(dev, shape, act, out):
+    """One 64->64 K8 layer on the sm90 kernel, int8 (requantised) or bf16
+    out, bit-equal to its plain step; the ring stays zero.  The dequant
+    scales keep most int8 values inside +-127, so rounding, not the clip,
+    decides them."""
+    from upscale_video_tpu_torch.ops.conv_chain_q8 import (
+        conv3x3_chain_q8, launch_q8_layer, q8_layer_plain,
+    )
+
+    rng = np.random.default_rng(14 + act)
+    (layer,) = _q8_layers(rng, [(64, 64, act)], dev, scale=(2e-6, 6e-6))
+    x8 = torch.from_numpy(rng.integers(-127, 128, shape + (64,))
+                          .astype(np.int8)).to(dev)
+    src = embed(x8, torch.int8)
+    dst = torch.zeros(src.shape, dtype=out, device=dev)
+    before = (conv3x3_chain_q8.launches, conv3x3_chain_q8.launches_sm90)
+    launch_q8_layer(src, dst, layer)
+    torch.cuda.synchronize()
+    assert conv3x3_chain_q8.launches - before[0] == 1
+    assert conv3x3_chain_q8.launches_sm90 - before[1] == 1
+    assert torch.equal(dst, q8_layer_plain(src, layer, out))
+    assert _ring_is_zero(dst)
+
+
+def test_q8_sm90_layer_without_its_image_raises(dev):
+    """A CUDA 64->64 layer without its packed weights raises: no fallback
+    to the mma.sync kernel."""
+    from upscale_video_tpu_torch.ops.conv_chain_q8 import conv3x3_chain_q8
+
+    layers = _q8_layers(np.random.default_rng(15), [(64, 64, ACT_PRELU)], dev)
+    x8 = torch.zeros((1, 8, 8, 64), dtype=torch.int8, device=dev)
+    before = conv3x3_chain_q8.launches
+    with pytest.raises(ValueError, match="packed weights"):
+        conv3x3_chain_q8(x8, [layers[0]._replace(wpack=None)])
+    assert conv3x3_chain_q8.launches == before

@@ -1,7 +1,9 @@
 // PTX wrappers and host helpers shared by the Hopper (sm_90a) kernels:
 // conv3x3_chain_sm90.cu (K1's 64->64 layer), conv3x3_chain_narrow_sm90.cu
 // (K1's narrow shapes), conv3x3_fused_sm90.cu (K4), rdb_block_sm90.cu (K5),
-// conv_winograd_sm90.cu (K7's 64->64 layer) and sr_tail_sm90.cu (K2, K3).
+// conv_winograd_sm90.cu (K7's 64->64 layer), sr_tail_sm90.cu (K2, K3) and
+// conv_chain_q8_sm90.cu (K8's 64->64 layer, which adds its own int8 wgmma,
+// 64-byte swizzle and B64 descriptor).
 // Device code: shared-memory addresses,
 // mbarriers, named barriers, TMA, bulk and 4-byte async copies, ldmatrix, the wgmma
 // fences, groups and m64nNk16 MMAs with A from registers (N 8, 16, 24, 32,

@@ -11,15 +11,20 @@ next layer's int8 or, for the last layer, bf16.
 
 :func:`conv3x3_chain_q8` dispatches on the input's device: a CPU tensor
 takes :func:`conv3x3_chain_q8_plain` (also the port's :func:`q8_oracle`); a
-CUDA tensor launches the kernel in ``csrc/conv_chain_q8.cu`` or raises.
-``conv3x3_chain_q8.launches`` counts kernel launches (one per layer per
-call).  Unlike the JAX helper, the input is not lane-padded to 128
-channels.
+CUDA tensor launches a kernel per layer or raises.  The kernel is chosen
+by the layer's shape alone (:func:`sm90_takes`): 64->64 layers run the
+persistent TMA + ``wgmma`` kernel in ``csrc/conv_chain_q8_sm90.cu``, whose
+weights are packed once per layer (:func:`pack_q8_weights_sm90`,
+``Q8ChainLayer.wpack``); every other shape the ``mma.sync`` kernel in
+``csrc/conv_chain_q8.cu``.  ``conv3x3_chain_q8.launches`` counts kernel
+launches (one per layer per call), ``conv3x3_chain_q8.launches_sm90`` those
+on the Hopper kernel.  Unlike the JAX helper, the input is not lane-padded
+to 128 channels.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,6 +46,8 @@ class Q8ChainLayer(NamedTuple):
                            # broadcast, or zeros
     inv_out: float         # 1 / s_out of this layer's int8 output
     act: int               # ACT_NONE / ACT_PRELU / ACT_LEAKY / ACT_RELU
+    wpack: Optional[torch.Tensor] = None  # the sm90 kernel's packed
+                           # weights (pack_q8_weights_sm90), for 64->64
 
     @property
     def cin(self) -> int:
@@ -66,11 +73,44 @@ def make_q8_layer(wq, scale, bias=None, slope=None, inv_out=1.0,
     if w.ndim != 2 or w.shape[0] % 9:
         raise ValueError(f"unsupported q8 chain weight shape {tuple(w.shape)}")
     cout = w.shape[1]
+    wpack = pack_q8_weights_sm90(w)
     return Q8ChainLayer(w.to(device).contiguous(),
                         per_channel(np.asarray(scale, np.float32), cout, device),
                         per_channel(bias, cout, device),
                         per_channel(slope, cout, device),
-                        float(np.float32(inv_out)), int(act))
+                        float(np.float32(inv_out)), int(act),
+                        None if wpack is None else wpack.to(device))
+
+
+def sm90_takes(cin: int, cout: int) -> bool:
+    """Whether a K8 layer runs on the sm90 kernel: exactly 64 -> 64, the
+    width its resident weights (36,864 B) and 64-byte-swizzled halo ring
+    are sized for (``csrc/conv_chain_q8_sm90.cu``)."""
+    return cin == 64 and cout == 64
+
+
+SM90_WPACK_BYTES = 9 * 64 * 64
+
+
+def pack_q8_weights_sm90(wmat: torch.Tensor) -> Optional[torch.Tensor]:
+    """The sm90 kernel's resident weight image for an int8 ``(9*cin,
+    cout)`` matrix of a shape it takes (:func:`sm90_takes`), else None:
+    flat int8 on ``wmat``'s device, per tap a 4,096-byte block of 64 lines
+    (one per output channel ``n``) of 64 input-channel bytes (K-major),
+    16-byte chunk ``j`` of line ``n`` stored at chunk ``j ^ ((n >> 1) % 4)``:
+    wgmma's 64-byte-swizzled B layout.  Byte ``k`` of line ``n`` of tap
+    ``t`` holds ``wmat[t*64 + k, n]``.  Packed once per layer
+    (:func:`make_q8_layer`), never per call."""
+    cin, cout = wmat.shape[0] // 9, wmat.shape[1]
+    if wmat.dtype != torch.int8 or not sm90_takes(cin, cout):
+        return None
+    n = torch.arange(cout).view(-1, 1)
+    k = torch.arange(cin).view(1, -1)
+    index = n * cin + ((k // 16) ^ ((n >> 1) % 4)) * 16 + k % 16
+    img = torch.empty((9, cout * cin), dtype=torch.int8)
+    img[:, index.reshape(-1)] = (wmat.detach().to("cpu").view(9, cin, cout)
+                                 .transpose(1, 2).reshape(9, -1))
+    return img.reshape(-1).to(wmat.device)
 
 
 def q8_layers_from_jax(layer_dicts, device: "torch.device | str" = "cpu"
@@ -126,25 +166,40 @@ def conv3x3_chain_q8_plain(x8: torch.Tensor,
     2^53 (f32 is not: the sum passes 2^24 at cin 128; TF32 does not touch
     f64).  Returns ``(N, H, W, cout_last)`` bf16."""
     _check(x8, layers)
-    y8 = x8.permute(0, 3, 1, 2)
-    last = len(layers) - 1
+    y = x8.permute(0, 3, 1, 2)
     for idx, l in enumerate(layers):
-        w = l.wmat.to(torch.float64).reshape(3, 3, l.cin, l.cout)
-        y = F.conv2d(y8.to(torch.float64), w.permute(3, 2, 0, 1), padding=1)
-        yf = _epilogue(y.to(torch.int32), l)
-        if idx < last:
-            y8 = requantize(yf, l.inv_out)
-        else:
-            out = yf.to(torch.bfloat16)
-    return out.permute(0, 2, 3, 1).contiguous()
+        y = _layer_plain(y, l, idx == len(layers) - 1)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 q8_oracle = conv3x3_chain_q8_plain
 
 
+def _layer_plain(y8: torch.Tensor, layer: Q8ChainLayer,
+                 last: bool) -> torch.Tensor:
+    """One layer on int8 NCHW ``y8``: the exact integer conv, the f32
+    epilogue, then bf16 (``last``) or the requantised int8."""
+    w = layer.wmat.to(torch.float64).reshape(3, 3, layer.cin, layer.cout)
+    y = F.conv2d(y8.to(torch.float64), w.permute(3, 2, 0, 1), padding=1)
+    yf = _epilogue(y.to(torch.int32), layer)
+    return yf.to(torch.bfloat16) if last else requantize(yf, layer.inv_out)
+
+
+def q8_layer_plain(src: torch.Tensor, layer: Q8ChainLayer,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The plain version of one :func:`launch_q8_layer`: bordered int8
+    ``src`` ``(N, H+2, W+2, cin)`` -> bordered ``(N, H+2, W+2, cout)`` of
+    ``dtype`` (int8 requantised, or bf16 as the last layer) with a zero
+    ring."""
+    y = _layer_plain(src[:, 1:-1, 1:-1, :].permute(0, 3, 1, 2), layer,
+                     dtype == torch.bfloat16)
+    return F.pad(y.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1)).contiguous()
+
+
 def _check_cuda(x8: torch.Tensor, layers: Sequence[Q8ChainLayer]) -> None:
     for i, l in enumerate(layers):
-        for t in (l.wmat, l.scale, l.bias, l.slope):
+        packed = () if l.wpack is None else (l.wpack,)
+        for t in (l.wmat, l.scale, l.bias, l.slope) + packed:
             if t.device != x8.device:
                 raise ValueError(f"layer {i}: tensor on {t.device}, input on {x8.device}")
             if not t.is_contiguous():
@@ -155,7 +210,9 @@ def launch_q8_layer(src: torch.Tensor, dst: torch.Tensor,
                     layer: Q8ChainLayer) -> None:
     """One K8 launch: bordered int8 ``src`` -> interior of bordered ``dst``
     (int8 to requantise, bf16 for the last layer; its ring must be zero)
-    on the current stream."""
+    on the current stream, on the sm90 kernel where :func:`sm90_takes` the
+    layer's shape, else on the ``mma.sync`` kernel.  A failed launch, or a
+    64->64 layer without its packed weights, raises."""
     from upscale_video_tpu_torch.kernels import build
 
     n, hp, wp, cin = src.shape
@@ -167,16 +224,32 @@ def launch_q8_layer(src: torch.Tensor, dst: torch.Tensor,
             f"bordered buffers {tuple(src.shape)}/{src.dtype} -> "
             f"{tuple(dst.shape)}/{dst.dtype} do not fit layer "
             f"{layer.cin}->{layer.cout} (contiguous int8 -> int8|bf16)")
+    sm90 = sm90_takes(layer.cin, layer.cout)
+    weights = layer.wmat
+    if sm90:
+        weights = layer.wpack
+        if (weights is None or weights.dtype != torch.int8
+                or weights.device != src.device or not weights.is_contiguous()
+                or weights.numel() != SM90_WPACK_BYTES
+                or weights.data_ptr() % 16):
+            raise ValueError(
+                f"layer {layer.cin}->{layer.cout}: the sm90 kernel needs its "
+                "packed weights (Q8ChainLayer.wpack from pack_q8_weights_sm90, "
+                "contiguous int8 on the input's device)")
     lib = build.library()
-    code = lib.uvt_conv3x3_chain_q8_layer(
-        src.data_ptr(), dst.data_ptr(), layer.wmat.data_ptr(),
+    fn = (lib.uvt_conv3x3_chain_q8_layer_sm90 if sm90
+          else lib.uvt_conv3x3_chain_q8_layer)
+    code = fn(
+        src.data_ptr(), dst.data_ptr(), weights.data_ptr(),
         layer.scale.data_ptr(), layer.bias.data_ptr(), layer.slope.data_ptr(),
         layer.inv_out, n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
         int(dst.dtype == torch.int8),
         torch.cuda.current_stream(src.device).cuda_stream,
     )
-    build.check(code, "conv3x3_chain_q8 layer launch")
+    build.check(code, "conv3x3_chain_q8 sm90 layer launch" if sm90
+                else "conv3x3_chain_q8 layer launch")
     conv3x3_chain_q8.launches += 1
+    conv3x3_chain_q8.launches_sm90 += sm90
 
 
 def conv3x3_chain_q8(x8: torch.Tensor,
@@ -198,3 +271,4 @@ def conv3x3_chain_q8(x8: torch.Tensor,
 
 
 conv3x3_chain_q8.launches = 0
+conv3x3_chain_q8.launches_sm90 = 0

@@ -8,7 +8,10 @@ U(0.1, 0.3), dequant scale ``1 / (64 * 127)``, requant ``inv_out`` 127, and
 an int8 frame.  The bf16 impls run the same weights times 1/64 on the frame
 over 127.  ``cudnn`` stands where the JAX tool says ``xla`` (per layer one
 cuDNN bf16 ``F.conv2d`` with bias, channels-last, and the PReLU), timed
-only.  Timing is by CUDA events after two warm-up calls, in interleaved
+only.  K8 runs its 64->64 layers on the sm90 kernel (every layer of the
+default body) and other shapes on the ``mma.sync`` kernel; the
+``[launches_sm90]`` line counts the first.  Timing is by CUDA events after
+two warm-up calls, in interleaved
 rounds; ``--k1/--k2``, the tile flags and ``--interpret`` are gone, and
 ``--device cpu`` runs the plain versions as a smoke test.  The parity line
 holds K8 against ``conv3x3_chain_q8_plain`` on the same frame: the integer
@@ -70,7 +73,7 @@ def main(argv=None) -> int:
               "cudnn": lambda: cudnn_body(xb, cw)}
     impls = args.impls.split(",")
     conv3x3_chain_q8.launches = conv3x3_chain.launches = 0
-    conv3x3_chain.launches_sm90 = 0
+    conv3x3_chain_q8.launches_sm90 = conv3x3_chain.launches_sm90 = 0
     ms = bench_common.time_impls({i: bodies[i] for i in impls}, args.reps, dev)
     flop = 2 * 9 * args.height * args.width * c * c * n
     bench_common.report(ms, 1, n, flop, "TOP/s-equiv")
