@@ -29,7 +29,17 @@ contracts, counting kernel launches:
   3-layer K1 chain;
 - ``-m sr=`` of a wide SRVGGNetCompact (nf 160, 4x), converted the same
   way: K4 per body conv (PReLU fused; the 160->160 body on sm90), one K3
-  launch per step.
+  launch per step;
+- ``[png_plane]``: ``--data_plane png --pipe_pix rgb24`` on the default
+  path's 12-frame clip, the default chain (K1 then K2 in its frames
+  layout per fragment; its output byte-compared with the stream plane's
+  rgb24 output) and ``-m a,n=3`` (K6 and the anime K1 chain over all 12
+  frames, then SR per fragment; held to its three ``stage_fn``s on the
+  plain versions), with the port's PNG codec timed on a 4K frame;
+- ``[workflows]``: ``upscale-only-torch`` and ``merge-only-torch`` (equal
+  to the png plane's output), ``-x``, ``test-images-torch -m n=3`` (K6),
+  ``fix-frames-torch`` (equal to the zipped frames) and
+  ``vsr-compare-torch`` on the card.
 
 K2 and K3 run on their Hopper kernels (``csrc/sr_tail_sm90.cu``: K2 on
 K1's narrow ring mainloop for Cf 64, K3 on K4's halo mainloop for Cf a
@@ -242,6 +252,12 @@ K1_NARROW_SHAPES = (
 # its rows, and a frame smaller than one tile
 K1_NARROW_RAGGED = ((2, 37, 53), (1, 67, 130), (1, 5, 7))
 TTA_MIN_PSNR = 45.0            # --tta step vs the same step on the plain versions
+# [png_plane]: the png plane's -m a,n=3 output vs the same three stages
+# (u8 between them, as the plane stores them) on the plain versions, PSNR
+# over the output files' Y4M payloads: only summation-order ulps differ
+# (58.76 dB, 2 LSB measured on an NVIDIA H100 80GB HBM3 at 700 W), the
+# bound ~7 dB under that reading
+PNG_PRELUDE_MIN_PSNR = 52.0
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense, at
 # 700 W): HBM bytes/s and
 # operations/s per type.  The SFU's exp rate is 16 per clock per SM
@@ -906,22 +922,19 @@ def main() -> int:
                 and k["yuv_composed"] == 0)
     e2e = {}
 
-    def drive(tmp, name, c420, frames, rate, extra, synthetic=True):
-        """One CLI run; its kernel launch counts from zero."""
-        src = os.path.join(tmp, f"{name}.y4m")
-        out_path = os.path.join(tmp, f"{name}.out.y4m")
-        work = os.path.join(tmp, f"work_{name}")
-        write_clip(src, c420, seed=1, frames=frames, rate=rate)
-        for fn in counters.values():
-            fn.launches = 0
+    def counted(fn, *args):
+        """``fn(*args)`` with every kernel's launch counts from zero: its
+        result, the counts (also added to the run's totals) and its wall
+        seconds."""
+        for wrapper in counters.values():
+            wrapper.launches = 0
         conv3x3_chain.launches_sm90 = conv3x3_fused.launches_sm90 = 0
         conv3x3_chain.launches_narrow = rdb_block.launches_sm90 = 0
         zero_tail_counts()
         t0 = time.perf_counter()
-        rc = cli_main(["-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
-                       *(["--synthetic_models"] if synthetic else []), *extra])
+        result = fn(*args)
         wall = time.perf_counter() - t0
-        counts = {k: fn.launches for k, fn in counters.items()}
+        counts = {k: wrapper.launches for k, wrapper in counters.items()}
         counts["K1_sm90"] = conv3x3_chain.launches_sm90
         counts["K1_narrow"] = conv3x3_chain.launches_narrow
         counts["K4_sm90"] = conv3x3_fused.launches_sm90
@@ -929,6 +942,18 @@ def main() -> int:
         tail_counts(counts)
         for k, v in counts.items():
             launches[k] += v
+        return result, counts, wall
+
+    def drive(tmp, name, c420, frames, rate, extra, synthetic=True, keep=False):
+        """One CLI run; its kernel launch counts from zero.  ``keep`` leaves
+        its output at ``{tmp}/{name}.out.y4m``."""
+        src = os.path.join(tmp, f"{name}.y4m")
+        out_path = os.path.join(tmp, f"{name}.out.y4m")
+        work = os.path.join(tmp, f"work_{name}")
+        write_clip(src, c420, seed=1, frames=frames, rate=rate)
+        rc, counts, wall = counted(cli_main, [
+            "-i", src, "-o", out_path, "-t", work, "-b", "1", "-r",
+            *(["--synthetic_models"] if synthetic else []), *extra])
         with Y4MSource(out_path) as o:
             geom, cs = (o.width, o.height), o.colorspace
             count = 0
@@ -936,7 +961,8 @@ def main() -> int:
                 count += 1
         left = sorted(os.listdir(os.path.join(work, "upscale_video")))
         frags = seen_fragments[-1]
-        os.remove(out_path)
+        if not keep:
+            os.remove(out_path)
         ok = (rc == 0 and count == frames and tails_on_hopper(counts)
               and cs.startswith("C420" if c420 else "C444")
               and "1.y4m" in frags and "2.y4m" in frags
@@ -955,7 +981,7 @@ def main() -> int:
         steps = steps_of(CLIP_FRAMES, CLIP_RATE, N)
         for name, c420 in (("c420jpeg", True), ("c444", False)):
             ok, geom, cs, count, k, frags, left, wall = drive(
-                tmp, name, c420, CLIP_FRAMES, CLIP_RATE, [])
+                tmp, name, c420, CLIP_FRAMES, CLIP_RATE, [], keep=not c420)
             ok = (ok and geom == (2 * W, 2 * H) and k["K1"] == 17 * steps
                   and k["K2"] == steps
                   and k["K3"] == k["K4"] == k["K5"] == k["K6"] == 0)
@@ -1075,6 +1101,14 @@ def main() -> int:
             if not ok:
                 raise SystemExit(f"end-to-end sr= wide SRVGG run on the {name} "
                                  "clip failed")
+        # the png data plane and the companion workflows on the default
+        # path's clip (c444.y4m), held against its stream-plane output
+        stream_out = os.path.join(tmp, "c444.out.y4m")
+        png_out = png_plane_phases(tmp, drive, e2e, peng, tails_on_hopper,
+                                   steps_of(CLIP_FRAMES, CLIP_RATE, N), stream_out)
+        workflow_phases(tmp, counted, os.path.join(tmp, "c444.y4m"), png_out,
+                        stream_out, tails_on_hopper,
+                        steps_of(CLIP_FRAMES, CLIP_RATE, N))
     HermeticBackend.concat = concat
 
     # device throughput at 1080p -> 4K: the default and a,n=3 steps (4
@@ -1311,6 +1345,8 @@ def main() -> int:
     if any(m == "upscale_video_tpu" or m.startswith("upscale_video_tpu.")
            for m in sys.modules):
         raise SystemExit("the JAX package was imported on the port's path")
+    if any(m == "PIL" or m.startswith("PIL.") for m in sys.modules):
+        raise SystemExit("PIL was imported on the port's path")
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels, "frames_per_s": rates,
                       "e2e_wall_fps": e2e}), flush=True)
@@ -1319,6 +1355,208 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def y4m_payload(path):
+    """The bytes of a Y4M file after its header line (the frames)."""
+    data = np.fromfile(path, np.uint8)
+    return data[int(np.argmax(data == ord("\n"))) + 1:]
+
+
+def png_plane_phases(tmp, drive, e2e, engine, tails_on_hopper, frag_steps,
+                     stream_out):
+    """``[png_plane]``: ``--data_plane png --pipe_pix rgb24`` through the CLI
+    on the 12-frame 1080p clip, the default chain and ``-m a,n=3``, with
+    their kernel launches (the pre-SR passes step over all 12 frames, SR
+    over each fragment); the default chain against the stream plane's
+    rgb24 output (``stream_out``), ``a,n=3`` against its three stage_fns on
+    the plain versions (``engine`` is that chain's); the port codec's ms
+    per 4K frame.  Returns the default run's output path."""
+    import importlib.metadata
+
+    import torch
+
+    from upscale_video_tpu_torch.ops.pixel import psnr
+    from upscale_video_tpu_torch.video import Y4MSink, Y4MSource
+    from upscale_video_tpu_torch.video.png import read_png, write_png
+
+    try:
+        pil = importlib.metadata.version("Pillow")
+    except importlib.metadata.PackageNotFoundError:
+        pil = "absent"
+    png = ["--data_plane", "png", "--pipe_pix", "rgb24"]
+    pre_steps = -(-CLIP_FRAMES // N)  # the pre-SR passes: all 12 frames
+    runs = (("png_c444", [], "c444"), ("png_prelude_c444", ["-m", PRELUDE],
+                                       "prelude_c444"))
+    for name, extra, stream_name in runs:
+        ok, geom, cs, count, k, frags, left, wall = drive(
+            tmp, name, False, CLIP_FRAMES, CLIP_RATE, extra + png, keep=True)
+        anime = ANIME_LAYERS * pre_steps if extra else 0
+        ok = (ok and geom == (2 * W, 2 * H)
+              and k["K6"] == (pre_steps if extra else 0)
+              and k["K1"] == anime + 17 * frag_steps
+              and k["K1_sm90"] == k["K1"]  # every K1 launch on Hopper
+              and k["K1_sm90"] == anime + COMPACT_HOPPER * frag_steps
+              and k["K1_narrow"] == anime + frag_steps
+              and k["K2"] == frag_steps
+              and k["K3"] == k["K4"] == k["K5"] == 0)
+        got = y4m_payload(os.path.join(tmp, f"{name}.out.y4m"))
+        if not extra:  # the stream plane's rgb24 output of the same clip
+            want = y4m_payload(stream_out)
+            vs = "stream plane rgb24"
+        else:  # the three stages on the plain versions, u8 between them
+            with Y4MSource(os.path.join(tmp, f"{name}.y4m")) as src:
+                frames = np.stack(list(src))
+            ref_path = os.path.join(tmp, f"{name}.plain.y4m")
+            with plain_kernels(), Y4MSink(ref_path, 2 * W, 2 * H,
+                                          CLIP_RATE.replace(":", "/")) as sink:
+                for i in range(0, CLIP_FRAMES, N):
+                    x = torch.from_numpy(frames[i:i + N]).to(engine.device)
+                    for stage in ("denoise", "anime", "sr"):
+                        x = engine.stage_fn(stage)(x)
+                    for f in x.cpu().numpy():
+                        sink.write(f)
+            want = y4m_payload(ref_path)
+            os.remove(ref_path)
+            vs = "plain stage_fns"
+        same_size = got.size == want.size
+        lsb = int(np.abs(got.astype(int) - want.astype(int)).max()) \
+            if same_size else -1
+        differ = int((got != want).sum()) if same_size else -1
+        quality = psnr(got, want) if same_size else float("nan")
+        ok = ok and same_size and (
+            lsb <= 1 if not extra else quality >= PNG_PRELUDE_MIN_PSNR)
+        say("png_plane", path=f"-m {PRELUDE}" if extra else "default",
+            clip=name, out=f"{geom[0]}x{geom[1]}", frames=count,
+            pre_sr_steps=pre_steps if extra else 0, sr_steps=frag_steps,
+            k6_launches=k["K6"], k1_launches=k["K1"],
+            k1_sm90_launches=k["K1_sm90"], k1_narrow_launches=k["K1_narrow"],
+            k2_launches=k["K2"], k2_sm90_launches=k["K2_sm90"],
+            yuv_composed=k["yuv_composed"], vs=vs, differing_bytes=differ,
+            max_lsb=lsb, psnr_db=f"{quality:.2f}",
+            bound=(f">={PNG_PRELUDE_MIN_PSNR}dB" if extra else "max_lsb<=1"),
+            workdir_after=left, wall_s=f"{wall:.2f}",
+            wall_fps=f"{e2e[name]:.2f}",
+            stream_wall_fps=f"{e2e[stream_name]:.2f}", ok=ok)
+        if not ok:
+            raise SystemExit(f"the png plane's {name} run failed")
+    # the codec on one 4K output frame: write and read, median of 3
+    with Y4MSource(os.path.join(tmp, "png_c444.out.y4m")) as src:
+        frame = src.read()
+    path = os.path.join(tmp, "codec.png")
+    times = {"write": [], "read": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        write_png(path, frame)
+        times["write"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        back = read_png(path)
+        times["read"].append(time.perf_counter() - t0)
+    ok = bool(np.array_equal(back, frame))
+    say("png_plane", codec="video/png.py", frame=f"{frame.shape[1]}x{frame.shape[0]}",
+        write_ms=f"{1e3 * float(np.median(times['write'])):.1f}",
+        read_ms=f"{1e3 * float(np.median(times['read'])):.1f}",
+        file_mb=f"{os.path.getsize(path) / 1e6:.2f}", pil=pil, ok=ok)
+    os.remove(path)
+    if not ok:
+        raise SystemExit("the PNG codec did not read back what it wrote")
+    return os.path.join(tmp, "png_c444.out.y4m")
+
+
+def workflow_phases(tmp, counted, clip, png_out, stream_out, tails_on_hopper,
+                    frag_steps):
+    """``[workflows]``: the companion CLIs on the card over the 12-frame
+    clip: ``upscale-only-torch`` then ``merge-only-torch`` (equal to the png
+    plane's output), ``-x``, ``test-images-torch -m n=3`` on frames 1 and 3
+    (K6 on the card), ``fix-frames-torch -b 2,5`` after deleting their
+    extracted frames (equal to the zipped frames 2 and 5), and
+    ``vsr-compare-torch`` of the png plane's output against the stream
+    plane's."""
+    import io
+    import zipfile
+
+    from upscale_video_tpu_torch.cli.compare import main as compare_main
+    from upscale_video_tpu_torch.cli.fix_frames import main as fix_main
+    from upscale_video_tpu_torch.cli.merge_only import main as merge_main
+    from upscale_video_tpu_torch.cli.test_images import main as images_main
+    from upscale_video_tpu_torch.cli.upscale_only import main as upscale_main
+    from upscale_video_tpu_torch.cli.upscale_video import main as cli_main
+    from upscale_video_tpu_torch.video.png import read_png
+
+    def sr_on_hopper(k, steps):
+        return (k["K1"] == k["K1_sm90"] == 17 * steps
+                and k["K1_narrow"] == steps and k["K2"] == steps
+                and tails_on_hopper(k))
+
+    split, out_dir = os.path.join(tmp, "wf_split"), os.path.join(tmp, "wf_out")
+    os.makedirs(out_dir)
+    rc, k, wall = counted(upscale_main, ["-i", clip, "-t", split, "-b", "1",
+                                         "--synthetic_models"])
+    zipped = {}
+    with zipfile.ZipFile(os.path.join(split, "upscale_video", "1.zip")) as zf:
+        for f in (2, 5):
+            path = os.path.join(tmp, f"zipped_{f}.png")
+            with open(path, "wb") as fh:
+                fh.write(zf.read(f"{f}.png"))
+            zipped[f] = read_png(path)
+    rc2, _, wall2 = counted(merge_main, ["-o", out_dir, "-t", split])
+    merged = os.path.join(out_dir, "c444.upscaled.y4m")
+    equal = bool(np.array_equal(y4m_payload(merged), y4m_payload(png_out)))
+    ok = rc == rc2 == 0 and sr_on_hopper(k, frag_steps) and equal
+    say("workflows", step="upscale-only-torch + merge-only-torch",
+        k1_launches=k["K1"], k1_sm90_launches=k["K1_sm90"],
+        k2_launches=k["K2"], k2_sm90_launches=k["K2_sm90"],
+        equals_png_plane=equal, upscale_s=f"{wall:.2f}",
+        merge_s=f"{wall2:.2f}", ok=ok)
+    if not ok:
+        raise SystemExit("the split-machine workflow failed")
+
+    xdir = os.path.join(tmp, "wf_x")
+    work = os.path.join(xdir, "upscale_video")
+    rc, k, wall = counted(cli_main, ["-i", clip, "-t", xdir, "-x", "-r"])
+    extracted = sorted(n for n in os.listdir(work) if n.endswith(".extract.png"))
+    samples = os.path.join(tmp, "wf_samples")
+    rc2, k2, wall2 = counted(images_main, ["-i", "1,3", "-t", xdir, "-o",
+                                           samples, "-m", "n=3",
+                                           "--synthetic_models"])
+    names = sorted(os.listdir(samples))
+    want = sorted(f"{f}.{t}.png" for f in (1, 3)
+                  for t in ("extract", "denoise", "n=3"))
+    ok = (rc == rc2 == 0 and len(extracted) == CLIP_FRAMES
+          and sum(k.values()) == 0 and names == want and k2["K6"] == 1
+          and sr_on_hopper(k2, 1))
+    say("workflows", step="-x + test-images-torch -m n=3 -i 1,3",
+        extracted=len(extracted), outputs=names, k6_launches=k2["K6"],
+        k1_launches=k2["K1"], k2_launches=k2["K2"], extract_s=f"{wall:.2f}",
+        sample_s=f"{wall2:.2f}", ok=ok)
+    if not ok:
+        raise SystemExit("the -x and test-images workflow failed")
+
+    for f in (2, 5):
+        os.remove(os.path.join(work, f"{f}.extract.png"))
+    rc, k, wall = counted(fix_main, ["-i", clip, "-b", "2,5", "-t", xdir,
+                                     "--synthetic_models"])
+    equal = {f: bool(np.array_equal(read_png(os.path.join(work, f"{f}.png")),
+                                    zipped[f])) for f in (2, 5)}
+    ok = rc == 0 and sr_on_hopper(k, 1) and all(equal.values())
+    say("workflows", step="fix-frames-torch -b 2,5", k1_launches=k["K1"],
+        k2_launches=k["K2"], equals_png_plane_frames=equal,
+        fix_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise SystemExit("the fix-frames workflow failed")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = compare_main(["-a", stream_out, "-b", png_out, "--json"])
+    wall = time.perf_counter() - t0
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    ok = (rc == 0 and stats["frames"] == CLIP_FRAMES
+          and (stats["identical"] or stats["min_psnr_db"] >= 48.0))
+    say("workflows", step="vsr-compare-torch stream vs png", **stats,
+        compare_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise SystemExit("vsr-compare-torch of the two planes failed")
 
 
 @contextlib.contextmanager

@@ -188,7 +188,8 @@ HOST_COPIES = [
     "video/ffmpeg.py", "video/io.py", "video/backend.py", "video/frames.py",
     "native/__init__.py", "native/buildlib.py", "native/imgproc.py",
     "native/pipeio.py", "cli/common.py", "utils/logsetup.py",
-    "utils/profiling.py", "utils/wake.py",
+    "utils/profiling.py", "utils/wake.py", "pipeline/quality.py",
+    "cli/merge_only.py", "cli/compare.py",
 ]
 
 
@@ -198,6 +199,71 @@ def _without_jax_trace(src: str) -> str:
     src = re.sub(r"- :func:`trace` captures.*?section;\n", "", src, flags=re.S)
     return re.sub(r"@contextlib\.contextmanager\ndef trace\(.*?\n\n\n", "",
                   src, flags=re.S)
+
+
+def _edit(src: str, edits) -> str:
+    """``src`` with each (old, new) replacement made; each old text must
+    occur exactly once."""
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    return src
+
+
+def _io_png_codec(src: str) -> str:
+    """``video/io.py`` with the PNG directory source and sink on the port's
+    codec (``video/png.py``) in place of PIL: the one edit its copy makes."""
+    return _edit(src, [
+        ("``{frame}.{tag}.png`` layout (PIL)",
+         "``{frame}.{tag}.png`` layout (``video/png.py``)"),
+        ("import numpy as np\n",
+         "import numpy as np\n\nfrom upscale_video_tpu_torch.video.png import "
+         "png_size, read_png, write_png\n"),
+        ("        from PIL import Image  # lazy; PIL only needed for PNG mode\n"
+         "\n        self._Image = Image\n", ""),
+        ("        with Image.open(first) as im:\n"
+         "            self.width, self.height = im.size\n",
+         "        self.width, self.height = png_size(first)\n"),
+        ("        with self._Image.open(p) as im:\n"
+         "            arr = np.asarray(im.convert(\"RGB\"))\n",
+         "        arr = read_png(p)\n"),
+        ("        from PIL import Image\n\n        self._Image = Image\n", ""),
+        ("        self._Image.fromarray(frame).save(os.path.join(self.dir, name))\n",
+         "        write_png(os.path.join(self.dir, name), frame)\n"),
+    ])
+
+
+def _ffmpeg_png_verify(src: str) -> str:
+    """``video/ffmpeg.py`` with the repair scan's PIL ``verify`` replaced by
+    the port's CRC check (``video/png.py:verify_png``): its copy's one
+    edit."""
+    return _edit(src, [(
+        '''    """PIL-verify scan used by the repair path (reference
+    upscale_processing.py:658-667)."""
+    from PIL import Image
+
+    bad = []
+    for frame in range(start_frame, end_frame + 1):
+        path = f"{frame}.png"
+        try:
+            with Image.open(path) as im:
+                im.verify()
+        except Exception:
+            bad.append(frame)
+    return bad
+''', '''    """CRC-verify scan (``video/png.py``) used by the repair path
+    (reference upscale_processing.py:658-667)."""
+    from upscale_video_tpu_torch.video.png import verify_png
+
+    return [frame for frame in range(start_frame, end_frame + 1)
+            if not verify_png(f"{frame}.png")]
+''')])
+
+
+# the one named edit of each copy that is not its original verbatim
+COPY_EDITS = {"utils/profiling.py": _without_jax_trace,
+              "video/io.py": _io_png_codec,
+              "video/ffmpeg.py": _ffmpeg_png_verify}
 
 
 def _code(src: str) -> list:
@@ -213,13 +279,16 @@ def test_host_copies_equal_jax_originals(rel):
     """Each copy is its original with ``upscale_video_tpu.`` mapped to
     ``upscale_video_tpu_torch.``, and nothing else changed but the wording
     of a comment (``video/ffmpeg.py`` names the invariant, not the notes
-    file outside the package that states it)."""
+    file outside the package that states it) and the named edit of
+    :data:`COPY_EDITS` (no jax in ``utils/profiling.py``, no PIL in
+    ``video/io.py`` and ``video/ffmpeg.py``)."""
     want = (REPO / "upscale_video_tpu" / rel).read_text()
     want = want.replace("upscale_video_tpu.", "upscale_video_tpu_torch.")
-    if rel == "utils/profiling.py":
-        stripped = _without_jax_trace(want)
-        assert stripped != want and "import jax" not in stripped
-        want = stripped
+    if rel in COPY_EDITS:
+        edited = COPY_EDITS[rel](want)
+        assert edited != want and "import jax" not in edited \
+            and "PIL" not in edited.replace("PIL's", "")
+        want = edited
     got = (REPO / "upscale_video_tpu_torch" / rel).read_text()
     assert _code(got) == _code(want)
 
@@ -264,6 +333,67 @@ def test_cli_runs_with_jax_and_the_jax_package_blocked(tmp_path):
         with Y4MSource("out.y4m") as src:
             frames = list(src)
         assert len(frames) == 3 and frames[0].shape == (24, 32, 3)
+        assert not loaded(), loaded()
+        print("OK")
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(tmp_path), env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+def test_png_plane_and_workflows_run_without_pil(tmp_path):
+    """A meta-path finder refuses ``jax``, ``upscale_video_tpu`` and
+    ``PIL``: on the CPU the port's CLIs still run the png plane, ``-x``,
+    the split-machine pair, the repair, the sampling and ``vsr-compare``
+    over a 16x12 Y4M clip, and none of the three was loaded."""
+    code = textwrap.dedent("""
+        import importlib.abc, os, sys
+
+        BLOCKED = ("jax", "upscale_video_tpu", "PIL")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        def loaded():
+            return [m for m in sys.modules if sys.modules[m] is not None
+                    and any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+
+        assert not loaded(), loaded()
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        from upscale_video_tpu_torch.cli import (
+            compare, fix_frames, merge_only, test_images, upscale_only,
+            upscale_video,
+        )
+        from upscale_video_tpu_torch.video import Y4MSink, Y4MSource
+        rng = np.random.default_rng(0)
+        with Y4MSink("in.y4m", 16, 12, "1/20") as sink:
+            for _ in range(4):
+                sink.write(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8))
+        cpu = ["--synthetic_models", "--device", "cpu"]
+        assert upscale_video.main(["-i", "in.y4m", "-o", "png.y4m", "-t", "w1",
+                                   "-m", "n=3", "--data_plane", "png",
+                                   "-b", "1", *cpu]) == 0
+        assert upscale_only.main(["-i", "in.y4m", "-t", "w2", "-b", "1", *cpu]) == 0
+        assert merge_only.main(["-o", ".", "-t", "w2"]) == 0
+        assert upscale_video.main(["-i", "in.y4m", "-t", "w3", "-x", "-r",
+                                   "--device", "cpu"]) == 0
+        assert test_images.main(["-i", "1", "-t", "w3", "-o", "s", "-m", "n=3",
+                                 *cpu]) == 0
+        os.remove("w3/upscale_video/2.extract.png")
+        assert fix_frames.main(["-i", "in.y4m", "-b", "2", "-t", "w3", *cpu]) == 0
+        assert compare.main(["-a", "in.upscaled.y4m", "-b", "in.upscaled.y4m"]) == 0
+        with Y4MSource("in.upscaled.y4m") as src:
+            frames = list(src)
+        assert len(frames) == 4 and frames[0].shape == (24, 32, 3)
+        assert os.path.exists("w3/upscale_video/2.png")
         assert not loaded(), loaded()
         print("OK")
     """)

@@ -44,12 +44,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-r", "--resume_processing", action="store_true",
                    help="Keep temp_dir state and fast-forward completed work.")
     p.add_argument("-x", "--extract_only", action="store_true",
-                   help="Exit after frame extraction (not ported yet).")
+                   help="Exit after frame extraction (sampling checkpoint; "
+                        "rerun with -r).")
     add_logging_args(p)
     p.add_argument("--global_quality", type=int, default=20,
                    help="Encoder -global_quality.")
     p.add_argument("--data_plane", choices=["stream", "png"], default="stream",
-                   help="stream (ported) or png (not ported yet).")
+                   help="stream = zero-spill pipes (default); png = "
+                        "reference-layout per-frame files (needed before "
+                        "test-images-torch/fix-frames-torch).")
     p.add_argument(
         "--pipe_pix", choices=["auto", "rgb24", "yuv420p"], default="auto",
         help="Stream-plane device contract: yuv420p (4:2:0 in and out on "
@@ -60,12 +63,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Mux the source's audio/subtitle streams into the "
                         "output. Needs -f.")
     p.add_argument("--trace_dir", help="Profiler trace (not ported yet).")
+    add_device_arg(p)
+    return p
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    """``--device``, the one flag the port's model-running CLIs add to the
+    JAX package's."""
     p.add_argument(
         "--device", default="cuda",
         help="torch device: cuda (default; the hand-written kernels) or cpu "
              "(their plain PyTorch versions). cuda without a GPU fails.",
     )
-    return p
 
 
 def check_slice(args) -> None:
@@ -74,7 +83,10 @@ def check_slice(args) -> None:
     and 4, with or without ``--tta``; ``--tile_size`` and ``--precision
     mixed`` for ``-m r`` and ``sr=`` only (an ``sr=`` SRVGG on K1 + K2
     refuses mixed when its model is planned); f32 on the CPU only;
-    ``--conv_impl auto`` (or ``rdb``, what auto is for ``-m r``)."""
+    ``--conv_impl auto`` (or ``rdb``, what auto is for ``-m r``); one GPU;
+    no ``--trace_dir``.  Every CLI of the port that runs a model checks its
+    arguments here (a parser without ``--trace_dir`` has nothing of it to
+    refuse)."""
     bad = []
     real_life = tiled = False
     try:
@@ -98,12 +110,8 @@ def check_slice(args) -> None:
         bad.append(f"-g {args.chips} (more than one GPU)")
     if args.parallel != "dp":
         bad.append(f"--parallel {args.parallel}")
-    if args.trace_dir:
+    if getattr(args, "trace_dir", None):
         bad.append("--trace_dir")
-    if args.data_plane != "stream":
-        bad.append(f"--data_plane {args.data_plane}")
-    if args.extract_only:
-        bad.append("--extract_only")
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch/CUDA package yet: " + ", ".join(bad))
@@ -126,6 +134,7 @@ def main(argv=None) -> int:
         batch_size=args.batch_size,
         chips=args.chips,
         resume_processing=args.resume_processing,
+        extract_only=args.extract_only,
         models=args.models,
         model_path=args.model_path,
         log_level=args.log_level,
@@ -135,6 +144,7 @@ def main(argv=None) -> int:
         halo=args.halo,
         frames_per_step=args.frames_per_step,
         global_quality=args.global_quality,
+        data_plane=args.data_plane,
         synthetic_models=args.synthetic_models,
         copy_audio=args.copy_audio,
         pipe_pix=args.pipe_pix,

@@ -1,10 +1,10 @@
 """Model-chain engine over the port's kernels, and the batched stepper.
 
-Port of ``upscale_video_tpu/pipeline/chain.py:35-162, 166-522, 747-822``,
-restricted to the chains the port covers, on one device.  A step is
-uint8 frames -> model domain -> the pre-SR stages -> the SR stage -> the
-contract's uint8 layout (the packed 4:2:0 one written by an SRVGG tail
-itself, or packed after the frames):
+Port of ``upscale_video_tpu/pipeline/chain.py:35-162, 166-522, 703-741,
+747-822``, restricted to the chains the port covers, on one device.  A
+step is uint8 frames -> model domain -> the pre-SR stages -> the SR stage
+-> the contract's uint8 layout (the packed 4:2:0 one written by an SRVGG
+tail itself, or packed after the frames):
 
 - pre-SR stages (``_prelude``, in the JAX order): ``n=K``, NL-means at
   strength K over the frame batch (one K6 launch), then ``a``, the 1x
@@ -23,6 +23,9 @@ itself, or packed after the frames):
 - ``--tta`` averages the SR stage's model-domain output over the 8
   dihedral transforms (K2's f32 layout for Compact);
 - scale 1 has no SR stage: the pre-SR stages' output is quantized.
+
+``ChainEngine.stage_fn`` runs one of these stages alone, uint8 in and out,
+for the PNG plane (``pipeline/stages.py``).
 """
 
 from __future__ import annotations
@@ -343,6 +346,31 @@ class ChainEngine:
 
         self._yuv_steps[key] = fn
         return fn
+
+    def stage_fn(self, stage: str) -> Callable:
+        """One stage alone as a uint8 RGB (N, H, W, 3) -> uint8 RGB step,
+        for the PNG plane, which writes each stage's frames to disk (JAX
+        chain.py:703-741): ``denoise`` is K6, ``anime`` the anime model's
+        K1 chain, ``sr`` the SR stage (whole-frame K1 then K2 in its frames
+        layout; tiled and ``--tta`` as :meth:`_sr_frames`)."""
+        order = self.channel_order
+        if stage == "denoise":
+            if not self.spec.denoise:
+                raise ValueError("chain has no denoise stage")
+            return lambda f: model_to_frames(self._denoise(self._to_model(f)),
+                                             order)
+        if stage == "anime":
+            if self.anime_model is None:
+                raise ValueError("chain has no anime stage")
+            model = self.anime_model
+            fwd = model.frames_forward("model")
+            return lambda f: model_to_frames(fwd(model.state, self._to_model(f)),
+                                             order)
+        if stage == "sr":
+            if self.sr_model is None:
+                raise ValueError("chain has no SR stage (scale 1)")
+            return lambda f: self._sr_frames(self._to_model(f))
+        raise ValueError(f"unknown stage {stage!r}")
 
     @property
     def input_rank_flexible(self) -> bool:

@@ -1,7 +1,6 @@
-"""Full-pipeline orchestrator: ``process_file`` on the stream plane.
+"""Full-pipeline orchestrator: ``process_file`` on either data plane.
 
-Port of ``upscale_video_tpu/pipeline/process.py:55-264, 302-504`` over the
-port's :class:`~upscale_video_tpu_torch.pipeline.chain.ChainEngine`.  The
+Port of ``upscale_video_tpu/pipeline/process.py:55-558`` over the port's :class:`~upscale_video_tpu_torch.pipeline.chain.ChainEngine`.  The
 video layer (:mod:`upscale_video_tpu_torch.video`: backends, Y4M/PNG/ffmpeg
 I/O, batch math, sentinels) and the logging/timing helpers
 (:mod:`upscale_video_tpu_torch.utils`) are the port's copies of the JAX
@@ -9,8 +8,11 @@ package's jax-free modules, so the temp dir, ``metadata.json``, fragments
 and ``completed.txt`` are laid out exactly as the JAX package lays them
 out.
 
-Not ported yet (each raises ``NotImplementedError``): the PNG data plane,
-``--extract_only`` (both need the stage passes), and multi-host runs.
+The stream plane (the default) decodes, steps and encodes without
+spilling a frame.  The PNG plane (``data_plane="png"``) lays out the
+reference's ``{frame}.{tag}.png`` store through the stage passes of
+:mod:`upscale_video_tpu_torch.pipeline.stages`, and ``extract_only`` stops
+after spilling ``{n}.extract.png``.  Not ported yet: multi-host runs.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 
 from upscale_video_tpu_torch.device import resolve_device
 from upscale_video_tpu_torch.parallel.executor import AsyncSink, PrefetchSource
+from upscale_video_tpu_torch.pipeline import stages
 from upscale_video_tpu_torch.pipeline.chain import (
     BatchedStepper, ChainEngine, ChainSpec, default_frames_per_step,
     precision_dtypes,
@@ -111,14 +114,11 @@ def process_file(
     ``tile_size``/``halo`` tile the SR stage (None = the family's default:
     whole-frame Compact, 544 for ``-m r``); ``precision`` ``auto`` is
     ``mixed`` for ``-m r`` and bf16 otherwise; ``tta`` averages the SR
-    stage over the 8 dihedral transforms of each frame."""
+    stage over the 8 dihedral transforms of each frame; ``data_plane``
+    ``png`` runs the stage passes over PNG files (:func:`_run_png_plane`);
+    ``extract_only`` returns None after spilling ``{n}.extract.png``."""
     if scale not in VALID_SCALES:
         raise ValueError(f"scale must be one of {VALID_SCALES}")
-    if data_plane != "stream":
-        raise NotImplementedError(
-            f"--data_plane {data_plane} is not ported yet (stream plane only)")
-    if extract_only:
-        raise NotImplementedError("--extract_only is not ported yet")
     if not os.path.exists(input_file):
         raise FileNotFoundError(input_file)
     dev = resolve_device(device)
@@ -152,6 +152,11 @@ def process_file(
     per_batch = frames_per_batch(info["frame_rate"], frames_count, batch_size)
     batches = calc_batches(frames_count, per_batch)
 
+    if extract_only:
+        _extract_all(backend, input_file, info, crop, workdir, ffmpeg)
+        log.info("extract only — frames extraction completed")
+        return None
+
     if engine is None:
         compute_dtype, residual_dtype = precision_dtypes(precision, spec)
         engine = ChainEngine.build(
@@ -166,14 +171,25 @@ def process_file(
     log.info("model chain: %s on %s", engine.describe(), dev)
 
     if pipe_pix == "auto":
-        pipe_pix = _auto_pipe_pix(backend, engine, info, crop)
+        pipe_pix = _auto_pipe_pix(backend, engine, info, crop, data_plane)
 
     t0 = time.time()
     with keep_awake():
-        processed = _run_stream_plane(
-            engine, backend, input_file, info, crop, workdir, batches,
-            frames_per_step, pipe_pix=pipe_pix,
-        )
+        if data_plane == "png":
+            if pipe_pix != "rgb24":
+                log.warning(
+                    "--pipe_pix %s applies to the stream plane only — the "
+                    "png plane encodes from RGB files; ignoring", pipe_pix,
+                )
+            processed = _run_png_plane(
+                engine, backend, input_file, info, crop, workdir, batches,
+                frames_per_step, ffmpeg,
+            )
+        else:
+            processed = _run_stream_plane(
+                engine, backend, input_file, info, crop, workdir, batches,
+                frames_per_step, pipe_pix=pipe_pix,
+            )
     elapsed = time.time() - t0
 
     backend.concat(len(batches), output_file, workdir)
@@ -190,14 +206,17 @@ def process_file(
                           pipe_pix=pipe_pix)
 
 
-def _auto_pipe_pix(backend, engine, info, crop) -> str:
+def _auto_pipe_pix(backend, engine, info, crop, data_plane) -> str:
     """Resolve ``--pipe_pix auto``: the 4:2:0 contract whenever it is
-    lossless versus rgb24 (even output geometry, a 4:2:0 8-bit encode
-    target), else rgb24 — the JAX package's policy (process.py:233)."""
+    lossless versus rgb24 (the stream plane, even output geometry, a 4:2:0
+    8-bit encode target), else rgb24 — the JAX package's policy
+    (process.py:233)."""
     src_h, src_w = backend.source_geometry(info, crop)
     out_h, out_w = src_h * engine.scale, src_w * engine.scale
     why = None
-    if out_h % 2 or out_w % 2:
+    if data_plane != "stream":
+        why = "png plane encodes from RGB files"
+    elif out_h % 2 or out_w % 2:
         why = f"odd output geometry {out_w}x{out_h}"
     elif not backend.auto_yuv420(info):
         why = "encode target is not 4:2:0 8-bit"
@@ -221,6 +240,26 @@ def _mux_audio(ffmpeg, output_file, input_file) -> None:
         return
     os.replace(tmp, output_file)
     log.info("muxed original audio/subtitle streams into %s", output_file)
+
+
+def _extract_all(backend, input_file, info, crop, workdir, ffmpeg) -> int:
+    """Spill every frame as ``{n}.extract.png`` (reference :203-255)."""
+    from upscale_video_tpu_torch.video.backend import FfmpegBackend
+
+    if isinstance(backend, FfmpegBackend):
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            result = ff.run_logged(ff.extract_cmd(
+                ffmpeg, input_file if os.path.isabs(input_file)
+                else os.path.join(cwd, input_file), crop))
+            if result.returncode != 0:
+                raise RuntimeError(f"frame extraction failed: {result.stderr[-400:]}")
+        finally:
+            os.chdir(cwd)
+        return info["number_of_frames"]
+    with backend.open_source(input_file, info, crop) as src:
+        return stages.extract_to_pngs(src, workdir)
 
 
 def _run_stream_plane(
@@ -381,4 +420,61 @@ def _run_stream_plane(
     finally:
         source.close()
     timer.log_summary()
+    return processed
+
+
+def _run_png_plane(
+    engine, backend, input_file, info, crop, workdir, batches,
+    frames_per_step, ffmpeg,
+) -> int:
+    """Reference-layout plane: extract PNGs, stage passes with tagged
+    artifacts, fragment encode from final PNGs (upscale_processing.py
+    :866-959 semantics, device-batched instead of process pools).
+
+    Resume: extraction is skipped when the last frame has an artifact at
+    any stage or the last fragment exists; each stage pass skips frames
+    whose input was consumed, each batch whose fragment exists."""
+    frames_count = info["number_of_frames"]
+    all_frames = range(1, frames_count + 1)
+
+    last_frag = os.path.join(workdir, backend.fragment_name(len(batches)))
+    need_extract = not (stages.extraction_done(workdir, frames_count)
+                        or os.path.exists(last_frag))
+    if need_extract:
+        _extract_all(backend, input_file, info, crop, workdir, ffmpeg)
+
+    in_tag = stages.run_chain_stages(engine, workdir, all_frames,
+                                     frames_per_step)
+
+    processed = 0
+    for batch, (start, end) in batches.items():
+        frag = os.path.join(workdir, backend.fragment_name(batch))
+        if os.path.exists(frag):
+            continue
+        if engine.scale == 1:
+            stages.rename_stage_to_final(workdir, range(start, end + 1), in_tag)
+        else:
+            stages.run_stage_pass(
+                workdir, range(start, end + 1), in_tag, "",
+                engine.stage_fn("sr"), engine.device, frames_per_step,
+                progress_label=f"Upscaling batch {batch}:",
+            )
+        src_h, src_w = backend.source_geometry(info, crop)
+        sink = backend.open_fragment_sink(
+            batch, src_w * engine.scale, src_h * engine.scale, info, workdir,
+        )
+        try:
+            try:
+                stages.pngs_to_sink(workdir, start, end, sink)
+            finally:
+                sink.close()
+        except Exception:
+            # never leave a partial fragment for resume to trust
+            if os.path.exists(frag):
+                os.remove(frag)
+            raise
+        for f in range(start, end + 1):
+            os.remove(os.path.join(workdir, f"{f}.png"))
+        processed += end - start + 1
+        log.info("batch %d merged (%d frames total)", batch, end)
     return processed

@@ -303,19 +303,12 @@ def encode_fragment_pngs(
 
 
 def scan_corrupt_pngs(start_frame: int, end_frame: int) -> List[int]:
-    """PIL-verify scan used by the repair path (reference
-    upscale_processing.py:658-667)."""
-    from PIL import Image
+    """CRC-verify scan (``video/png.py``) used by the repair path
+    (reference upscale_processing.py:658-667)."""
+    from upscale_video_tpu_torch.video.png import verify_png
 
-    bad = []
-    for frame in range(start_frame, end_frame + 1):
-        path = f"{frame}.png"
-        try:
-            with Image.open(path) as im:
-                im.verify()
-        except Exception:
-            bad.append(frame)
-    return bad
+    return [frame for frame in range(start_frame, end_frame + 1)
+            if not verify_png(f"{frame}.png")]
 
 
 def concat_fragments(

@@ -14,7 +14,7 @@ Implementations:
 - :class:`Y4MSource` / :class:`Y4MSink` — hermetic uncompressed YUV4MPEG2,
   pure Python; used by tests and available to users without ffmpeg.
 - :class:`PngDirSource` / :class:`PngDirSink` — the reference's
-  ``{frame}.{tag}.png`` layout (PIL), kept for ``--extract_only`` sampling,
+  ``{frame}.{tag}.png`` layout (``video/png.py``), kept for ``--extract_only`` sampling,
   repair, and split-machine compatibility.
 """
 
@@ -27,6 +27,8 @@ from fractions import Fraction
 from typing import IO, Iterator, List, Optional
 
 import numpy as np
+
+from upscale_video_tpu_torch.video.png import png_size, read_png, write_png
 
 
 def as_fraction(frame_rate) -> Fraction:
@@ -343,9 +345,6 @@ class PngDirSource(FrameSource):
     def __init__(self, directory: str, tag: str = "extract",
                  start: int = 1, end: Optional[int] = None,
                  frame_rate: Fraction = Fraction(24, 1)):
-        from PIL import Image  # lazy; PIL only needed for PNG mode
-
-        self._Image = Image
         self.dir = directory
         self.tag = tag
         self.frame_rate = as_fraction(frame_rate)
@@ -354,8 +353,7 @@ class PngDirSource(FrameSource):
         first = self._path(start)
         if not os.path.exists(first):
             raise FileNotFoundError(first)
-        with Image.open(first) as im:
-            self.width, self.height = im.size
+        self.width, self.height = png_size(first)
         if end is not None:
             self.num_frames = end - start + 1
 
@@ -369,17 +367,13 @@ class PngDirSource(FrameSource):
         p = self._path(self._next)
         if not os.path.exists(p):
             return None
-        with self._Image.open(p) as im:
-            arr = np.asarray(im.convert("RGB"))
+        arr = read_png(p)
         self._next += 1
         return arr
 
 
 class PngDirSink(FrameSink):
     def __init__(self, directory: str, tag: str = "", start: int = 1):
-        from PIL import Image
-
-        self._Image = Image
         self.dir = directory
         self.tag = tag
         self._next = start
@@ -387,7 +381,7 @@ class PngDirSink(FrameSink):
 
     def write(self, frame: np.ndarray) -> None:
         name = f"{self._next}.{self.tag}.png" if self.tag else f"{self._next}.png"
-        self._Image.fromarray(frame).save(os.path.join(self.dir, name))
+        write_png(os.path.join(self.dir, name), frame)
         self._next += 1
 
 
