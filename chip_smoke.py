@@ -39,7 +39,22 @@ contracts, counting kernel launches:
 - ``[workflows]``: ``upscale-only-torch`` and ``merge-only-torch`` (equal
   to the png plane's output), ``-x``, ``test-images-torch -m n=3`` (K6),
   ``fix-frames-torch`` (equal to the zipped frames) and
-  ``vsr-compare-torch`` on the card.
+  ``vsr-compare-torch`` on the card;
+- ``[flags]``: the flags the port took last, through the CLI under both
+  contracts: ``--conv_impl xla`` (no kernel launch; against the default
+  run), ``-m n=3 --conv_impl xla`` (no kernel, NL-means plain; against
+  ``-m n=3`` on the default route), ``--conv_impl pallas -m r`` (no K5, every dense conv on K4's sm90
+  kernel; against the ``-m r`` run), ``--precision f32`` on the default
+  path and ``-m r`` (no conv kernel; one small frame within 1 LSB of the
+  CPU), ``--tile_size 256`` (K2 in its f32 model layout on the tile
+  batches), ``--precision mixed`` (byte-equal to the default run),
+  ``--trace_dir`` (the trace names K1's sm90 kernel), ``--tta``, ``-s 1
+  -m a,n=3``, ``-s 4``, ``-m n=3,r`` and ``-m a,r``; then
+  ``test-chips-torch`` on the default chain and on ``-m r`` with one tile.
+  ``[K4_valar]`` holds K4 at Valar's five dense-block shapes on the
+  ``-m r`` tile batch (the ``pallas`` route's) and ``[K2_tiles]`` K2's
+  model layout at ``--tile_size 256``'s tile batch, each against its plain
+  version.
 
 K2 and K3 run on their Hopper kernels (``csrc/sr_tail_sm90.cu``: K2 on
 K1's narrow ring mainloop for Cf 64, K3 on K4's halo mainloop for Cf a
@@ -252,6 +267,23 @@ K1_NARROW_SHAPES = (
 # its rows, and a frame smaller than one tile
 K1_NARROW_RAGGED = ((2, 37, 53), (1, 67, 130), (1, 5, 7))
 TTA_MIN_PSNR = 45.0            # --tta step vs the same step on the plain versions
+# --tile_size on the default chain vs the same tiled step on the plain
+# versions: the --tta bound (the same kernels at other shapes)
+TILED_MIN_PSNR = 45.0
+TILE_BUDGET = 256              # [flags]' --tile_size: 40 tiles of 216x240 at 1080p
+# --conv_impl xla vs the default route on the default chain, over the
+# output files' Y4M payloads: the bound tests/test_torch_slice.py holds
+# the same two routes to on the CPU.  The tail's one rounding point moves
+# (bf16 sum of conv and skip, or K2's f32 one: 1 LSB), and on the card
+# each body layer's f32 sum runs in another order (cuDNN's, K1's), so a
+# bf16 ulp may move and propagate, as for -m r at 2 RRDBs (50 dB, 4 LSB);
+# under -m n=3 NL-means (K6, or its plain version under xla) sums its f32
+# box sums in another order too, which moves the SR input by f32 ulps
+XLA_MIN_PSNR, XLA_MAX_LSB = 50.0, 4
+F32_MAX_LSB = 1                # f32 on the card vs the same run on the CPU
+NO_KERNEL = "no kernel"        # [flags]: a run that launches no hand kernel
+VALAR_DENSE = VALAR_BLOCKS * 5  # --conv_impl pallas -m r: K4 per dense conv
+TRACE_K1 = "chain_layer_sm90"  # K1's sm90 kernel, as a profiler trace names it
 # [png_plane]: the png plane's -m a,n=3 output vs the same three stages
 # (u8 between them, as the plane stores them) on the plain versions, PSNR
 # over the output files' Y4M payloads: only summation-order ulps differ
@@ -767,6 +799,8 @@ def main() -> int:
     del vref
 
     k4_row = k4_phases(dev, errs)
+    k4_row["valar_dense"] = k4_valar_phase(dev, errs, veng)
+    k2_row["tiles_ms"] = k2_tiles_phase(dev, errs)
 
     # K3 against its plain version at 4x1080p in every layout: the wide
     # SRVGG's tail (Cf 160) and a 64-wide one, at 2x and 4x; then timed
@@ -902,18 +936,21 @@ def main() -> int:
                 "K4": conv3x3_fused, "K5": rdb_block, "K6": nl_means_denoise}
     launches = dict.fromkeys(
         [*counters, "K1_sm90", "K1_narrow", "K2_sm90", "K3_sm90", "K4_sm90",
-         "K5_sm90", "yuv_composed"], 0)
+         "K5_sm90", "K2_model", "K3_model", "yuv_composed"], 0)
 
     def tail_counts(k):
-        """K2's and K3's Hopper shares and their composed 4:2:0 packs."""
+        """K2's and K3's Hopper shares, their model-layout launches and
+        their composed 4:2:0 packs."""
         k["K2_sm90"] = sr_tail_chain.launches_sm90
         k["K3_sm90"] = sr_tail_fused.launches_sm90
+        k["K2_model"] = sr_tail_chain.launches_model
+        k["K3_model"] = sr_tail_fused.launches_model
         k["yuv_composed"] = sr_tail_chain.yuv_composed + sr_tail_fused.yuv_composed
         return k
 
     def zero_tail_counts():
         for fn in (sr_tail_chain, sr_tail_fused):
-            fn.launches_sm90 = fn.yuv_composed = 0
+            fn.launches_sm90 = fn.launches_model = fn.yuv_composed = 0
 
     def tails_on_hopper(k):
         """Every K2 and K3 launch of a product path on its Hopper kernel,
@@ -1007,7 +1044,7 @@ def main() -> int:
         for name, c420 in (("valar_c420jpeg", True), ("valar_c444", False)):
             ok, geom, cs, count, k, frags, left, wall = drive(
                 tmp, name, c420, VALAR_CLIP_FRAMES, VALAR_CLIP_RATE,
-                ["-m", "r"])
+                ["-m", "r"], keep=not c420)
             ok = (ok and geom == (4 * W, 4 * H)
                   and k["K5"] == VALAR_BLOCKS * vsteps
                   and k["K5_sm90"] == VALAR_BLOCKS * vsteps
@@ -1109,6 +1146,7 @@ def main() -> int:
         workflow_phases(tmp, counted, os.path.join(tmp, "c444.y4m"), png_out,
                         stream_out, tails_on_hopper,
                         steps_of(CLIP_FRAMES, CLIP_RATE, N))
+        flag_phases(dev, tmp, drive, counted, steps_of, rng)
     HermeticBackend.concat = concat
 
     # device throughput at 1080p -> 4K: the default and a,n=3 steps (4
@@ -1212,6 +1250,24 @@ def main() -> int:
         frames_per_s=f"{1000.0 / vstep_ms:.3f}", card=repr(smi),
         **profile_shares(lambda: veng.step(frames[:1])))
 
+    # the flags' steps: the whole step on library convs (--conv_impl xla,
+    # and f32 with TF32 off), -m r with its dense blocks on K4, and the
+    # default chain tiled
+    flag_engines = {
+        name: ChainEngine.build(ChainSpec.parse(models), 2, dev,
+                                synthetic=True, **kw)
+        for name, models, kw in (
+            ("xla", None, dict(conv_impl="xla")),
+            ("f32", None, dict(compute_dtype=torch.float32)),
+            ("tiled", None, dict(tile=TILE_BUDGET)),
+            ("n3", "n=3", {}),
+            ("xla_n3", "n=3", dict(conv_impl="xla")),
+            ("xla_valar", "r", dict(conv_impl="xla",
+                                    residual_dtype=torch.float32)),
+            ("pallas_valar", "r", dict(conv_impl="pallas",
+                                       residual_dtype=torch.float32)),
+            ("f32_valar", "r", dict(compute_dtype=torch.float32)))}
+    fe = flag_engines
     rates = {}
     for name, fn, reps, per in (
         ("planar_step", lambda: eng.planar_step(frames), 5, N),
@@ -1230,6 +1286,14 @@ def main() -> int:
         ("wide_srvgg_planar_step", lambda: weng.planar_step(frames), 3, N),
         ("plain_wide_srvgg_planar_step",
          lambda: plain_call(weng.planar_step, frames), 1, N),
+        ("xla_planar_step", lambda: fe["xla"].planar_step(frames), 3, N),
+        ("f32_planar_step", lambda: fe["f32"].planar_step(frames), 2, N),
+        ("tiled_step", lambda: fe["tiled"].step(frames), 3, N),
+        ("n3_planar_step", lambda: fe["n3"].planar_step(frames), 3, N),
+        ("xla_n3_planar_step", lambda: fe["xla_n3"].planar_step(frames), 2, N),
+        ("xla_valar_step", lambda: fe["xla_valar"].step(frames[:1]), 1, 1),
+        ("pallas_valar_step", lambda: fe["pallas_valar"].step(frames[:1]), 1, 1),
+        ("f32_valar_step", lambda: fe["f32_valar"].step(frames[:1]), 1, 1),
     ):
         ms = cuda_ms(fn, reps)
         rates[name] = per * 1000.0 / ms
@@ -1237,7 +1301,12 @@ def main() -> int:
             frames_per_step=per, frames_per_s=f"{rates[name]:.3f}",
             card=repr(smi))
 
+    # where --conv_impl pallas -m r's step goes: K4's dense convs, K1, the glue
+    say("valar_pallas_profile", step_ms=f"{1000.0 / rates['pallas_valar_step']:.2f}",
+        card=repr(smi),
+        **profile_shares(lambda: fe["pallas_valar"].step(frames[:1])))
     del eng, peng, teng, veng, eeng, weng, frames, flat, yuv, pyuv
+    del fe, flag_engines
     torch.cuda.empty_cache()
     k7_layer = k7_sm90_phases(dev, errs)
     torch.cuda.empty_cache()
@@ -1557,6 +1626,323 @@ def workflow_phases(tmp, counted, clip, png_out, stream_out, tails_on_hopper,
         compare_s=f"{wall:.2f}", ok=ok)
     if not ok:
         raise SystemExit("vsr-compare-torch of the two planes failed")
+
+
+def flag_phases(dev, tmp, drive, counted, steps_of, rng):
+    """``[flags]``: the flags ported last, each through the CLI on the
+    stream plane under both contracts (one each: ``--trace_dir``), with its
+    launch counts: ``--conv_impl xla`` (no kernel), on the default chain
+    and on ``-m n=3`` (NL-means plain), and ``pallas -m r`` (no K5) against
+    the default route's runs, ``--precision f32`` (no conv
+    kernel) on the default path and ``-m r`` with one small frame against
+    the CPU, ``--tile_size`` (K2's model layout on tile batches),
+    ``--precision mixed`` (byte-equal to bf16), ``--trace_dir`` and the
+    drives ``--tta``, ``-s 1 -m a,n=3``, ``-s 4``, ``-m n=3,r`` and ``-m
+    a,r``; then ``test-chips-torch`` on the default chain and on ``-m r``
+    with one tile."""
+    import json
+    import logging
+
+    import torch
+
+    from upscale_video_tpu_torch.cli import test_chips
+    from upscale_video_tpu_torch.ops.pixel import psnr
+    from upscale_video_tpu_torch.ops.tiling import fit_tile_grid
+    from upscale_video_tpu_torch.pipeline.chain import (
+        TILES_PER_STEP, ChainEngine, ChainSpec,
+    )
+
+    steps = steps_of(CLIP_FRAMES, CLIP_RATE, N)
+    vsteps = steps_of(VALAR_CLIP_FRAMES, VALAR_CLIP_RATE, 1)
+    s4steps = steps_of(VALAR_CLIP_FRAMES, VALAR_CLIP_RATE, N)
+    def ceil(a, b):
+        return -(-a // b)
+
+    th, tw = fit_tile_grid(H, W, TILE_BUDGET)
+    tile_calls = N * ceil(ceil(H, th) * ceil(W, tw), TILES_PER_STEP) * steps
+    conv = ("K1", "K2", "K3", "K4", "K5")
+    trace_dir = os.path.join(tmp, "trace")
+    valar = dict(K5=VALAR_BLOCKS * vsteps, K5_sm90=VALAR_BLOCKS * vsteps,
+                 K4=VALAR_SOLOS * vsteps, K4_sm90=VALAR_SOLOS_SM90 * vsteps,
+                 K1=VALAR_CHAIN * vsteps, K1_sm90=LAST_CHAIN_SM90 * vsteps,
+                 K2=0, K3=0)
+    # name, extra flags, clip (frames, rate), output scale, the launch
+    # counts each run must show (NO_KERNEL: every count, the Hopper and
+    # model-layout shares too, is 0), (reference run, min dB, max LSB) or
+    # None
+    runs = (
+        ("xla", ["--conv_impl", "xla"], (CLIP_FRAMES, CLIP_RATE), 2,
+         NO_KERNEL, ("c444", XLA_MIN_PSNR, XLA_MAX_LSB)),
+        # -m n=3 on the default route, the reference of the same chain
+        # under --conv_impl xla: NL-means on its plain version, no kernel
+        ("n3", ["-m", "n=3"], (CLIP_FRAMES, CLIP_RATE), 2,
+         dict(K6=steps, K1=17 * steps, K2=steps, K3=0, K4=0, K5=0), None),
+        ("n3_xla", ["-m", "n=3", "--conv_impl", "xla"],
+         (CLIP_FRAMES, CLIP_RATE), 2, NO_KERNEL,
+         ("n3_c444", XLA_MIN_PSNR, XLA_MAX_LSB)),
+        ("pallas_valar", ["-m", "r", "--conv_impl", "pallas"],
+         (VALAR_CLIP_FRAMES, VALAR_CLIP_RATE), 4,
+         dict(K5=0, K4=(VALAR_DENSE + VALAR_SOLOS) * vsteps,
+              K4_sm90=(VALAR_DENSE + VALAR_SOLOS_SM90) * vsteps,
+              K1=VALAR_CHAIN * vsteps, K2=0, K3=0),
+         ("valar_c444", *VALAR_PLAIN_BOUNDS[23])),
+        ("f32", ["--precision", "f32"], (CLIP_FRAMES, CLIP_RATE), 2,
+         dict.fromkeys(conv, 0), None),
+        ("f32_valar", ["-m", "r", "--precision", "f32"],
+         (VALAR_CLIP_FRAMES, VALAR_CLIP_RATE), 4, dict.fromkeys(conv, 0), None),
+        ("tiled", ["--tile_size", str(TILE_BUDGET)], (CLIP_FRAMES, CLIP_RATE),
+         2, dict(K1=17 * tile_calls, K1_sm90=COMPACT_HOPPER * tile_calls,
+                 K2=tile_calls, K2_model=tile_calls, K3=0, K4=0, K5=0), None),
+        ("mixed", ["--precision", "mixed"], (CLIP_FRAMES, CLIP_RATE), 2,
+         dict(K1=17 * steps, K2=steps, K2_model=0, K5=0), ("c444", 99.0, 0)),
+        ("trace", ["--trace_dir", trace_dir], (CLIP_FRAMES, CLIP_RATE), 2,
+         dict(K1=17 * steps, K2=steps), None),
+        ("tta", ["--tta"], (CLIP_FRAMES, CLIP_RATE), 2,
+         dict(K1=8 * 17 * steps, K1_sm90=8 * COMPACT_HOPPER * steps,
+              K2=8 * steps, K2_model=8 * steps), None),
+        ("s1_prelude", ["-s", "1", "-m", PRELUDE], (CLIP_FRAMES, CLIP_RATE), 1,
+         dict(K6=steps, K1=ANIME_LAYERS * steps,
+              K1_narrow=ANIME_LAYERS * steps, K2=0), None),
+        ("s4", ["-s", "4"], (VALAR_CLIP_FRAMES, VALAR_CLIP_RATE), 4,
+         dict(K1=17 * s4steps, K1_sm90=COMPACT_HOPPER * s4steps,
+              K2=s4steps, K2_sm90=s4steps, K5=0), None),
+        ("n3_valar", ["-m", "n=3,r"], (VALAR_CLIP_FRAMES, VALAR_CLIP_RATE), 4,
+         dict(valar, K6=vsteps), None),
+        ("anime_valar", ["-m", "a,r"], (VALAR_CLIP_FRAMES, VALAR_CLIP_RATE), 4,
+         dict(valar, K1=(ANIME_LAYERS + VALAR_CHAIN) * vsteps,
+              K1_sm90=(ANIME_LAYERS + LAST_CHAIN_SM90) * vsteps, K6=0), None),
+    )
+    # the runs whose c444 output a later run is held against
+    own = {f"{r[0]}_c444" for r in runs}
+    refs = {ref[0] for *_, ref in runs if ref and ref[0] in own}
+    for name, extra, (frames, rate), scale, want, ref in runs:
+        for c420 in ((False,) if name == "trace" else (True, False)):
+            run = f"{name}_{'c420jpeg' if c420 else 'c444'}"
+            ok, geom, cs, count, k, frags, left, wall = drive(
+                tmp, run, c420, frames, rate, extra,
+                keep=ref is not None or run in refs)
+            ok = (ok and geom == (scale * W, scale * H)
+                  and (all(v == 0 for v in k.values()) if want is NO_KERNEL
+                       else all(k[key] == v for key, v in want.items())))
+            vs = {}
+            if ref is not None and not c420:
+                got = y4m_payload(os.path.join(tmp, f"{run}.out.y4m"))
+                base = y4m_payload(os.path.join(tmp, f"{ref[0]}.out.y4m"))
+                same = got.size == base.size
+                lsb = (int(np.abs(got.astype(int) - base.astype(int)).max())
+                       if same else -1)
+                quality = psnr(got, base) if same else float("nan")
+                vs = dict(vs=ref[0], psnr_db=f"{quality:.2f}", max_lsb=lsb,
+                          bound=f">={ref[1]}dB,max_lsb<={ref[2]}")
+                ok = ok and same and quality >= ref[1] and 0 <= lsb <= ref[2]
+            if ref is not None:
+                os.remove(os.path.join(tmp, f"{run}.out.y4m"))
+                if not c420 and ref[0] in refs:
+                    os.remove(os.path.join(tmp, f"{ref[0]}.out.y4m"))
+            if name == "trace":  # the trace names K1's sm90 kernel
+                (trace,) = os.listdir(trace_dir)
+                with open(os.path.join(trace_dir, trace)) as f:
+                    events = json.load(f)["traceEvents"]
+                k1_sm90 = sum(TRACE_K1 in str(e.get("name", "")) for e in events)
+                vs = dict(trace=trace, events=len(events),
+                          k1_sm90_events=k1_sm90)
+                ok = ok and k1_sm90 > 0
+            os.remove(os.path.join(tmp, f"{run}.y4m"))
+            say("flags", run=run, flags=" ".join(extra).replace(tmp, "<tmp>"),
+                out=f"{geom[0]}x{geom[1]}", colorspace=cs, frames=count,
+                **{f"{key.lower()}_launches": v for key, v in k.items() if v},
+                **vs, wall_s=f"{wall:.2f}", ok=ok)
+            if not ok:
+                raise SystemExit(f"the {run} run failed: expected {want}")
+
+    # f32 on the card: no conv kernel, and one small frame within
+    # F32_MAX_LSB of the same step on the CPU, default path and -m r
+    small = torch.from_numpy(np.stack([write_frame(64, 96, 0, rng)]))
+    for models, scale in ((None, 2), ("r", 4)):
+        spec = ChainSpec.parse(models)
+        card = ChainEngine.build(spec, scale, dev, compute_dtype=torch.float32,
+                                 synthetic=True)
+        cpu = ChainEngine.build(spec, scale, "cpu", compute_dtype=torch.float32,
+                                synthetic=True)
+        out, k, _ = counted(lambda: card.step(small.to(dev)).cpu().numpy())
+        ref = cpu.step(small).numpy()
+        lsb = int(np.abs(out.astype(int) - ref.astype(int)).max())
+        ok = lsb <= F32_MAX_LSB and all(k[key] == 0 for key in conv)
+        say("flags", check="f32 card vs cpu", path=f"-m {models}" if models
+            else "default", shape=out.shape, max_lsb=lsb,
+            frac_differ=f"{(out != ref).mean():.3e}",
+            conv_launches=sum(k[key] for key in conv),
+            bound=f"max_lsb<={F32_MAX_LSB}", ok=ok)
+        if not ok:
+            raise SystemExit(f"f32 on the card disagrees with the CPU "
+                             f"({models or 'default'})")
+        del card, cpu
+    torch.cuda.empty_cache()
+
+    # test-chips-torch in this process (its launches counted): the default
+    # chain over two depths, -m r at 1080p with one tile
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep()
+    logging.getLogger("upscale_video_tpu_torch.pipeline.calibrate").addHandler(keep)
+    # the tool's default frame for each: 540x960, and 1080p for -m r
+    for path, argv, points, kernel in (
+            ("default", ["-r", "3", "--batch_depths", "1,4", "--height",
+                         str(H // 2), "--width", str(W // 2)], 2, "K2"),
+            ("-m r", ["-m", "r", "-r", "1", "--batch_depths", "1",
+                      "--tiles", "544x480", "--height", str(H), "--width",
+                      str(W)], 1, "K5")):
+        lines.clear()
+        rc, k, wall = counted(test_chips.main, ["--synthetic_models", "--device",
+                                                str(dev), *argv])
+        timed = [ln for ln in lines if "frames_per_step=" in ln]
+        best = [ln for ln in lines if ln.startswith("best: ")]
+        ok = rc == 0 and len(timed) == points and len(best) == 1 and k[kernel] > 0
+        say("test_chips", path=path, points=" | ".join(timed),
+            best=best[0] if best else None,
+            **{f"{key.lower()}_launches": v for key, v in k.items() if v},
+            wall_s=f"{wall:.2f}", ok=ok)
+        if not ok:
+            raise SystemExit(f"test-chips-torch ({path}) failed")
+    logging.getLogger("upscale_video_tpu_torch.pipeline.calibrate").removeHandler(keep)
+
+
+def k2_tiles_phase(dev, errs) -> dict:
+    """``[K2_tiles]``: K1 then K2 in its f32 model layout over the tile
+    batch ``--tile_size 256`` gives the SR stage at 1080p (8 tiles of
+    216x240 plus a 16-pixel halo) and over 8 of (256+32)x(256+32), each
+    against K2's plain version on the same K1 output; timed beside it;
+    then the tiled 1080p step against the same step on the plain
+    versions."""
+    import torch
+
+    from upscale_video_tpu_torch.models.executor import chain_layers
+    from upscale_video_tpu_torch.models.zoo import make_synthetic_model
+    from upscale_video_tpu_torch.ops.conv_chain import conv3x3_chain
+    from upscale_video_tpu_torch.ops.pixel import psnr
+    from upscale_video_tpu_torch.ops.tail import (
+        sr_tail_chain, sr_tail_chain_plain,
+    )
+    from upscale_video_tpu_torch.ops.tiling import fit_tile_grid
+    from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
+
+    model = make_synthetic_model(scale=2, seed=0, device=dev)
+    fwd = model.frames_forward("model")
+    layers = chain_layers(fwd.items, model.state)
+    tail = model.state[fwd.tail["conv"]]
+    th, tw = fit_tile_grid(H, W, TILE_BUDGET)
+    row = {}
+    for h, w in ((th + 32, tw + 32), (TILE_BUDGET + 32, TILE_BUDGET + 32)):
+        x = image_like(8, h, w, seed=h, device=dev).to(torch.bfloat16)
+        buf = conv3x3_chain(x, layers, crop=False)
+        args = (buf, x, tail.wmat, tail.bias, 2, "model")
+        before = sr_tail_chain.launches_model
+        got = sr_tail_chain(*args, False, tail.wpack_tail)
+        if sr_tail_chain.launches_model != before + 1:
+            raise SystemExit("K2 did not count its model-layout launch")
+        tail_check("K2_tiles", got, sr_tail_chain_plain(*args), layout="model",
+                   tiles=f"8x{h}x{w}", kernel="sm90")
+        ms = cuda_ms(lambda: sr_tail_chain(*args, False, tail.wpack_tail), 20)
+        plain_ms = cuda_ms(lambda: sr_tail_chain_plain(*args), 3)
+        nbytes = (buf.numel() * 2 + x.numel() * 2 + tail.wmat.numel() * 2
+                  + 8 * h * w * 12 * 4)
+        bound = roofline(nbytes, {"bf16": 2 * 9 * 64 * 12 * 8 * h * w})
+        say("K2_tiles", tiles=f"8x{h}x{w}", layout="model", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound[0]:.4f}",
+            bound_by=bound[1], share=f"{bound[0] / ms:.3f}")
+        row[f"{h}x{w}"] = ms
+        del x, buf, got
+    eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True,
+                            tile=TILE_BUDGET)
+    frame = torch.from_numpy(np.stack([write_frame(H, W, 0,
+                                                   np.random.default_rng(2))]))
+    out = eng.step(frame.to(dev)).cpu().numpy()
+    ref = plain_call(eng.step, frame.to(dev)).cpu().numpy()
+    quality = psnr(out, ref)
+    ok = quality >= TILED_MIN_PSNR and out.shape == (1, 2 * H, 2 * W, 3)
+    say("tiled_step_vs_plain", tile=f"{th}x{tw}", shape=out.shape,
+        psnr_db=f"{quality:.2f}",
+        max_lsb=int(np.abs(out.astype(int) - ref.astype(int)).max()),
+        bound=f">={TILED_MIN_PSNR}dB", ok=ok)
+    if not ok:
+        raise SystemExit("the tiled step disagrees with its plain step")
+    del eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def k4_valar_phase(dev, errs, veng) -> dict:
+    """``[K4_valar]``: K4 at Valar's five dense-block shapes as ``--conv_impl
+    pallas`` runs them on the ``-m r`` tile batch (8x576x512): each conv
+    reads its channel prefix of one 192-channel buffer and writes its
+    channels behind it (the last a tensor of its own), with block r0d0's
+    weights, against its plain version on the same channels; each timed
+    beside the plain version and cuDNN, with its bound."""
+    import torch
+
+    from upscale_video_tpu_torch.models.executor import _solo_args, build_forward
+    from upscale_video_tpu_torch.ops.conv3x3 import (
+        conv3x3_fused, conv3x3_fused_plain,
+    )
+
+    model = veng.sr_model
+    pfwd = build_forward(model.graph, dev, torch.bfloat16, "model",
+                         torch.float32, conv_impl="pallas")
+    names = [f"r0d0_c{k}" for k in (1, 4, 9, 12, 16)]
+    plans = [pfwd.dense[n] for n in names]
+    if [p["cin"] for p in plans] != [c for c, _ in K4_DENSE]:
+        raise SystemExit(f"the pallas plan's dense convs read {plans}")
+    g = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn((*TILES, K4_DENSE[-1][0]), generator=g,
+                      device=dev).to(torch.bfloat16)
+    times = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for name, plan, (cin, cout) in zip(names, plans, K4_DENSE):
+        args = _solo_args(pfwd.solos[name], model.state)
+        x = buf[..., :cin]
+        dst = buf.clone() if plan["out_off"] is not None else None
+        before = conv3x3_fused.launches_sm90
+
+        def run():
+            return conv3x3_fused(x, *args, out=dst, out_off=plan["out_off"] or 0)
+
+        got = run()
+        if conv3x3_fused.launches_sm90 != before + 1:
+            raise SystemExit(f"K4 at Valar's {cin}->{cout} missed its sm90 kernel")
+        want = conv3x3_fused_plain(x, *args)
+        worst, differ, ok = compare(got, want, K1_LAYER_ATOL, K1_LAYER_RTOL)
+        if dst is not None:  # only its own channels written
+            ok = ok and torch.equal(dst[..., :plan["out_off"]],
+                                    buf[..., :plan["out_off"]])
+        ms = cuda_ms(run, 5)
+        plain_ms = cuda_ms(lambda: conv3x3_fused_plain(x, *args), 2)
+        w_cl, b16 = conv_weight_cl(args[0]), args[1].to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: cudnn_conv(x, w_cl, b16), 5)
+        nbytes, flop = conv_work(*TILES, cin, cout)
+        bound = roofline(nbytes, {"bf16": flop})
+        say("K4_valar", conv=name, shape="x".join(map(str, (*TILES, cin))),
+            cout=cout, out_off=plan["out_off"], post_add=plan["post_add"],
+            max_abs_err=worst, frac_differ=f"{differ:.3e}",
+            bound="atol=2**-10,rtol=2**-7", ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.3f}", cudnn_ms=f"{lib_ms:.4f}",
+            bound_ms=f"{bound[0]:.4f}", bound_by=bound[1],
+            share_of_bound=f"{bound[0] / ms:.3f}", ok=ok)
+        if not ok:
+            raise SystemExit(f"K4 disagrees with its plain version at Valar's "
+                             f"{name}")
+        errs["K4"] = max(errs["K4"], worst)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", bound[0])):
+            times[key] += v
+        del got, want, dst
+    del buf
+    torch.cuda.empty_cache()
+    say("K4_valar", per="the five convs of one Valar dense block, 8x576x512",
+        **{k: f"{v:.3f}" for k, v in times.items()})
+    return times
 
 
 @contextlib.contextmanager

@@ -45,6 +45,7 @@ from upscale_video_tpu_torch.ops.conv3x3 import (
 )
 from upscale_video_tpu_torch.ops.pixel import planar_to_frames
 from upscale_video_tpu_torch.ops.tail import sr_tail_fused
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 ACTS = (ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU)
 # every conv_first and ESRGAN width in, every out width; the activations
@@ -327,6 +328,6 @@ def test_srvgg_plan_takes_k3_where_the_body_is_no_chain(num_conv, num_feat, kind
     assert fwd.tail["conv"] == "conv_up"
     assert sorted(fwd.solos) == [f"conv_{i}" for i in range(num_conv + 1)]
     assert all(s["prelu"] == f"prelu_{s['name'][5:]}" for s in fwd.solos.values())
-    with pytest.raises(NotImplementedError, match="mixed"):
-        build_forward(make_srvgg_graph(), "cpu", torch.bfloat16, "planar",
-                      torch.float32)
+    # mixed keeps the same plan (K2's skip add is f32 already)
+    assert isinstance(build_forward(make_srvgg_graph(), "cpu", torch.bfloat16,
+                                    "planar", torch.float32), SRVGGForward)

@@ -22,6 +22,7 @@ from upscale_video_tpu_torch.ops.conv_chain import (
     conv3x3_chain_plain, embed, in_width, make_layer, narrow_plan,
     out_width, pack_narrow_weights, sm90_takes,
 )
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def _specs(rng, widths_acts):

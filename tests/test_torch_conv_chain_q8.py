@@ -34,6 +34,7 @@ from upscale_video_tpu_torch.ops.conv_chain_q8 import (
     q8_layers_from_jax, q8_oracle, requantize, sm90_takes,
 )
 from tests.test_torch_winograd import run_bench_blocked
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def make_q8_layers(rng, specs):

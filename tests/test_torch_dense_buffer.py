@@ -26,6 +26,7 @@ from upscale_video_tpu_torch.models.ops import OP_REGISTRY
 from upscale_video_tpu_torch.models.param_parser import NcnnGraph, NcnnLayer
 from upscale_video_tpu_torch.models.torch_import import import_torch_checkpoint
 from upscale_video_tpu_torch.models.zoo import Model, make_rrdb_graph
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 NUM_RRDB = 2
 

@@ -36,6 +36,7 @@ from upscale_video_tpu_torch.ops.conv_chain import (
 from upscale_video_tpu_torch.ops.tail import sr_tail_chain
 from upscale_video_tpu_torch.ops.yuv import packed_to_i420, yuv420_from_frames
 from upscale_video_tpu_torch.pipeline.chain import ChainSpec
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -400,6 +401,58 @@ def test_png_plane_and_workflows_run_without_pil(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(tmp_path), env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+def test_trace_dir_and_test_chips_run_with_jax_blocked(tmp_path):
+    """With ``jax``, ``upscale_video_tpu`` and ``PIL`` refused:
+    ``upscale-video-torch --trace_dir`` on the CPU leaves one readable
+    Chrome trace naming the run's convs, and ``test-chips-torch`` runs its
+    sweep on a tiny frame; none of the three was loaded."""
+    code = textwrap.dedent("""
+        import importlib.abc, json, os, sys
+
+        BLOCKED = ("jax", "upscale_video_tpu", "PIL")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        def loaded():
+            return [m for m in sys.modules if sys.modules[m] is not None
+                    and any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        from upscale_video_tpu_torch.cli import test_chips, upscale_video
+        from upscale_video_tpu_torch.video import Y4MSink
+        rng = np.random.default_rng(0)
+        with Y4MSink("in.y4m", 16, 12, "24/1") as sink:
+            for _ in range(2):
+                sink.write(rng.integers(0, 256, (12, 16, 3), dtype=np.uint8))
+        assert upscale_video.main(["-i", "in.y4m", "-o", "out.y4m", "-t", "w",
+                                   "--synthetic_models", "--device", "cpu",
+                                   "--trace_dir", "tr"]) == 0
+        (name,) = os.listdir("tr")
+        assert name.endswith(".pt.trace.json"), name
+        with open(os.path.join("tr", name)) as f:
+            events = json.load(f)["traceEvents"]
+        assert any("conv" in str(e.get("name", "")) for e in events)
+        assert test_chips.main(["--synthetic_models", "--device", "cpu",
+                                "--height", "8", "--width", "12", "-r", "1",
+                                "--batch_depths", "1,2"]) == 0
+        assert not loaded(), loaded()
+        print("OK")
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "2"  # beside the suite's other workers
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=str(tmp_path), env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]

@@ -22,6 +22,7 @@ from upscale_video_tpu.models import executor as jax_executor
 from upscale_video_tpu_torch.models import ops as port_ops
 from upscale_video_tpu_torch.models.param_parser import NcnnLayer
 from upscale_video_tpu_torch.models.zoo import params_from_jax
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 

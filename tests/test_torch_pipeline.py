@@ -24,6 +24,7 @@ from upscale_video_tpu.video.io import Y4MSink, Y4MSource
 from upscale_video_tpu_torch.cli.upscale_video import main as cli_main
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
+from tests.torch_fixtures import one_torch_thread, two_rrdbs  # noqa: F401
 
 N_FRAMES, H, W = 5, 12, 16
 
@@ -117,17 +118,11 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-m", "a,sr=x_Foo", "--precision", "mixed"],
-    ["--tta", "--tile_size", "480"], ["--tile_size", "480"],
-    ["--conv_impl", "pallas"], ["-g", "0,1"], ["--parallel", "sp"],
-    ["--trace_dir", "tr"],
-    ["--precision", "mixed"], ["--precision", "f32", "--device", "cuda"],
-    ["-m", "r,a", "--conv_impl", "xla"], ["-m", "sr=x_Foo", "--conv_impl", "xla"],
-    ["-m", "a,n=3", "--precision", "mixed"],
-    ["-m", "r", "--conv_impl", "xla"], ["--conv_impl", "rdb"],
-    ["-m", "r", "--precision", "f32", "--device", "cuda"],
+    ["-g", "0,1"], ["-g", "0,0,1"], ["--parallel", "sp"], ["--parallel", "tp"],
 ])
 def test_cli_flags_outside_the_slice_raise(tmp_path, flags):
+    """More than one GPU and ``--parallel sp|tp`` are all that the port
+    refuses, before any work."""
     src = str(tmp_path / "in.y4m")
     _write_clip(src, c420=False)
     argv = ["-i", src, "-t", str(tmp_path / "t"), "--synthetic_models"]
@@ -135,3 +130,51 @@ def test_cli_flags_outside_the_slice_raise(tmp_path, flags):
         argv += ["--device", "cpu"]
     with pytest.raises(NotImplementedError):
         cli_main(argv + flags)
+    assert not os.path.exists(tmp_path / "t")
+
+
+@pytest.mark.parametrize("flags,scale", [
+    (["-m", "a,sr=x_Foo", "--precision", "mixed"], 2),
+    (["--tta", "--tile_size", "480"], 2), (["--tile_size", "8"], 2),
+    (["--tile_size", "8x12", "--pipe_pix", "yuv420p"], 2),
+    (["--conv_impl", "pallas"], 2), (["--trace_dir", "tr"], 2),
+    (["--precision", "mixed"], 2), (["--precision", "f32"], 2),
+    (["-m", "r,a", "--conv_impl", "xla"], 4),
+    (["-m", "sr=x_Foo", "--conv_impl", "xla"], 2),
+    (["-m", "a,n=3", "--precision", "mixed"], 2),
+    (["-m", "r", "--conv_impl", "pallas"], 4), (["--conv_impl", "rdb"], 2),
+    (["-m", "r", "--precision", "f32"], 4),
+])
+def test_cli_ported_flags_run(tmp_path, two_rrdbs, flags, scale):
+    """Each flag the port once refused runs end to end on the CPU: every
+    frame, at the chain's scale (``-m r`` at 2 RRDBs)."""
+    src = str(tmp_path / "in.y4m")
+    _write_clip(src, c420="yuv420p" in flags)
+    out = str(tmp_path / "out.y4m")
+    flags = [str(tmp_path / f) if f == "tr" else f for f in flags]
+    assert cli_main(["-i", src, "-o", out, "-t", str(tmp_path / "t"),
+                     "--synthetic_models", "--device", "cpu", *flags]) == 0
+    with Y4MSource(out) as o:
+        assert (o.width, o.height) == (scale * W, scale * H)
+        assert sum(1 for _ in o) == N_FRAMES
+    if "--trace_dir" in flags:
+        assert os.listdir(tmp_path / "tr")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--precision", "f32"], ["-m", "r", "--precision", "f32"],
+    ["--conv_impl", "xla"],
+])
+def test_cli_cuda_runs_pass_the_slice_check(tmp_path, flags):
+    """f32 and the routes on CUDA pass ``check_slice``; on a host without a
+    GPU the run then fails on the device, not on the flag."""
+    from upscale_video_tpu_torch.cli.upscale_video import build_parser, check_slice
+
+    src = str(tmp_path / "in.y4m")
+    _write_clip(src, c420=False)
+    argv = ["-i", src, "-t", str(tmp_path / "t"), "--synthetic_models",
+            "--device", "cuda", *flags]
+    check_slice(build_parser().parse_args(argv))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli_main(argv)

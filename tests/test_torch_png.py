@@ -21,6 +21,7 @@ from PIL import Image
 from upscale_video_tpu_torch.video.png import (
     png_size, read_png, verify_png, write_png,
 )
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 SHAPES = [(1, 1), (1, 5), (3, 1), (7, 13), (12, 16), (33, 40)]
 

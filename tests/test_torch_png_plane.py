@@ -30,6 +30,7 @@ from upscale_video_tpu_torch.cli.upscale_video import main as cli_main
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
 from upscale_video_tpu_torch.video.png import read_png
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 N_FRAMES, H, W = 5, 12, 16
 

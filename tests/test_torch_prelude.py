@@ -7,8 +7,8 @@ Tolerances, each with its reason:
 - NL-means: ``atol=2e-6`` against both JAX versions, the JAX package's
   own tolerance between them (tests/test_nlmeans_pallas.py:26).  Only the
   f32 summation order of the box sums and the channel mean differs.
-- f32 steps (the port's plain versions, the JAX XLA path): within 1 u8
-  LSB, PARITY.md's contract.
+- f32 steps (the port's aten route and K6's plain version, the JAX XLA
+  path): within 1 u8 LSB, PARITY.md's contract.
 - bf16 ``a,n=3``: within 1 u8 LSB of the JAX Pallas path
   (``conv_impl="pallas"``), which rounds at the same points as K1/K2 (once
   per conv, after bias and activation).
@@ -51,6 +51,7 @@ from upscale_video_tpu_torch.ops.nlmeans import (
 from upscale_video_tpu_torch.ops.tta import dihedral, inverse_dihedral
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 
 def _max_lsb(a, b):

@@ -43,6 +43,7 @@ from upscale_video_tpu_torch.ops.rdb import (
     pack_rdb_weights, pack_rdb_weights_sm90, rdb_block, rdb_block_plain,
     sm90_blocks, sm90_swizzle,
 )
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 # The tile plan that csrc/rdb_block_sm90.cu states (its static_asserts hold
 # the same numbers at compile time): 12x16 output pixels per tile, halo 5;

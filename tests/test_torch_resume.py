@@ -25,6 +25,7 @@ from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
 from upscale_video_tpu_torch.video.io import Y4MSink, Y4MSource
 from upscale_video_tpu_torch.ops.yuv import packed_to_i420, yuv420_from_frames
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 N_FRAMES, H, W = 7, 12, 16
 RATE = Fraction(1, 20)  # 3 frames a minute: -b 1 gives fragments 3, 3, 1
@@ -161,3 +162,94 @@ def test_killed_run_resumes_to_the_same_bytes(tmp_path, engines, hooked,
     with open(out, "rb") as f:
         assert f.read() == want
     assert sorted(os.listdir(work)) == ["completed.txt", "metadata.json"]
+
+
+class HardKill(BaseException):
+    """A kill that no ``except Exception`` sees, as SIGKILL or a power loss
+    leaves a run: nothing cleans up after it."""
+
+
+@pytest.mark.parametrize("name", ["stream_rgb24_planar", "stream_yuv420p", "png"])
+def test_hard_kill_leaves_no_partial_fragment(tmp_path, engines, monkeypatch,
+                                              name):
+    """Killed mid-fragment (the second frame of fragment 2), a run leaves
+    fragment 1 whole and nothing under fragment 2's name (it was being
+    written beside it), so the resumed run redoes fragment 2 and writes the
+    uninterrupted run's bytes.  A fragment written in place would be left
+    holding one frame, and resume would skip it."""
+    src = str(tmp_path / "in.y4m")
+    _write_clip(src, CONTRACTS[name][4])
+    ref_out = str(tmp_path / "ref.y4m")
+    _run(src, ref_out, str(tmp_path / "ref"), engines[name], name, False)
+    with open(ref_out, "rb") as f:
+        want = f.read()
+
+    sink_write, writes = Y4MSink.write, {"n": 0}
+
+    def write(self, frame):
+        writes["n"] += 1
+        if writes["n"] == FRAGMENTS[0] + 2:
+            raise HardKill("killed in fragment 2")
+        sink_write(self, frame)
+
+    monkeypatch.setattr(Y4MSink, "write", write)
+    out, tdir = str(tmp_path / "out.y4m"), str(tmp_path / "t")
+    with pytest.raises(HardKill):
+        _run(src, out, tdir, engines[name], name, False)
+    work = os.path.join(tdir, "upscale_video")
+    assert _frames_in(os.path.join(work, "1.y4m")) == FRAGMENTS[0]
+    assert not os.path.exists(os.path.join(work, "2.y4m"))
+    monkeypatch.setattr(Y4MSink, "write", sink_write)
+    _run(src, out, tdir, engines[name], name, True)
+    with open(out, "rb") as f:
+        assert f.read() == want
+    assert sorted(os.listdir(work)) == ["completed.txt", "metadata.json"]
+
+
+def test_resume_skips_a_whole_jax_fragment(tmp_path, engines, monkeypatch):
+    """A temp dir a JAX run left (killed at fragment 2's first frame; its
+    cleanup removed that fragment) is resumed by the port: the JAX-made
+    fragment 1 is skipped, not rewritten, and its bytes open the output."""
+    import jax.numpy as jnp
+    from upscale_video_tpu.pipeline.chain import ChainEngine as JaxEngine
+    from upscale_video_tpu.pipeline.chain import ChainSpec as JaxSpec
+    from upscale_video_tpu.pipeline.process import process_file as jax_process
+    from upscale_video_tpu.video import io as jax_io
+
+    src = str(tmp_path / "in.y4m")
+    _write_clip(src, False)
+    jax_write, writes = jax_io.Y4MSink.write, {"n": 0}
+
+    def killed(self, frame):
+        writes["n"] += 1
+        if writes["n"] == FRAGMENTS[0] + 1:
+            raise Killed("killed in fragment 2")
+        jax_write(self, frame)
+
+    monkeypatch.setattr(jax_io.Y4MSink, "write", killed)
+    jeng = JaxEngine.build(JaxSpec(), 2, compute_dtype=jnp.float32,
+                           synthetic=True)
+    out, tdir = str(tmp_path / "out.y4m"), str(tmp_path / "t")
+    with pytest.raises(Killed):
+        jax_process(src, out, temp_dir=tdir, batch_size=1, frames_per_step=2,
+                    engine=jeng, pipe_pix="rgb24")
+    work = os.path.join(tdir, "upscale_video")
+    assert sorted(os.listdir(work)) == ["1.y4m", "metadata.json"]
+    with open(os.path.join(work, "1.y4m"), "rb") as f:
+        jax_fragment = f.read()
+
+    port_write, port_writes = Y4MSink.write, {"n": 0}
+
+    def counted(self, frame):
+        port_writes["n"] += 1
+        port_write(self, frame)
+
+    monkeypatch.setattr(Y4MSink, "write", counted)
+    _run(src, out, tdir, engines["stream_rgb24_planar"], "stream_rgb24_planar",
+         True)
+    assert port_writes["n"] == N_FRAMES - FRAGMENTS[0]
+    with open(out, "rb") as f:
+        got = f.read()
+    assert got.startswith(jax_fragment) and len(got) > len(jax_fragment)
+    with Y4MSource(out) as s:
+        assert sum(1 for _ in s) == N_FRAMES

@@ -15,10 +15,11 @@ Tolerances, each with its reason:
 - The port's f32 import against an independent torch functional forward of
   the checkpoint: within 1e-4 (f32 sums in another order, as the JAX
   package's tests/test_torch_import.py allows).
-- f32 through ``ChainEngine`` and ``process_file`` against the JAX XLA f32
-  path: within 1 u8 LSB (PARITY.md's contract).
-- bf16 against JAX ``build_forward(pallas_conv=True, dense_scatter=False)``
-  (K4 and K3 in interpret mode): within 1 u8 LSB; a K4 output one bf16 ulp
+- f32 through ``ChainEngine`` and ``process_file`` (the port's aten route)
+  against the JAX XLA f32 path: within 1 u8 LSB (PARITY.md's contract).
+- bf16 (the kernel route) against JAX ``build_forward(pallas_conv=True,
+  dense_scatter=False)`` and the JAX engine on its Pallas path (K4 and K3
+  in interpret mode): within 1 u8 LSB; a K4 output one bf16 ulp
   apart (f32 sums in another order) moves the image by an ulp.  The share
   of bytes that differ is asserted under a cap and stated beside it.
 """
@@ -54,9 +55,10 @@ from upscale_video_tpu_torch.models.torch_import import (
     detect_arch, import_torch_checkpoint,
 )
 from upscale_video_tpu_torch.models.zoo import load_model, params_from_jax
-from upscale_video_tpu_torch.ops.pixel import frames_to_model
+from upscale_video_tpu_torch.ops.pixel import frames_to_model, planar_to_frames
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -343,10 +345,34 @@ def test_wide_srvgg_keeps_the_planar_contract(engines):
     jeng, peng = engines["srvgg160"]
     assert peng.planar_scale == 4
     fwd = peng.sr_model.frames_forward("planar")
-    assert isinstance(fwd, GraphForward) and fwd.tail["scale"] == 4
+    # f32 takes the aten route: the planar layout made from its frames
+    assert isinstance(fwd, GraphForward) and fwd.tail is None
+    assert fwd.tail_scale == 4
     x = np.random.default_rng(13).integers(0, 256, (2, 6, 10, 3), dtype=np.uint8)
     want = np.asarray(jeng.planar_step(jnp.asarray(x)))
     assert _max_lsb(peng.planar_step(torch.from_numpy(x)).numpy(), want) <= 1
+
+
+def test_wide_srvgg_bf16_planar_matches_the_jax_pallas_engine(imported):
+    """The planar test's twin on the kernel route: bf16, the wide SRVGG's
+    body on K4 and its tail on K3's planar layout, interleaved on the host,
+    against the JAX engine's step on its Pallas path (which has no planar
+    layout): within 1 LSB."""
+    jdir, pdir, _ = imported["srvgg160"]
+    _, suffix, scale = CHECKPOINTS["srvgg160"]
+    spec = f"sr={suffix}"
+    jeng = JaxEngine.build(JaxSpec.parse(spec), scale, model_path=jdir,
+                           compute_dtype=jnp.bfloat16, conv_impl="pallas")
+    peng = ChainEngine.build(ChainSpec.parse(spec), scale, "cpu",
+                             model_path=pdir, compute_dtype=torch.bfloat16)
+    fwd = peng.sr_model.frames_forward("planar")
+    assert isinstance(fwd, GraphForward) and fwd.tail["scale"] == 4
+    assert fwd.solos and not fwd.chains
+    x = np.random.default_rng(13).integers(0, 256, (2, 6, 10, 3), dtype=np.uint8)
+    want = np.asarray(jeng.step(jnp.asarray(x)))
+    got = peng.planar_step(torch.from_numpy(x)).numpy()
+    assert got.shape == (2, 6, 10, 48)
+    assert _max_lsb(planar_to_frames(got, 4), want) <= 1
 
 
 @pytest.mark.parametrize("name,share", [("esrgan", 0.05), ("srvgg160", 0.05)])
@@ -381,7 +407,8 @@ def test_sr_composes_with_tta_and_denoise(imported, name, spec, kw):
 def test_engine_build_sr_policies(imported):
     """``sr=`` imports run whole-frame by default, 4 frames per step, take
     ``--tile_size`` and ``mixed`` on the graph walk; ``--synthetic_models``
-    ignores the stem and builds the Compact, which refuses ``mixed``."""
+    ignores the stem and builds the Compact, which runs ``mixed`` on K1 +
+    K2 (whose skip add is f32 already)."""
     from upscale_video_tpu_torch.pipeline.chain import default_frames_per_step
 
     _, pdir, _ = imported["esrgan"]
@@ -396,9 +423,11 @@ def test_engine_build_sr_policies(imported):
     syn = ChainEngine.build(ChainSpec.parse("sr=x_missing"), 2, "cpu",
                             synthetic=True)
     assert syn.sr_model.name == "synthetic_2x_compact" and syn.planar_scale == 2
-    with pytest.raises(NotImplementedError, match="mixed"):
-        ChainEngine.build(ChainSpec.parse("sr=x_missing"), 2, "cpu",
-                          synthetic=True, residual_dtype=torch.float32)
+    mixed = ChainEngine.build(ChainSpec.parse("sr=x_missing"), 2, "cpu",
+                              synthetic=True, residual_dtype=torch.float32)
+    assert mixed.planar_scale == 2
+    assert torch.equal(mixed.planar_step(x[:, :8, :12]),
+                       syn.planar_step(x[:, :8, :12]))
 
 
 def test_cli_imports_and_upscales_with_jax_blocked(tmp_path):

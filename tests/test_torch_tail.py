@@ -22,6 +22,7 @@ from upscale_video_tpu_torch.ops.pixel import planar_to_frames
 from upscale_video_tpu_torch.ops.tail import (
     sr_tail_chain, sr_tail_chain_plain,
 )
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 H, W, CF = 13, 21, 16
 

@@ -29,6 +29,7 @@ from upscale_video_tpu_torch.ops.tail import (
     sr_tail_chain_plain, sr_tail_fused, sr_tail_fused_plain, tail_columns,
 )
 from upscale_video_tpu_torch.ops.yuv import yuv420_from_planar
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 H, W, CF = 13, 21, 16
 

@@ -41,6 +41,7 @@ from upscale_video_tpu_torch.ops import tiling
 from upscale_video_tpu_torch.ops.rdb import rdb_block
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
+from tests.torch_fixtures import one_torch_thread, two_rrdbs  # noqa: F401
 
 PRECISIONS = {
     # name: (JAX build_forward kwargs, port compute dtype, port residual dtype)
@@ -277,13 +278,16 @@ def test_engine_build_defaults_for_m_r():
     assert eng.describe() == "valar-4x (scale 4x)"
     assert eng.planar_scale is None
     assert len(eng.sr_model.frames_forward("model").rdb_triggers) == 69
-    with pytest.raises(NotImplementedError, match="mixed"):
-        # sr= with --synthetic_models builds the Compact, on K1 + K2
-        ChainEngine.build(ChainSpec.parse("a,sr=x_Foo"), 2, "cpu",
-                          synthetic=True, residual_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="mixed"):
-        ChainEngine.build(ChainSpec(), 2, "cpu", synthetic=True,
-                          residual_dtype=torch.float32)
+    from upscale_video_tpu_torch.models.executor import SRVGGForward
+
+    # sr= with --synthetic_models builds the Compact: mixed runs on K1 + K2
+    # (K2's skip add is f32 already), and reaches the anime model's adds
+    for models in ("a,sr=x_Foo", None):
+        mixed = ChainEngine.build(ChainSpec.parse(models), 2, "cpu",
+                                  synthetic=True, residual_dtype=torch.float32)
+        assert isinstance(mixed.sr_model.frames_forward("planar"), SRVGGForward)
+        assert mixed.planar_scale == 2 and mixed.tile == 0
+    assert mixed.sr_model.residual_dtype == torch.float32
 
 
 N_FRAMES, H, W = 3, 12, 16
@@ -389,3 +393,136 @@ def test_load_model_valar_role(tmp_path):
     assert isinstance(fwd, GraphForward) and len(fwd.rdb_triggers) == 3
     y = m(torch.rand(1, 6, 8, 3), "model")
     assert y.shape == (1, 24, 32, 3) and bool(torch.isfinite(y).all())
+
+
+# --- --conv_impl on -m r ----------------------------------------------------
+
+ROUTE_JAX = {
+    # conv_impl: JAX build_forward kwargs (its ChainEngine.build mapping)
+    "xla": dict(pallas_conv=False, rdb_kernel=False),
+    "rdb": dict(pallas_conv=False, rdb_kernel=True),
+    "pallas": dict(pallas_conv=True, rdb_kernel=False),
+}
+
+
+@pytest.mark.parametrize("impl,precision", [
+    ("xla", "bf16"), ("xla", "f32"), ("rdb", "mixed"), ("pallas", "bf16"),
+    ("pallas", "mixed"),
+])
+def test_conv_impl_routes_match_jax(jax_model, impl, precision):
+    """Each ``--conv_impl`` plans what the JAX package runs for it, and
+    matches it on the 2-RRDB graph: ``xla`` no kernel (every conv a
+    generic ``F.conv2d``), ``rdb`` K5 alone, ``pallas`` no K5 but every
+    dense conv on K4 over one 192-channel buffer per block.  Against JAX
+    ``build_forward`` with the same route (Pallas in interpret mode):
+    within 1 u8 LSB, the tolerance of the ``sr=`` ESRGAN test; in f32 the
+    aten route equals JAX's XLA f32 within 1 LSB (observed 0)."""
+    jd = jnp.float32 if precision == "f32" else jnp.bfloat16
+    td = torch.float32 if precision == "f32" else torch.bfloat16
+    rd = torch.float32 if precision == "mixed" else None
+    x = np.random.default_rng(30).uniform(0, 1, (1, 12, 16, 3)).astype(np.float32)
+    want = np.asarray(jax_build_forward(
+        jax_model.graph, compute_dtype=jd, residual_dtype=(
+            jnp.float32 if precision == "mixed" else None),
+        **ROUTE_JAX[impl])(jax_model.params, jnp.asarray(x)))
+    fwd = build_forward(make_rrdb_graph(num_rrdb=2), "cpu", td, "model", rd,
+                        conv_impl=impl)
+    assert len(fwd.rdb_triggers) == (6 if impl == "rdb" else 0)
+    assert len(fwd.dense) == (30 if impl == "pallas" else 0)
+    assert len(fwd.solos) == (33 if impl == "pallas" else 0)
+    assert len(fwd.chains) == (1 if impl == "pallas" else 0)
+    state = params_from_jax(jax_model.params, "cpu", td)
+    fwd.prepare(state)
+    got = fwd(state, torch.from_numpy(x))
+    assert got.dtype == torch.float32 and got.shape == (1, 48, 64, 3)
+    assert _max_lsb(_u8(got.numpy()), _u8(want)) <= 1
+
+
+@pytest.mark.parametrize("residual", [None, torch.float32], ids=["bf16", "mixed"])
+def test_pallas_dense_buffer_equals_the_concat_path(monkeypatch, residual):
+    """Under ``pallas`` each Valar dense block runs on one buffer: x, then
+    c1, the add c2 = conv + conv1x1(x) written over its conv's channels,
+    c3, the add c4 = conv + c2 likewise; c5 reads all 192 channels.  Bit
+    for bit the forward with its Concats (the planner switched off), and
+    no Concat of a block runs."""
+    from upscale_video_tpu_torch.models import executor
+
+    g = make_rrdb_graph(num_rrdb=1)
+    m = make_synthetic_rrdb_model(num_rrdb=1, seed=3, residual_dtype=residual)
+    x = torch.rand(1, 9, 13, 3, generator=torch.Generator().manual_seed(4))
+    fwd = build_forward(g, "cpu", torch.bfloat16, "model", residual,
+                        conv_impl="pallas")
+    plans = [fwd.dense[f"r0d0_c{k}"] for k in (1, 4, 9, 12, 16)]
+    assert [(p["cin"], p["out_off"], p["post_add"]) for p in plans] == [
+        (64, 64, None), (96, 96, "r0d0_a7"), (128, 128, None),
+        (160, 160, "r0d0_a14"), (192, None, None)]
+    cats = {"n": 0}
+    concat = port_ops.OP_REGISTRY["Concat"]
+
+    def counted(*a):
+        cats["n"] += 1
+        return concat(*a)
+
+    monkeypatch.setitem(port_ops.OP_REGISTRY, "Concat", counted)
+    fwd.prepare(m.state)
+    got = fwd(m.state, x)
+    assert cats["n"] == 0
+    monkeypatch.setattr(executor, "_plan_dense_buffers", lambda *a: ({}, set()))
+    ref = build_forward(g, "cpu", torch.bfloat16, "model", residual,
+                        conv_impl="pallas")
+    assert ref.dense == {} and len(ref.solos) == 15 + 3
+    want = ref(m.state, x)
+    assert cats["n"] == 12
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_routes_agree_with_the_default_route(impl):
+    """``-m r`` at 2 RRDBs, mixed, one 32x48 frame tiled at 16: the
+    ``pallas`` (K4 dense buffers) and ``xla`` (generic convs) routes
+    against ``auto`` (K5): above 50 dB and within 4 LSB, chip_smoke.py's
+    bound for 2 RRDBs on the plain versions (measured here: 2 LSB,
+    57.1 dB at 64x96)."""
+    from upscale_video_tpu_torch.ops.pixel import psnr
+
+    x = torch.from_numpy(np.random.default_rng(32).integers(
+        0, 256, (1, 32, 48, 3), dtype=np.uint8))
+    outs = {}
+    for name in ("auto", impl):
+        m = make_synthetic_rrdb_model(num_rrdb=2, residual_dtype=torch.float32,
+                                      conv_impl=name)
+        eng = ChainEngine(spec=ChainSpec(real_life=True), scale=4, sr_model=m,
+                          device=torch.device("cpu"), tile=16, halo=4)
+        outs[name] = eng.step(x).numpy()
+    assert _max_lsb(outs[impl], outs["auto"]) <= 4
+    assert psnr(outs[impl], outs["auto"]) >= 50.0
+
+
+def test_engine_conv_impl_reaches_the_models_and_denoise(monkeypatch, two_rrdbs):
+    """``ChainEngine.build(conv_impl=...)`` plans the anime and SR models on
+    that route; NL-means runs K6's wrapper unless ``xla`` or ``rdb``, which
+    run its plain version (the JAX package runs its kernel only under
+    ``pallas``)."""
+    from upscale_video_tpu_torch.ops import nlmeans
+    from upscale_video_tpu_torch.pipeline import chain
+
+    calls = []
+    monkeypatch.setattr(chain, "nl_means_denoise",
+                        lambda x, h: calls.append("k6") or x)
+    monkeypatch.setattr(chain, "nl_means_denoise_plain",
+                        lambda x, h: calls.append("plain") or x)
+    x = torch.from_numpy(np.random.default_rng(31).integers(
+        0, 256, (1, 8, 12, 3), dtype=np.uint8))
+    for impl, want in (("auto", "k6"), ("pallas", "k6"), ("rdb", "plain"),
+                       ("xla", "plain")):
+        eng = ChainEngine.build(ChainSpec.parse("a,n=3,r"), 4, "cpu",
+                                synthetic=True, conv_impl=impl, tile=8, halo=2)
+        calls.clear()
+        eng._denoise(eng._to_model(x))
+        assert calls == [want]
+        afwd = eng.anime_model.frames_forward("model")
+        vfwd = eng.sr_model.frames_forward("model")
+        assert bool(afwd.chains) is (impl in ("auto", "pallas"))
+        assert len(vfwd.rdb_triggers) == (6 if impl in ("auto", "rdb") else 0)
+        assert bool(vfwd.dense) is (impl == "pallas")
+    assert nlmeans.nl_means_denoise.launches == 0

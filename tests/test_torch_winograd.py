@@ -31,6 +31,7 @@ from upscale_video_tpu_torch.ops.conv_winograd import (
     make_wino_layer, sm90_takes, transform_weights, wino_layers_from_jax,
     winograd_chain, winograd_chain_plain,
 )
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 LAYER_ATOL, LAYER_RTOL = 2.0 ** -10, 2.0 ** -7

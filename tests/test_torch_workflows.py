@@ -18,6 +18,7 @@ from tests.test_pipeline import make_test_video
 from upscale_video_tpu.pipeline import workflows as jax_wf
 from upscale_video_tpu.pipeline.process import process_file as jax_process
 from upscale_video_tpu_torch.cli import compare as port_compare_cli
+from upscale_video_tpu_torch.cli import test_chips as port_chips_cli
 from upscale_video_tpu_torch.cli import fix_frames as port_fix_cli
 from upscale_video_tpu_torch.cli import merge_only as port_merge_cli
 from upscale_video_tpu_torch.cli import test_images as port_images_cli
@@ -28,6 +29,7 @@ from upscale_video_tpu_torch.pipeline.workflows import (
 )
 from upscale_video_tpu_torch.video.io import Y4MSink, Y4MSource
 from upscale_video_tpu_torch.video.png import read_png
+from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
 W, H = 16, 12
 CPU = dict(synthetic_models=True, precision="f32", device="cpu")
@@ -260,6 +262,7 @@ CLI_PAIRS = [
     ("fix_frames", port_fix_cli),
     ("test_images", port_images_cli),
     ("compare", port_compare_cli),
+    ("test_chips", port_chips_cli),
 ]
 
 
@@ -279,7 +282,8 @@ def test_cli_parser_equals_jax(name, port_mod):
     jax_mod = importlib.import_module(f"upscale_video_tpu.cli.{name}")
     got, want = port_mod.build_parser(), jax_mod.build_parser()
     assert _parser_spec(got) == _parser_spec(want)
-    runs_a_model = name in ("upscale_only", "fix_frames", "test_images")
+    runs_a_model = name in ("upscale_only", "fix_frames", "test_images",
+                            "test_chips")
     devices = [a for a in got._actions if a.dest == "device"]
     assert [a.default for a in devices] == (["cuda"] if runs_a_model else [])
 
@@ -319,16 +323,18 @@ def test_cli_split_machine_fix_sample_compare(tmp_path, capsys):
     assert '"frames": 4' in line and '"identical": true' in line
 
 
-@pytest.mark.parametrize("flags", [
-    ["--conv_impl", "pallas"], ["-g", "0,1"], ["--parallel", "sp"],
-    ["--precision", "f32", "--device", "cuda"], ["--tile_size", "480"],
-    ["--precision", "mixed"],
-])
-@pytest.mark.parametrize("cli,argv", [
+MODEL_CLIS = [
     (port_upscale_cli, ["-i", "in.y4m"]),
     (port_fix_cli, ["-i", "in.y4m", "-b", "1"]),
     (port_images_cli, ["-i", "1", "-o", "out"]),
-], ids=["upscale_only", "fix_frames", "test_images"])
+]
+
+
+@pytest.mark.parametrize("flags", [
+    ["-g", "0,1"], ["--parallel", "sp"], ["--parallel", "tp"],
+])
+@pytest.mark.parametrize("cli,argv", MODEL_CLIS,
+                         ids=["upscale_only", "fix_frames", "test_images"])
 def test_cli_flags_outside_the_port_raise(tmp_path, cli, argv, flags):
     """The flags the port's main CLI refuses, refused by check_slice before
     any work (no file is read or written)."""
@@ -337,6 +343,33 @@ def test_cli_flags_outside_the_port_raise(tmp_path, cli, argv, flags):
     with pytest.raises(NotImplementedError):
         cli.main(argv + ["-t", str(tmp_path / "t")] + flags)
     assert not os.path.exists(tmp_path / "t")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--conv_impl", "pallas"], ["--conv_impl", "xla"],
+    ["--precision", "f32", "--device", "cuda"], ["--tile_size", "480"],
+    ["--precision", "mixed"],
+])
+@pytest.mark.parametrize("cli,argv", MODEL_CLIS,
+                         ids=["upscale_only", "fix_frames", "test_images"])
+def test_cli_ported_flags_pass_the_slice_check(cli, argv, flags):
+    """What check_slice refused before, each model-running CLI now takes."""
+    from upscale_video_tpu_torch.cli.upscale_video import check_slice
+
+    check_slice(cli.build_parser().parse_args(argv + flags))
+
+
+def test_workflows_take_conv_impl_and_tiles(tmp_path):
+    """``upscale-only-torch --conv_impl xla --tile_size 8 --precision
+    mixed`` on the CPU, then ``merge-only-torch``: every frame, 2x."""
+    vid = _video(tmp_path, 3)
+    tdir = str(tmp_path / "t")
+    assert port_upscale_cli.main([
+        "-i", vid, "-t", tdir, "-b", "1", "--synthetic_models", "--device",
+        "cpu", "--conv_impl", "xla", "--tile_size", "8",
+        "--precision", "mixed"]) == 0
+    assert port_merge_cli.main(["-o", str(tmp_path), "-t", tdir]) == 0
+    assert _frames(str(tmp_path / "in.upscaled.y4m")).shape == (3, 2 * H, 2 * W, 3)
 
 
 def test_compare_cli_min_psnr_gate(tmp_path):

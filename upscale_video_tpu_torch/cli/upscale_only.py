@@ -69,6 +69,7 @@ def main(argv=None) -> int:
         synthetic_models=args.synthetic_models,
         tta=args.tta,
         device=args.device,
+        conv_impl=args.conv_impl,
     )
     return 0
 

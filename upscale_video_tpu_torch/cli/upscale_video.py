@@ -2,7 +2,9 @@
 
 Same flags as ``upscale-video`` (the argparse option groups are
 :mod:`upscale_video_tpu_torch.cli.common`, a copy of the JAX package's),
-plus ``--device``.  Flags outside the ported slice raise
+plus ``--device``.  ``--trace_dir`` writes a ``torch.profiler`` trace of
+the run (:mod:`upscale_video_tpu_torch.utils.trace`).  Flags outside the
+port (more than one GPU, ``--parallel sp|tp``) raise
 ``NotImplementedError`` instead of silently doing something else.
 """
 
@@ -18,6 +20,7 @@ from upscale_video_tpu_torch.cli.common import (
 )
 from upscale_video_tpu_torch.pipeline.chain import ChainSpec, parse_chips
 from upscale_video_tpu_torch.pipeline.process import process_file
+from upscale_video_tpu_torch.utils.trace import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--copy_audio", action="store_true",
                    help="Mux the source's audio/subtitle streams into the "
                         "output. Needs -f.")
-    p.add_argument("--trace_dir", help="Profiler trace (not ported yet).")
+    p.add_argument("--trace_dir",
+                   help="Write a torch.profiler trace (Chrome format) here.")
     add_device_arg(p)
     return p
 
@@ -78,40 +82,19 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def check_slice(args) -> None:
-    """Raise ``NotImplementedError`` for every flag outside the port: the
-    ``-m`` chains of ``a``, ``n=K``, ``r`` and ``sr=<stem>`` at scales 1, 2
-    and 4, with or without ``--tta``; ``--tile_size`` and ``--precision
-    mixed`` for ``-m r`` and ``sr=`` only (an ``sr=`` SRVGG on K1 + K2
-    refuses mixed when its model is planned); f32 on the CPU only;
-    ``--conv_impl auto`` (or ``rdb``, what auto is for ``-m r``); one GPU;
-    no ``--trace_dir``.  Every CLI of the port that runs a model checks its
-    arguments here (a parser without ``--trace_dir`` has nothing of it to
-    refuse)."""
+    """Raise ``NotImplementedError`` for every flag outside the port: a
+    ``-g`` over more than one GPU and ``--parallel sp|tp`` (the port runs
+    on one GPU); an ``-m`` chain that does not parse.  Every CLI of the
+    port that runs a model checks its arguments here."""
     bad = []
-    real_life = tiled = False
     try:
-        spec = ChainSpec.parse(args.models)
-        real_life = spec.real_life
-        tiled = spec.real_life or bool(spec.sr_file)
+        ChainSpec.parse(args.models)
     except ValueError:
         bad.append(f"-m {args.models}")
-    if args.tile_size not in (None, 0) and not tiled:
-        bad.append(f"--tile_size {args.tile_size} without -m r or sr=")
-    on_cpu = str(args.device).startswith("cpu")
-    allowed = {"auto", "bf16"} | ({"mixed"} if tiled else set()) \
-        | ({"f32"} if on_cpu else set())
-    if args.precision not in allowed:
-        bad.append(f"--precision {args.precision} on {args.device}"
-                   + ("" if tiled else " without -m r or sr="))
-    if args.conv_impl not in ("auto", "rdb") or (
-            args.conv_impl == "rdb" and not real_life):
-        bad.append(f"--conv_impl {args.conv_impl}")
     if len(parse_chips(args.chips)[0]) > 1:
         bad.append(f"-g {args.chips} (more than one GPU)")
-    if args.parallel != "dp":
+    if getattr(args, "parallel", "dp") != "dp":
         bad.append(f"--parallel {args.parallel}")
-    if getattr(args, "trace_dir", None):
-        bad.append("--trace_dir")
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch/CUDA package yet: " + ", ".join(bad))
@@ -123,6 +106,12 @@ def main(argv=None) -> int:
     if args.copy_audio and not args.ffmpeg:
         parser.error("--copy_audio requires -f/--ffmpeg")
     check_slice(args)
+    with trace(args.trace_dir, args.device):
+        _run(args)
+    return 0
+
+
+def _run(args) -> None:
     process_file(
         input_file=args.input_file,
         output_file=args.output_file,
@@ -150,8 +139,8 @@ def main(argv=None) -> int:
         pipe_pix=args.pipe_pix,
         device=args.device,
         tta=args.tta,
+        conv_impl=args.conv_impl,
     )
-    return 0
 
 
 if __name__ == "__main__":

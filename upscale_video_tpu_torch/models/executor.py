@@ -27,12 +27,18 @@ on one shared buffer instead of their Concats), an SRVGG tail one K3 launch
 layer one op; blobs are freed at their last use, and ``mixed`` keeps the
 residual spine (Eltwise/BinaryOp) in f32.
 
+``--conv_impl`` picks among these routes as the JAX package reads the
+flag (:func:`conv_routes`): ``xla`` (and every f32 forward) is the graph
+walk on generic ops alone, the aten route; ``rdb`` adds K5 alone;
+``pallas`` the conv kernels without K5; ``auto`` both.
+
 A layer type outside the op set raises ``NotImplementedError``; nothing
 falls back.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional
 
 import torch
@@ -50,11 +56,14 @@ from upscale_video_tpu_torch.ops.conv3x3 import conv3x3_fused
 from upscale_video_tpu_torch.ops.conv_chain import (
     ChainLayer, conv3x3_chain, pack_narrow_weights,
 )
-from upscale_video_tpu_torch.ops.pixel import model_to_frames
+from upscale_video_tpu_torch.ops.pixel import frames_to_planar, model_to_frames
 from upscale_video_tpu_torch.ops.rdb import RDBWeights, pack_rdb_weights, rdb_block
 from upscale_video_tpu_torch.ops.tail import (
     LAYOUTS, pack_tail_weights, sr_tail_chain, sr_tail_fused,
 )
+from upscale_video_tpu_torch.ops.yuv import yuv420_from_planar
+
+log = logging.getLogger(__name__)
 
 SUPPORTED_OPS = frozenset({
     "Input", "Split", "Convolution", "PReLU", "PixelShuffle", "Interp",
@@ -320,7 +329,10 @@ def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
 
 class SRVGGForward(nn.Module):
     """Stateless forward of a planned SRVGG graph: ``fwd(state, x)`` runs
-    K1 over the whole body then K2 once.
+    K1 over the whole body then K2 once.  Its one residual add is K2's
+    skip add, which is f32 in every layout (bias, conv and the skip summed
+    in f32 before the one quantization, as in the JAX Pallas tail,
+    tail_pallas.py:196-200), so ``--precision mixed`` runs it unchanged.
 
     ``state`` maps layer name -> a module with ``wmat`` (9*cin, cout),
     ``bias`` (cout,) f32 and, for PReLU layers, ``slope`` (see
@@ -572,7 +584,7 @@ def _plan_solos(graph: NcnnGraph, consumers: Dict[str, List[int]],
 def _plan_dense_buffers(graph: NcnnGraph, consumers: Dict[str, List[int]],
                         solos: Dict[str, dict]):
     """Match dense blocks whose sources can share one buffer (basicsr's
-    ``rdb_esrgan``, zoo.py)::
+    ``rdb_esrgan``, and Valar's blocks, zoo.py)::
 
         o1 = conv_1(x)
         o2 = conv_2(cat(x, o1))
@@ -582,20 +594,39 @@ def _plan_dense_buffers(graph: NcnnGraph, consumers: Dict[str, List[int]],
 
     Every conv a K4 solo (``solos``), every cat a channel Concat whose parts
     are the previous cat's plus the newest conv's output, all widths
-    multiples of 8, and no longer such chain through the same convs.  Such
-    a block runs on one NHWC buffer of ``conv_last``'s input width: x is
-    copied into its first channels, each conv reads the channels before its
-    own and appends its output behind them, and no Concat runs.  A block
-    whose cat output reaches a consumer outside it is not claimed (the leak
-    guard).
+    multiples of 8, and no longer such chain through the same convs.  A
+    part may also be an add (BinaryOp 0) of a conv's output, which that add
+    alone consumes, and another blob (Valar's ``c2 = conv(..) + conv1x1(x)``
+    and ``c4 = conv(..) + c2``).  Such a block runs on one NHWC buffer of
+    ``conv_last``'s input width: x is copied into its first channels, each
+    conv reads the channels before its own and appends its output behind
+    them (an add's conv: the add's result, written over it after the add),
+    and no Concat runs.  A block whose cat output reaches a consumer
+    outside it is not claimed (the leak guard).
 
-    Returns ``({conv name: {"block", "first", "cin", "out_off", "total"}},
-    absorbed)``: ``out_off`` is where the conv writes in the buffer (None
-    for ``conv_last``, which writes a tensor of its own), ``absorbed`` the
-    Concats and their Split/Noop aliases."""
+    Returns ``({conv name: {"block", "first", "cin", "out_off", "total",
+    "post_add"}}, absorbed)``: ``out_off`` is where the conv writes in the
+    buffer (None for ``conv_last``, which writes a tensor of its own),
+    ``post_add`` the add whose result goes there in its place (or None),
+    ``absorbed`` the Concats and their Split/Noop aliases."""
     root_of, producer = _blob_roots(graph)
     conv_of = {root_of(s["out"]): name for name, s in solos.items()}
     layers = {layer.name: layer for layer in graph.layers}
+    post_add: Dict[str, str] = {}  # conv -> the add that alone consumes it
+    for layer in graph.layers:
+        if (layer.type != "BinaryOp" or layer.attr_i(0, 0) != 0
+                or layer.attr_i(1, 0) or len(layer.inputs) != 2):
+            continue
+        mine = [conv_of[root_of(b)] for b in layer.inputs
+                if root_of(b) in conv_of
+                and len(consumers.get(solos[conv_of[root_of(b)]]["out"], [])) == 1]
+        if len(mine) == 1:
+            post_add[mine[0]] = layer.name
+    part_of = {name: root_of(s["out"]) for name, s in solos.items()}
+    for name, add in post_add.items():
+        part_of[name] = root_of(layers[add].outputs[0])
+    conv_of.update({root_of(layers[add].outputs[0]): name
+                    for name, add in post_add.items()})
 
     def channel_cat(layer) -> bool:
         return (layer is not None and layer.type == "Concat"
@@ -615,7 +646,7 @@ def _plan_dense_buffers(graph: NcnnGraph, consumers: Dict[str, List[int]],
         convs = [conv_of.get(p) for p in parts[1:]]
         if len(parts) < 2 or None in convs or any(c in plan for c in convs):
             continue
-        if tuple(parts + [root_of(solos[last]["out"])]) in cat_parts:
+        if tuple(parts + [part_of[last]]) in cat_parts:
             continue  # not the block's last conv: a longer block was declined
         cats, ok = [cat], True
         for k in range(len(convs) - 1, 0, -1):  # conv k+1 reads cat k
@@ -641,7 +672,9 @@ def _plan_dense_buffers(graph: NcnnGraph, consumers: Dict[str, List[int]],
         for k, name in enumerate(convs + [last]):
             plan[name] = {"block": block, "first": k == 0, "cin": cin[k],
                           "out_off": offs[k] if name != last else None,
-                          "total": offs[-1]}
+                          "total": offs[-1],
+                          "post_add": post_add.get(name) if name != last
+                          else None}
         absorbed |= {c.name for c in cats} | splits
     return plan, absorbed
 
@@ -654,26 +687,33 @@ class GraphForward(nn.Module):
 
     - Every run of two or more linearly linked SAME 3x3 convs (with their
       PReLUs) is one K1 chain over the run's input cast to the compute
-      dtype (:func:`_plan_chains`; on the CPU K1's plain version, in the
-      compute dtype).  The 1x anime model's whole conv stack is one chain;
-      its ``PixelShuffle(1)``, ``Interp(1)`` and skip add run as generic ops.
-    - Under a bf16 compute dtype every matched Valar dense block is one K5
-      launch on the block's input cast to bf16; its output comes back in
-      bf16.  Its packed weights live in ``state`` under the trigger's name,
-      put there once by :meth:`prepare`.  Under f32 (the CPU parity path) the
-      blocks run as generic ops, as the JAX package's f32 path does.
-    - Under bf16 every other SAME 3x3 stride-1 conv is one K4 launch
-      (:func:`_plan_solos`), a PReLU that alone consumes it fused in; under
-      f32 such convs are generic ops (``F.conv2d`` in f32).
-    - Under bf16 a dense block of K4 convs linked by growing Concats
-      (:func:`_plan_dense_buffers`, basicsr's ESRGAN block) runs on one
-      shared buffer: its input is copied in once, each conv reads a
-      channel prefix and writes its channels behind it, no Concat runs.
-      The conv outputs are channel views of the buffer; the bytes each
-      conv reads are the ones its Concat would have made.
+      dtype (:func:`_plan_chains`; on the CPU K1's plain version).  The 1x
+      anime model's whole conv stack is one chain; its ``PixelShuffle(1)``,
+      ``Interp(1)`` and skip add run as generic ops.
+    - With ``rdb`` every matched Valar dense block is one K5 launch on the
+      block's input cast to bf16; its output comes back in bf16.  Its
+      packed weights live in ``state`` under the trigger's name, put there
+      once by :meth:`prepare`.
+    - Every other SAME 3x3 stride-1 conv is one K4 launch
+      (:func:`_plan_solos`), a PReLU that alone consumes it fused in.
+    - A dense block of K4 convs linked by growing Concats
+      (:func:`_plan_dense_buffers`: basicsr's ESRGAN block, and Valar's
+      where K5 does not take it) runs on one shared buffer: its input is
+      copied in once, each conv reads a channel prefix and writes its
+      channels behind it (Valar's interior adds write their result over
+      their conv's), no Concat runs.  The conv outputs are channel views
+      of the buffer; the bytes each conv reads are the ones its Concat
+      would have made.
+    - Without ``kernels`` (``--conv_impl xla`` or ``rdb``, and every f32
+      forward, :func:`conv_routes`) no chain, solo, dense buffer or K3
+      tail is planned: each conv is a generic ``F.conv2d`` (TF32 off), the
+      SRVGG tail its generic ops, and the ``planar`` and ``yuv420``
+      layouts are made from the quantized frames (the aten route).
+      Without ``rdb`` (``pallas``, ``xla``) no dense block goes to K5.
     - A graph ending in the SRVGG tail (``probe_srvgg_tail``) runs its tail
       conv, shuffle, skip Interp and add as one K3 launch, which writes the
-      ``emit`` layout itself (``planar`` and ``yuv420`` too).
+      ``emit`` layout itself (``planar`` and ``yuv420`` too); ``tail`` is
+      that plan, None on the aten route.
     - ``residual_dtype=torch.float32`` with bf16 compute is ``mixed``: the
       inputs of every Eltwise and BinaryOp are upcast to f32 and their
       results flow on in f32 (``_spine_cast``, executor.py:1214); the next
@@ -695,7 +735,8 @@ class GraphForward(nn.Module):
     EMITS = LAYOUTS
 
     def __init__(self, graph: NcnnGraph, device: torch.device,
-                 compute_dtype: torch.dtype, residual_dtype, emit: str):
+                 compute_dtype: torch.dtype, residual_dtype, emit: str,
+                 kernels: bool = True, rdb: bool = True):
         super().__init__()
         if emit not in self.EMITS:
             raise ValueError(f"emit {emit!r} not in {self.EMITS}")
@@ -708,29 +749,37 @@ class GraphForward(nn.Module):
                 f"one input and one output expected, got "
                 f"{graph.input_blobs} / {graph.output_blobs}")
         consumers = _consumers(graph)
-        self.tail = _find_tail(graph, consumers)
-        if emit in ("planar", "yuv420") and self.tail is None:
+        fused = compute_dtype != torch.float32
+        self.kernels = kernels and fused
+        found = _find_tail(graph, consumers)
+        if emit in ("planar", "yuv420") and found is None:
             raise ValueError(f"emit {emit!r} needs the SRVGG shuffle tail")
+        self.tail_scale = found["scale"] if found else None
+        self.tail = found if self.kernels else None  # K3's, else generic ops
         tail_names = (self.tail["absorbed"] | {self.tail["conv"]}
                       if self.tail else set())
-        blocks, absorbed = _plan_rdb_blocks(graph, consumers)
-        self.chains, self.chain_absorbed = _plan_chains(
-            graph, consumers, absorbed | tail_names)
+        blocks, absorbed = (_plan_rdb_blocks(graph, consumers)
+                            if rdb and fused else ([], set()))
+        self.chains, self.chain_absorbed = (
+            _plan_chains(graph, consumers, absorbed | tail_names)
+            if self.kernels else ({}, set()))
         self.graph = graph
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.emit = emit
         self.residual_f32 = (residual_dtype == torch.float32
                              and compute_dtype != torch.float32)
-        fused = compute_dtype != torch.float32
-        self.rdb_triggers = {b["trigger"]: b for b in blocks} if fused else {}
-        self.rdb_absorbed = absorbed if fused else set()
+        self.rdb_triggers = {b["trigger"]: b for b in blocks}
+        self.rdb_absorbed = absorbed
         self.solos = (_plan_solos(graph, consumers,
                                   self.rdb_absorbed | set(self.chains)
                                   | self.chain_absorbed | tail_names)
-                      if fused else {})
+                      if self.kernels else {})
         self.dense, dense_absorbed = _plan_dense_buffers(graph, consumers,
                                                          self.solos)
+        # add -> (block, channel offset): its result goes into the buffer
+        self.dense_adds = {d["post_add"]: (d["block"], d["out_off"])
+                           for d in self.dense.values() if d.get("post_add")}
         self.absorbed = (self.rdb_absorbed | self.chain_absorbed
                          | dense_absorbed
                          | (tail_names - {self.tail["conv"]} if self.tail
@@ -851,6 +900,9 @@ class GraphForward(nn.Module):
                         blobs[name] = t
                 else:
                     blobs[layer.outputs[0]] = out
+                if layer.name in self.dense_adds:  # over its conv's channels
+                    block, off = self.dense_adds[layer.name]
+                    dense_bufs[block][..., off:off + out.shape[-1]] = out
             free(i, layer)
         y = blobs[graph.output_blobs[0]]
         if self.tail is None:
@@ -858,43 +910,70 @@ class GraphForward(nn.Module):
             if mod_h or mod_w:
                 r = y.shape[1] // (in_h + mod_h)
                 y = y[:, :in_h * r, :in_w * r]
-            if self.emit == "frames":
+            if self.emit != "model":
                 y = model_to_frames(y)
+            if self.emit in ("planar", "yuv420"):
+                y = frames_to_planar(y, self.tail_scale)
+            if self.emit == "yuv420":
+                y = yuv420_from_planar(y, self.tail_scale, full_range)
         return y[0] if squeeze else y
+
+
+CONV_IMPLS = ("auto", "pallas", "rdb", "xla")
+
+
+def conv_routes(conv_impl: str, compute_dtype: torch.dtype):
+    """``--conv_impl`` -> ``(kernels, rdb)``: whether the conv kernels (K1
+    chains, K4 solos and dense buffers, the K2/K3 tails) run, and whether
+    K5 takes the Valar dense blocks, as the JAX package reads the flag
+    (chain.py:225-237): ``pallas`` is the conv kernels without K5,
+    ``rdb`` K5 alone, ``xla`` neither, ``auto`` (the port's product
+    route) both.  float32 takes neither, whatever the flag (the kernels
+    compute in bf16), with the JAX package's warning when a kernel route
+    was asked for (executor.py:1041-1051)."""
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl {conv_impl!r} not in {CONV_IMPLS}")
+    if compute_dtype == torch.float32:
+        if conv_impl in ("pallas", "rdb"):
+            log.warning(
+                "precision f32 requested: the CUDA conv kernels compute in "
+                "bf16, using the aten conv path (true-f32, TF32 off) instead")
+        return False, False
+    return conv_impl in ("auto", "pallas"), conv_impl in ("auto", "rdb")
 
 
 def build_forward(graph: NcnnGraph, device: "torch.device | str",
                   compute_dtype: torch.dtype = torch.bfloat16,
-                  emit: str = "model", residual_dtype=None):
+                  emit: str = "model", residual_dtype=None,
+                  conv_impl: str = "auto"):
     """Plan ``graph`` and return its forward module: a graph that is one
     conv chain ending in the SRVGG shuffle tail gets :class:`SRVGGForward`
     (K1 then K2), any other :class:`GraphForward` (K5 per Valar dense
     block, K1 per conv chain, K4 per other SAME 3x3 conv, K3 for an SRVGG
     tail, generic ops between); a layer type outside the op set raises.
 
+    ``conv_impl`` picks the kernels (:func:`conv_routes`): without the
+    conv kernels every graph takes the graph walk, each conv a generic
+    ``F.conv2d`` (the aten route), and without K5 a Valar dense block runs
+    its convs on K4 over one shared buffer (``pallas``) or as generic ops.
     ``compute_dtype`` bf16 runs the kernels on CUDA (held to the JAX
-    Pallas path); float32 is accepted only on the CPU, where the plain
-    versions and generic ops run (held to the JAX XLA f32 path).
-    ``residual_dtype=torch.float32`` is ``--precision mixed`` and applies
-    to :class:`GraphForward` only: its Eltwise/BinaryOp adds run in f32
-    (the JAX package gives the 1x anime model the same residual dtype
-    under ``-m a,r``, chain.py:248)."""
+    Pallas path); float32 runs the aten route on either device (held to
+    the JAX XLA f32 path).  ``residual_dtype=torch.float32`` is
+    ``--precision mixed``: the graph walk's Eltwise/BinaryOp adds run in
+    f32 (the JAX package gives the 1x anime model the same residual dtype
+    under ``-m a,r``, chain.py:248); an SRVGG on K1 + K2 already adds its
+    skip in f32 in K2's epilogue, so there mixed computes what bf16 does."""
     device = torch.device(device)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {compute_dtype}")
-    if device.type == "cuda" and compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the CUDA kernels compute in bf16; float32 runs on the CPU only")
+    kernels, rdb = conv_routes(conv_impl, compute_dtype)
     plan = None
-    if probe_srvgg_tail(graph) is not None:
+    if kernels and probe_srvgg_tail(graph) is not None:
         try:
             plan = plan_srvgg(graph)
         except NotImplementedError:
             pass  # no single K1 chain: the graph walk, the tail on K3
     if plan is not None:
-        if residual_dtype is not None:
-            raise NotImplementedError(
-                "--precision mixed is ported for the graph walk only, not "
-                "for an SRVGG graph on K1 + K2")
         return SRVGGForward(plan, device, compute_dtype, emit)
-    return GraphForward(graph, device, compute_dtype, residual_dtype, emit)
+    return GraphForward(graph, device, compute_dtype, residual_dtype, emit,
+                        kernels, rdb)

@@ -106,14 +106,17 @@ class Model(nn.Module):
     SRVGG (one K1 chain + generic ops) or an RRDBNet (the graph walk: K5
     per Valar dense block, K4 per other 3x3 conv, K1 chains).
     ``residual_dtype=torch.float32`` is ``--precision mixed``: the graph
-    walk's residual adds run in f32 (not the SRVGG tail's).  ``params``
-    keeps the host weights (f32 numpy) for :meth:`save`."""
+    walk's residual adds run in f32 (K2's skip add is f32 already).
+    ``conv_impl`` is ``--conv_impl``, which its forwards are built for
+    (:func:`~upscale_video_tpu_torch.models.executor.conv_routes`).
+    ``params`` keeps the host weights (f32 numpy) for :meth:`save`."""
 
     def __init__(self, name: str, scale: int, graph: NcnnGraph,
                  params: Dict[str, Dict[str, np.ndarray]],
                  device: "torch.device | str",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 residual_dtype: Optional[torch.dtype] = None):
+                 residual_dtype: Optional[torch.dtype] = None,
+                 conv_impl: str = "auto"):
         super().__init__()
         self.name = name
         self.scale = scale
@@ -121,6 +124,7 @@ class Model(nn.Module):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.residual_dtype = residual_dtype
+        self.conv_impl = conv_impl
         self.params = params
         self.state = params_from_jax(params, self.device, compute_dtype)
         self._forwards: Dict[str, nn.Module] = {}
@@ -131,7 +135,7 @@ class Model(nn.Module):
         and an RRDBNet's its dense blocks' K5 weights."""
         if emit not in self._forwards:
             fwd = build_forward(self.graph, self.device, self.compute_dtype,
-                                emit, self.residual_dtype)
+                                emit, self.residual_dtype, self.conv_impl)
             fwd.prepare(self.state)
             self._forwards[emit] = fwd
         return self._forwards[emit]
@@ -162,7 +166,8 @@ class Model(nn.Module):
 def load_model(model_file: str, scale: int, device: "torch.device | str",
                model_path: Optional[str] = None,
                compute_dtype: torch.dtype = torch.bfloat16,
-               residual_dtype: Optional[torch.dtype] = None) -> Model:
+               residual_dtype: Optional[torch.dtype] = None,
+               conv_impl: str = "auto") -> Model:
     """Load ``{scale}{model_file}.param/.bin`` from a model directory;
     ``model_file`` is a role of :data:`MODEL_FILES` (``"compact"``,
     ``"valar"``, ``"anime"`` at scale 1) or a raw stem suffix."""
@@ -176,7 +181,7 @@ def load_model(model_file: str, scale: int, device: "torch.device | str",
     graph = parse_param_file(stem + ".param")
     params = load_weights_file(graph, stem + ".bin")
     return Model(f"{scale}{stem_suffix}", scale, graph, params, device,
-                 compute_dtype, residual_dtype)
+                 compute_dtype, residual_dtype, conv_impl)
 
 
 def make_srvgg_graph(
@@ -236,6 +241,7 @@ def make_synthetic_model(
     device: "torch.device | str" = "cpu",
     compute_dtype: torch.dtype = torch.bfloat16,
     residual_dtype: Optional[torch.dtype] = None,
+    conv_impl: str = "auto",
 ) -> Model:
     """A Compact-architecture model with random weights (the JAX
     ``make_synthetic_model``'s graph and, byte for byte, its weights).
@@ -244,7 +250,7 @@ def make_synthetic_model(
     graph = make_srvgg_graph(scale=scale, num_conv=num_conv, num_feat=num_feat)
     params = synthesize_weights(graph, seed=seed)
     return Model(f"synthetic_{scale}x_compact", scale, graph, params, device,
-                 compute_dtype, residual_dtype)
+                 compute_dtype, residual_dtype, conv_impl)
 
 
 def make_rrdb_graph(
@@ -377,6 +383,7 @@ def make_synthetic_rrdb_model(
     compute_dtype: torch.dtype = torch.bfloat16,
     residual_dtype: Optional[torch.dtype] = None,
     variant: str = "valar",
+    conv_impl: str = "auto",
 ) -> Model:
     """An RRDBNet model with random weights: for the ``valar`` variant the
     JAX ``make_synthetic_rrdb_model``'s graph and, byte for byte, its
@@ -386,4 +393,4 @@ def make_synthetic_rrdb_model(
                             variant=variant)
     params = synthesize_weights(graph, seed=seed)
     return Model(f"synthetic_{scale}x_rrdb{num_rrdb}", scale, graph, params,
-                 device, compute_dtype, residual_dtype)
+                 device, compute_dtype, residual_dtype, conv_impl)

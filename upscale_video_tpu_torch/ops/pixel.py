@@ -41,6 +41,16 @@ def model_to_frames(y: torch.Tensor, channel_order: str = "bgr") -> torch.Tensor
     return y.to(torch.uint8)
 
 
+def frames_to_planar(f: torch.Tensor, s: int) -> torch.Tensor:
+    """The inverse of :func:`planar_to_frames` on the device: frames ``(N,
+    H*s, W*s, C)`` -> shuffle-planar ``(N, H, W, s*s*C)`` in ``(i, j, c)``
+    plane order."""
+    n, hs, ws, c = f.shape
+    h, w = hs // s, ws // s
+    return (f.reshape(n, h, s, w, s, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(n, h, w, s * s * c))
+
+
 def planar_to_frames(p: np.ndarray, s: int,
                      out: Optional[np.ndarray] = None) -> np.ndarray:
     """Host-side pixel-shuffle interleave of a *shuffle-planar* frame.

@@ -32,7 +32,8 @@ of ``csrc/sr_tail_sm90.cu`` (K2 for Cf 64, K3 for Cf a multiple of 32 in
 kernels of ``csrc/sr_tail.cu`` for every other shape, where ``"yuv420"``
 is the planar launch followed by ``yuv420_from_planar`` (counted in
 ``.yuv_composed``).  ``.launches`` counts kernel launches (one per call),
-``.launches_sm90`` those on the Hopper kernel.  K2's Hopper kernel reads
+``.launches_sm90`` those on the Hopper kernel, ``.launches_model`` those
+writing the ``"model"`` layout (the tiled and ``--tta`` SR stages).  K2's Hopper kernel reads
 its weights as a B image packed once at plan time
 (:func:`pack_tail_weights`, the ``wpack`` argument).
 """
@@ -196,6 +197,7 @@ def _launch(wrapper, fn, sm90, x, skip, weights, bias, n, h, w, cf, scale,
     build.check(code, f"{fn} launch")
     wrapper.launches += 1
     wrapper.launches_sm90 += sm90
+    wrapper.launches_model += layout == "model"
     if kernel_layout != layout:
         wrapper.yuv_composed += 1
         return yuv420_from_planar(out, scale, full_range)
@@ -244,6 +246,7 @@ def sr_tail_chain(buf: torch.Tensor, skip: torch.Tensor, wmat: torch.Tensor,
 
 sr_tail_chain.launches = 0
 sr_tail_chain.launches_sm90 = 0
+sr_tail_chain.launches_model = 0
 sr_tail_chain.yuv_composed = 0
 
 
@@ -291,4 +294,5 @@ def sr_tail_fused(u: torch.Tensor, skip: torch.Tensor, wmat: torch.Tensor,
 
 sr_tail_fused.launches = 0
 sr_tail_fused.launches_sm90 = 0
+sr_tail_fused.launches_model = 0
 sr_tail_fused.yuv_composed = 0

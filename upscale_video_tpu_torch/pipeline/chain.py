@@ -11,7 +11,8 @@ tail itself, or packed after the frames):
   SRVGG anime deblur model (one K1 chain + its skip add);
 - SR, the empty chain's 2x (or 4x) SRVGG Compact model, whole-frame: K1
   (the 17-layer body for 2x Compact) -> K2 (the fused tail, emitting the
-  step's output layout);
+  step's output layout); with ``--tile_size``, haloed tiles -> K1 -> K2's
+  f32 model layout -> the scaled-halo crop;
 - SR, ``-m r``'s 4x Valar RRDBNet, tiled: haloed tiles -> the graph walk
   (K5 per dense block, K4 per solo 3x3 conv, one K1 chain for the last
   three) -> scaled-halo crop;
@@ -24,8 +25,17 @@ tail itself, or packed after the frames):
   dihedral transforms (K2's f32 layout for Compact);
 - scale 1 has no SR stage: the pre-SR stages' output is quantized.
 
+``--conv_impl`` (``ChainEngine.build``'s ``conv_impl``) picks the kernels
+as the JAX package reads the flag: ``auto`` is the routes above, ``pallas``
+the same but ``-m r``'s dense blocks on K4 in place of K5, ``rdb`` K5
+alone, ``xla`` no kernel (every conv a generic ``F.conv2d``, NL-means on
+its plain version; the aten route, which f32 takes for the convs whatever
+the flag).
+
 ``ChainEngine.stage_fn`` runs one of these stages alone, uint8 in and out,
-for the PNG plane (``pipeline/stages.py``).
+for the PNG plane (``pipeline/stages.py``); ``ChainEngine.process`` one
+host batch through the step, for calibration
+(``pipeline/calibrate.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ import torch
 from upscale_video_tpu_torch.models.zoo import (
     Model, load_model, make_synthetic_model, make_synthetic_rrdb_model,
 )
-from upscale_video_tpu_torch.ops.nlmeans import nl_means_denoise
+from upscale_video_tpu_torch.ops.nlmeans import (
+    nl_means_denoise, nl_means_denoise_plain,
+)
 from upscale_video_tpu_torch.ops.pixel import frames_to_model, model_to_frames
 from upscale_video_tpu_torch.ops.tiling import fit_tile_grid, tiled_apply
 from upscale_video_tpu_torch.ops.tta import tta_apply
@@ -162,7 +174,9 @@ class ChainEngine:
     ``anime_model`` is the ``a`` stage or None.  ``tile`` is 0 (whole
     frame), a budget (:func:`~upscale_video_tpu_torch.ops.tiling.fit_tile_grid`)
     or an exact ``(th, tw)`` pair; ``halo`` is the tiles' context border;
-    ``tta`` averages the SR stage over the 8 dihedral transforms."""
+    ``tta`` averages the SR stage over the 8 dihedral transforms;
+    ``conv_impl`` is ``--conv_impl`` (the models carry it for their convs,
+    the engine for NL-means)."""
 
     spec: ChainSpec
     scale: int
@@ -173,6 +187,7 @@ class ChainEngine:
     halo: int = 16
     tta: bool = False
     channel_order: str = "bgr"
+    conv_impl: str = "auto"
     _yuv_steps: dict = field(default=None, repr=False)
 
     @classmethod
@@ -182,7 +197,8 @@ class ChainEngine:
               synthetic: bool = False,
               residual_dtype: Optional[torch.dtype] = None,
               tile: "int | tuple | None" = None,
-              halo: int = 16, tta: bool = False) -> "ChainEngine":
+              halo: int = 16, tta: bool = False,
+              conv_impl: str = "auto") -> "ChainEngine":
         """Load the chain's models on ``device``: the anime role (scale 1)
         for ``a``; for the SR stage (none at scale 1) the stock Compact
         role, the Valar role for ``-m r`` (forcing 4x), or the file
@@ -192,59 +208,60 @@ class ChainEngine:
         scale=1, num_conv=8, num_feat=24)``, for ``-m r`` the 23-RRDB
         ``make_rrdb_graph``, for ``sr=`` the Compact, the stem ignored, as
         in JAX).  ``tile=None`` takes the family's default
-        (:func:`default_tile`); ``-m r`` and ``sr=`` take a tile.
-        ``residual_dtype`` (``mixed``) is for ``-m r`` and ``sr=`` graphs on
-        the graph walk (an SRVGG on K1 + K2 refuses it at plan time), and
-        reaches the anime model too, as in the JAX chain (chain.py:248)."""
+        (:func:`default_tile`); every SR model takes a tile.
+        ``residual_dtype`` (``mixed``) reaches the anime model too, as in
+        the JAX chain (chain.py:248).  ``conv_impl`` is ``--conv_impl``
+        (:func:`~upscale_video_tpu_torch.models.executor.conv_routes`)."""
         device = torch.device(device)
         scale = spec.effective_scale(scale)
         if tile is None:
             tile = default_tile(spec)
-        if tile and not (spec.real_life or spec.sr_file):
-            raise NotImplementedError(
-                "tiling is ported for -m r and sr= only (Compact runs "
-                "whole-frame)")
-        if residual_dtype is not None and not (spec.real_life or spec.sr_file):
-            raise NotImplementedError(
-                "--precision mixed is ported for -m r and sr= only")
         anime = None
         if spec.anime:
             anime = (make_synthetic_model(
                         scale=1, num_conv=8, num_feat=24, device=device,
                         compute_dtype=compute_dtype,
-                        residual_dtype=residual_dtype)
+                        residual_dtype=residual_dtype, conv_impl=conv_impl)
                      if synthetic else
                      load_model("anime", 1, device, model_path,
-                                compute_dtype, residual_dtype))
+                                compute_dtype, residual_dtype, conv_impl))
             anime.frames_forward("model")  # plan now
         model = None
         if scale > 1 and spec.real_life:
             model = (make_synthetic_rrdb_model(
                         scale=scale, num_rrdb=23, device=device,
                         compute_dtype=compute_dtype,
-                        residual_dtype=residual_dtype)
+                        residual_dtype=residual_dtype, conv_impl=conv_impl)
                      if synthetic else
                      load_model("valar", scale, device, model_path,
-                                compute_dtype, residual_dtype))
+                                compute_dtype, residual_dtype, conv_impl))
             model.frames_forward("model")  # plan now
         elif scale > 1:
             model = (make_synthetic_model(scale=scale, device=device,
                                           compute_dtype=compute_dtype,
-                                          residual_dtype=residual_dtype)
+                                          residual_dtype=residual_dtype,
+                                          conv_impl=conv_impl)
                      if synthetic else
                      load_model(spec.sr_file or "compact", scale, device,
-                                model_path, compute_dtype, residual_dtype))
+                                model_path, compute_dtype, residual_dtype,
+                                conv_impl))
             # plan now: an unsupported graph raises before any frame is read
-            model.frames_forward("planar" if model.planar_scale else "model")
+            model.frames_forward("planar" if model.planar_scale
+                                 and not (tile or tta) else "model")
         return cls(spec=spec, scale=scale, sr_model=model, device=device,
-                   anime_model=anime, tile=tile, halo=halo, tta=tta)
+                   anime_model=anime, tile=tile, halo=halo, tta=tta,
+                   conv_impl=conv_impl)
 
     def _to_model(self, frames_u8: torch.Tensor) -> torch.Tensor:
         return frames_to_model(frames_u8.to(self.device), self.channel_order)
 
     def _denoise(self, x: torch.Tensor) -> torch.Tensor:
         """NL-means at strength ``n=K`` over the whole frame batch: one K6
-        launch on the card."""
+        launch on the card, or its plain version under ``--conv_impl xla``
+        or ``rdb`` (the JAX package runs its NL-means kernel only under
+        ``pallas``).  K6 computes in f32, so f32 keeps it."""
+        if self.conv_impl in ("xla", "rdb"):
+            return nl_means_denoise_plain(x, float(self.spec.denoise))
         return nl_means_denoise(x.contiguous(), float(self.spec.denoise))
 
     def _prelude(self, x: torch.Tensor) -> torch.Tensor:
@@ -371,6 +388,13 @@ class ChainEngine:
                 raise ValueError("chain has no SR stage (scale 1)")
             return lambda f: self._sr_frames(self._to_model(f))
         raise ValueError(f"unknown stage {stage!r}")
+
+    def process(self, frames_u8: np.ndarray) -> np.ndarray:
+        """Run one host batch through :attr:`step`: uint8 RGB ``(N, H, W,
+        3)`` in, uint8 RGB out on the host (the copy back waits for the
+        device's work)."""
+        x = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        return self.step(x).cpu().numpy()
 
     @property
     def input_rank_flexible(self) -> bool:

@@ -8,6 +8,11 @@ package's jax-free modules, so the temp dir, ``metadata.json``, fragments
 and ``completed.txt`` are laid out exactly as the JAX package lays them
 out.
 
+Fragments are written in ``<workdir>/partial`` and moved to their names
+once whole (:func:`open_fragment`, :func:`commit_fragment`), so a process
+killed outright mid-fragment leaves nothing under a name that resume
+skips; a whole fragment a JAX run left is skipped as before.
+
 The stream plane (the default) decodes, steps and encodes without
 spilling a frame.  The PNG plane (``data_plane="png"``) lays out the
 reference's ``{frame}.{tag}.png`` store through the stage passes of
@@ -17,6 +22,7 @@ after spilling ``{n}.extract.png``.  Not ported yet: multi-host runs.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import shutil
@@ -50,6 +56,7 @@ from upscale_video_tpu_torch.video import (
 log = logging.getLogger(__name__)
 
 VALID_SCALES = (1, 2, 4)
+PARTIAL_DIR = "partial"  # under the workdir: fragments being written
 
 
 def default_output_name(input_file: str, scale: int) -> str:
@@ -68,6 +75,32 @@ def prepare_workdir(temp_dir: Optional[str], resume: bool) -> str:
         shutil.rmtree(workdir)
     os.makedirs(workdir, exist_ok=True)
     return workdir
+
+
+def open_fragment(backend, batch: int, width: int, height: int, info,
+                  workdir: str, **kw):
+    """Open ``batch``'s fragment sink in ``<workdir>/partial``, beside the
+    name resume trusts; :func:`commit_fragment` moves it there once whole."""
+    part = os.path.join(workdir, PARTIAL_DIR)
+    os.makedirs(part, exist_ok=True)
+    return backend.open_fragment_sink(batch, width, height, info, part, **kw)
+
+
+def commit_fragment(backend, batch: int, workdir: str) -> None:
+    """Move ``batch``'s whole fragment from ``<workdir>/partial`` to its
+    name (one rename on the same file system) and drop the emptied dir."""
+    name = backend.fragment_name(batch)
+    part = os.path.join(workdir, PARTIAL_DIR)
+    os.replace(os.path.join(part, name), os.path.join(workdir, name))
+    with contextlib.suppress(OSError):
+        os.rmdir(part)
+
+
+def discard_fragment(backend, batch: int, workdir: str) -> None:
+    """Remove ``batch``'s fragment in ``<workdir>/partial``, if any."""
+    path = os.path.join(workdir, PARTIAL_DIR, backend.fragment_name(batch))
+    if os.path.exists(path):
+        os.remove(path)
 
 
 @dataclass
@@ -107,6 +140,7 @@ def process_file(
     device: str = "cuda",
     tta: bool = False,
     engine: Optional[ChainEngine] = None,
+    conv_impl: str = "auto",
 ) -> Optional[PipelineResult]:
     """Upscale a video file end to end on ``device``.  Returns a
     PipelineResult, or None when the resume sentinel short-circuits.
@@ -116,7 +150,8 @@ def process_file(
     ``mixed`` for ``-m r`` and bf16 otherwise; ``tta`` averages the SR
     stage over the 8 dihedral transforms of each frame; ``data_plane``
     ``png`` runs the stage passes over PNG files (:func:`_run_png_plane`);
-    ``extract_only`` returns None after spilling ``{n}.extract.png``."""
+    ``extract_only`` returns None after spilling ``{n}.extract.png``;
+    ``conv_impl`` picks the kernels (:class:`ChainEngine`)."""
     if scale not in VALID_SCALES:
         raise ValueError(f"scale must be one of {VALID_SCALES}")
     if not os.path.exists(input_file):
@@ -163,7 +198,7 @@ def process_file(
             spec, scale, dev, model_path=model_path,
             compute_dtype=compute_dtype, synthetic=synthetic_models,
             residual_dtype=residual_dtype, tile=tile_size, halo=halo,
-            tta=tta,
+            tta=tta, conv_impl=conv_impl,
         )
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
@@ -369,8 +404,8 @@ def _run_stream_plane(
                 log.info("batch %d exists, skipped", batch)
                 continue
             sink = AsyncSink(
-                backend.open_fragment_sink(batch, out_w, out_h, info, workdir,
-                                           yuv420=yuv420),
+                open_fragment(backend, batch, out_w, out_h, info, workdir,
+                              yuv420=yuv420),
                 depth=2 * frames_per_step,
                 transform=transform,
             )
@@ -401,13 +436,10 @@ def _run_stream_plane(
                 finally:
                     sink.close()
             except Exception:
-                # never leave a partial fragment for resume to trust
-                if os.path.exists(frag):
-                    os.remove(frag)
+                discard_fragment(backend, batch, workdir)
                 raise
             if ended_early:
-                if os.path.exists(frag):
-                    os.remove(frag)
+                discard_fragment(backend, batch, workdir)
                 processed += wrote
                 raise RuntimeError(
                     f"decoded stream ended at frame {start + wrote - 1} but "
@@ -415,6 +447,7 @@ def _run_stream_plane(
                     f"batch {batch}'s fragment was discarded — re-probe or "
                     "fix the source, then resume"
                 )
+            commit_fragment(backend, batch, workdir)
             processed += wrote
             log.info("batch %d: %d frames upscaled+encoded", batch, wrote)
     finally:
@@ -460,8 +493,9 @@ def _run_png_plane(
                 progress_label=f"Upscaling batch {batch}:",
             )
         src_h, src_w = backend.source_geometry(info, crop)
-        sink = backend.open_fragment_sink(
-            batch, src_w * engine.scale, src_h * engine.scale, info, workdir,
+        sink = open_fragment(
+            backend, batch, src_w * engine.scale, src_h * engine.scale, info,
+            workdir,
         )
         try:
             try:
@@ -469,10 +503,9 @@ def _run_png_plane(
             finally:
                 sink.close()
         except Exception:
-            # never leave a partial fragment for resume to trust
-            if os.path.exists(frag):
-                os.remove(frag)
+            discard_fragment(backend, batch, workdir)
             raise
+        commit_fragment(backend, batch, workdir)
         for f in range(start, end + 1):
             os.remove(os.path.join(workdir, f"{f}.png"))
         processed += end - start + 1

@@ -18,8 +18,11 @@ stage tags), so a JAX box and a port box can each take one half of a job:
   run candidate chains on chosen extracted frames with artifacts kept.
 
 The model-running workflows take ``device`` (``cuda`` unless the caller
-asks for the CPU); every PNG goes through the port's codec
-(:mod:`upscale_video_tpu_torch.video.png`).
+asks for the CPU) and ``conv_impl`` as the JAX ones do (the JAX
+``parallel_mode`` has no counterpart: one GPU); every PNG goes through the
+port's codec (:mod:`upscale_video_tpu_torch.video.png`), and a fragment is
+written beside its name and moved there once whole
+(:func:`~upscale_video_tpu_torch.pipeline.process.open_fragment`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ from upscale_video_tpu_torch.pipeline.chain import (
 from upscale_video_tpu_torch.pipeline.process import (
     VALID_SCALES,
     _extract_all,
+    commit_fragment,
+    discard_fragment,
+    open_fragment,
     prepare_workdir,
 )
 from upscale_video_tpu_torch.utils.logsetup import setup_logging
@@ -60,12 +66,13 @@ log = logging.getLogger(__name__)
 
 
 def _build_engine(spec, scale, model_path, precision, tile_size, halo,
-                  synthetic, device, tta=False):
+                  synthetic, device, conv_impl="auto", tta=False):
     dtype, residual_dtype = precision_dtypes(precision, spec)
     return ChainEngine.build(
         spec, scale, resolve_device(device), model_path=model_path,
         compute_dtype=dtype, synthetic=synthetic,
         residual_dtype=residual_dtype, tile=tile_size, halo=halo, tta=tta,
+        conv_impl=conv_impl,
     )
 
 
@@ -89,6 +96,7 @@ def upscale_only(
     synthetic_models: bool = False,
     tta: bool = False,
     device: str = "cuda",
+    conv_impl: str = "auto",
 ) -> Optional[int]:
     """Split-machine stage 1: upscale + zip, no video encode."""
     if scale not in VALID_SCALES:
@@ -127,7 +135,7 @@ def upscale_only(
         return None
 
     engine = _build_engine(spec, scale, model_path, precision, tile_size, halo,
-                           synthetic_models, device, tta=tta)
+                           synthetic_models, device, conv_impl, tta=tta)
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
     frames_per_step = engine.configure_chips(chips, frames_per_step)
@@ -246,16 +254,16 @@ def merge_only(
         start, end = contiguous_range(png_numbers)  # raises on gaps
 
         w, h = png_size(os.path.join(workdir, f"{start}.png"))
-        sink = backend.open_fragment_sink(batch, w, h, info, workdir)
+        sink = open_fragment(backend, batch, w, h, info, workdir)
         try:
             try:
                 stages.pngs_to_sink(workdir, start, end, sink)
             finally:
                 sink.close()
         except Exception:
-            if os.path.exists(frag):
-                os.remove(frag)
+            discard_fragment(backend, batch, workdir)
             raise
+        commit_fragment(backend, batch, workdir)
         for f in range(start, end + 1):
             os.remove(os.path.join(workdir, f"{f}.png"))
         with open(state_path, "a") as sf:
@@ -290,6 +298,7 @@ def fix_frames(
     synthetic_models: bool = False,
     tta: bool = False,
     device: str = "cuda",
+    conv_impl: str = "auto",
 ) -> List[int]:
     """Repair listed frames: re-extract missing intermediates, re-run the
     chain on just those frames (reference upscale/fix_frames.py:25-277)."""
@@ -341,7 +350,7 @@ def fix_frames(
                     os.remove(p)
 
     engine = _build_engine(spec, scale, model_path, precision, tile_size, halo,
-                           synthetic_models, device, tta=tta)
+                           synthetic_models, device, conv_impl, tta=tta)
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
     frames_per_step = engine.configure_chips(chips, frames_per_step)
@@ -407,6 +416,7 @@ def process_image(
     synthetic_models: bool = False,
     tta: bool = False,
     device: str = "cuda",
+    conv_impl: str = "auto",
 ) -> List[str]:
     """Sampling tool: run a candidate chain on selected extracted frames,
     keeping every intermediate, and name results ``{frame}.{models}.png``
@@ -434,7 +444,7 @@ def process_image(
         )
 
     engine = _build_engine(spec, scale, model_path, precision, tile_size, halo,
-                           synthetic_models, device, tta=tta)
+                           synthetic_models, device, conv_impl, tta=tta)
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
     frames_per_step = engine.configure_chips(chips, frames_per_step)
