@@ -50,7 +50,14 @@ contracts, counting kernel launches:
   batches), ``--precision mixed`` (byte-equal to the default run),
   ``--trace_dir`` (the trace names K1's sm90 kernel), ``--tta``, ``-s 1
   -m a,n=3``, ``-s 4``, ``-m n=3,r`` and ``-m a,r``; then
-  ``test-chips-torch`` on the default chain and on ``-m r`` with one tile.
+  ``test-chips-torch`` on the default chain and on ``-m r`` with one tile;
+- ``[multi_gpu]``: ``--parallel dp`` and ``sp`` on a two-entry mesh (on
+  one card ``cuda:0`` twice, on two ``cuda:0, cuda:1``): the default
+  chain's planar and packed 4:2:0 steps, ``a,n=3``'s and ``-m r``'s, each
+  held to the single step (1 LSB) with each shard's launches and its ms;
+  the 12-frame clip byte-equal to the single-device run; ``-g 0,1``
+  refused as out of range on a one-GPU card; a dp step's host syncs
+  counted under ``torch.cuda.set_sync_debug_mode("warn")``.
   ``[K4_valar]`` holds K4 at Valar's five dense-block shapes on the
   ``-m r`` tile batch (the ``pallas`` route's) and ``[K2_tiles]`` K2's
   model layout at ``--tile_size 256``'s tile batch, each against its plain
@@ -1147,6 +1154,8 @@ def main() -> int:
                         stream_out, tails_on_hopper,
                         steps_of(CLIP_FRAMES, CLIP_RATE, N))
         flag_phases(dev, tmp, drive, counted, steps_of, rng)
+        multi_gpu_phases(dev, tmp, counted, smi, peng, veng,
+                         os.path.join(tmp, "c444.y4m"), stream_out, rng)
     HermeticBackend.concat = concat
 
     # device throughput at 1080p -> 4K: the default and a,n=3 steps (4
@@ -1424,6 +1433,161 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def multi_gpu_phases(dev, tmp, counted, smi, peng, veng, clip, stream_out,
+                     rng) -> None:
+    """``[multi_gpu]``: the steps over a two-entry mesh, ``--parallel dp``
+    and ``sp``, each held to the single step (bound 1 LSB; bit-equal
+    expected) with its kernels' launches (each shard's) and its ms, host
+    batch in and host output out (the single step timed the same way:
+    upload, step, copy back): the default chain's planar and packed 4:2:0
+    steps and ``a,n=3``'s planar step at 4x1080p, ``-m r``'s step (2
+    frames under dp, 1 under sp: its 2x4 tiles dealt as 4 + 4).  On one
+    card the mesh lists ``cuda:0`` twice (each shard runs there in turn),
+    which runs every new line with the real kernels; on two or more it is
+    ``cuda:0, cuda:1``.  Then the 12-frame clip under dp and sp, byte-equal
+    to the single-device run (one card: ``process_file`` with an engine on
+    the two-entry mesh; two: ``upscale-video-torch -g 0,1 --parallel``),
+    ``-g 0,1`` refused as "out of range" on a one-GPU card, and one step
+    of each chain under ``torch.cuda.set_sync_debug_mode("warn")``, its
+    synchronising calls counted (a sync inside a step serialises the
+    GPUs of a single-threaded dispatch)."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from upscale_video_tpu_torch.cli.upscale_video import main as cli_main
+    from upscale_video_tpu_torch.parallel.mesh import make_mesh, select_devices
+    from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
+    from upscale_video_tpu_torch.pipeline.process import process_file
+
+    count = torch.cuda.device_count()
+    devs = ([torch.device("cuda", 0), torch.device("cuda", 1)] if count >= 2
+            else [dev, dev])
+    say("multi_gpu", nvidia_smi=repr(smi), device_count=count,
+        mesh=",".join(str(d) for d in devs))
+    if count == 1:
+        refused = []
+        try:
+            select_devices([0, 1])
+        except ValueError as e:
+            refused.append(str(e))
+        try:
+            cli_main(["-i", clip, "-o", os.path.join(tmp, "g01.y4m"), "-t",
+                      os.path.join(tmp, "work_g01"), "--synthetic_models",
+                      "-g", "0,1"])
+        except ValueError as e:
+            refused.append(str(e))
+        ok = (len(refused) == 2
+              and all("out of range" in r for r in refused))
+        say("multi_gpu_refuse", chips="0,1", errors=refused, ok=ok)
+        if not ok:
+            raise SystemExit("-g 0,1 on a one-GPU card was not refused as "
+                             "out of range")
+
+    def on_mesh(engine, mode):
+        copy = dataclasses.replace(engine)  # shares the models
+        copy.use_mesh(make_mesh({mode: 2}, devices=devs), mode)
+        return copy
+
+    def single_to_host(step, x):
+        out = step(x.to(dev, non_blocking=True))
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.synchronize()
+        return host
+
+    def wall_ms(fn, reps):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).pin_memory()
+    cases = (
+        ("default_planar", eng, lambda e: e.planar_step, 5,
+         {"K1": 17, "K2": 1}),
+        ("default_yuv420", eng, lambda e: e.yuv_step(True, planar=True), 5,
+         {"K1": 17, "K2": 1}),
+        (f"{PRELUDE}_planar", peng, lambda e: e.planar_step, 5,
+         {"K6": 1, "K1": ANIME_LAYERS + 17, "K2": 1}),
+        ("valar", veng, lambda e: e.step, 1,
+         {"K5": VALAR_BLOCKS, "K4": VALAR_SOLOS, "K1": VALAR_CHAIN}),
+    )
+    for name, base, get, reps, per_shard in cases:
+        for mode in ("dp", "sp"):
+            x = frames[:(2 if mode == "dp" else 1)] if name == "valar" else frames
+            want, _, _ = counted(single_to_host, get(base), x)
+            single_ms = wall_ms(lambda: single_to_host(get(base), x), reps)
+            step = get(on_mesh(base, mode))
+            got, k, _ = counted(step, x)
+            lsb = int((got.int() - want.int()).abs().max())
+            ms = wall_ms(lambda: step(x), reps)
+            launched = {kk: k[kk] for kk in per_shard}
+            ok = (got.shape == want.shape and lsb <= 1
+                  and launched == {kk: 2 * v for kk, v in per_shard.items()})
+            say("multi_gpu", step=name, mode=mode, shards=2,
+                frames=x.shape[0], shape=tuple(got.shape), max_lsb=lsb,
+                bit_equal=lsb == 0, launches=launched,
+                ms_per_step=f"{ms:.2f}", single_ms_per_step=f"{single_ms:.2f}",
+                ratio=f"{ms / single_ms:.3f}", per="host batch in, host out",
+                card=repr(smi), ok=ok)
+            if not ok:
+                raise SystemExit(f"the {mode} step of {name} disagrees with "
+                                 "the single step or missed a shard's kernels")
+            if mode == "dp":
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        _, events = step.launch(x)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                for ev in events:
+                    ev.synchronize()
+                syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}"
+                         for w in caught if "synchroniz" in str(w.message)]
+                say("multi_gpu_sync", step=name, mode=mode,
+                    sync_calls=len(syncs), where=sorted(set(syncs)))
+            del got, want, step
+            torch.cuda.empty_cache()
+
+    # the 12-frame clip under dp and sp, byte-equal to the single-device run
+    with open(stream_out, "rb") as f:
+        single = f.read()
+    for mode in ("dp", "sp"):
+        out = os.path.join(tmp, f"mesh_{mode}.out.y4m")
+        work = os.path.join(tmp, f"work_mesh_{mode}")
+        if count >= 2:
+            _, k, wall = counted(cli_main, [
+                "-i", clip, "-o", out, "-t", work, "-b", "1", "-r",
+                "--synthetic_models", "-g", "0,1", "--parallel", mode])
+            how = "upscale-video-torch -g 0,1"
+        else:
+            engine = on_mesh(eng, mode)
+            _, k, wall = counted(lambda: process_file(
+                clip, out, temp_dir=work, batch_size=1,
+                resume_processing=True, engine=engine))
+            how = "process_file, engine on cuda:0,cuda:0"
+        with open(out, "rb") as f:
+            equal = f.read() == single
+        ok = equal and k["K1"] > 0 and k["K2"] > 0
+        say("multi_gpu_clip", mode=mode, how=how, frames=CLIP_FRAMES,
+            byte_equal_to_single=equal, k1_launches=k["K1"],
+            k2_launches=k["K2"], wall_s=f"{wall:.2f}",
+            wall_fps=f"{CLIP_FRAMES / wall:.2f}", ok=ok)
+        if not ok:
+            raise SystemExit(f"the {mode} clip differs from the single-device "
+                             "run")
+        os.remove(out)
+    del eng, frames
+    torch.cuda.empty_cache()
 
 
 def y4m_payload(path):

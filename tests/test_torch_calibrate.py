@@ -74,6 +74,7 @@ def test_sweep_equals_jax(monkeypatch, caplog, kw):
     from upscale_video_tpu.pipeline.chain import ChainEngine as JaxEngine
 
     monkeypatch.setattr(jax_cal, "describe_devices", lambda: [])
+    monkeypatch.setattr(port_cal, "describe_devices", lambda *a: [])
     want, want_lines, want_built = _sweep(jax_cal, JaxEngine, monkeypatch,
                                           caplog, **kw)
     got, got_lines, got_built = _sweep(port_cal, ChainEngine, monkeypatch,
@@ -136,9 +137,17 @@ def test_process_is_the_step_on_host_arrays():
 
 
 @pytest.mark.parametrize("chips", ["0,1", "1,0,1"])
-def test_cli_refuses_more_than_one_gpu(chips):
-    with pytest.raises(NotImplementedError, match="more than one GPU"):
-        test_chips.main(["-g", chips, "--synthetic_models", "--device", "cpu"])
+def test_cli_refuses_more_than_one_gpu(monkeypatch, chips):
+    """More GPUs than the host has: ``-g`` naming a second GPU on a
+    one-GPU host raises the JAX package's "out of range" before any engine
+    is built."""
+    monkeypatch.setattr(port_cal, "resolve_device",
+                        lambda d: torch.device("cuda", 0))
+    monkeypatch.setattr(port_cal, "describe_devices", lambda *a: [])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(ChainEngine, "build", None)
+    with pytest.raises(ValueError, match=r"chip ids \[1\] out of range"):
+        test_chips.main(["-g", chips, "--synthetic_models"])
 
 
 def test_jax_float32_is_what_f32_resolves_to():

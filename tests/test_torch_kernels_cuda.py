@@ -829,3 +829,78 @@ def test_q8_sm90_layer_without_its_image_raises(dev):
     with pytest.raises(ValueError, match="packed weights"):
         conv3x3_chain_q8(x8, [layers[0]._replace(wpack=None)])
     assert conv3x3_chain_q8.launches == before
+
+
+# --- the launch device ------------------------------------------------------
+
+LAUNCH_SITES = ("conv_chain", "conv3x3", "tail", "rdb", "nlmeans",
+                "conv_winograd", "conv_chain_q8")
+
+
+@pytest.mark.parametrize("module", LAUNCH_SITES)
+def test_every_launch_goes_through_the_device_helper(module):
+    """CPU: each wrapper module hands its ctypes launches to
+    ``build.launch`` (which enters the tensor's device) and reads no stream
+    itself."""
+    import importlib
+    import inspect
+
+    src = inspect.getsource(importlib.import_module(
+        f"upscale_video_tpu_torch.ops.{module}"))
+    assert "build.launch(" in src
+    assert "current_stream" not in src and "cuda_stream" not in src
+    assert "build.check(" not in src
+
+
+def test_launch_helper_enters_the_tensor_device(monkeypatch):
+    """CPU: ``build.launch`` runs the entry point under the given device
+    with that device's current stream last, and raises on an error code."""
+    from types import SimpleNamespace
+
+    entered = []
+
+    class Device:
+        def __init__(self, d):
+            self.d = d
+
+        def __enter__(self):
+            entered.append(("in", self.d))
+
+        def __exit__(self, *exc):
+            entered.append(("out", self.d))
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: SimpleNamespace(cuda_stream=100 + d.index))
+    calls = []
+    dev1 = torch.device("cuda", 1)
+    build.launch(lambda *a: calls.append(a) or 0, dev1, "probe", 7, 8)
+    assert calls == [(7, 8, 101)]
+    assert entered == [("in", dev1), ("out", dev1)]
+    monkeypatch.setattr(build, "library", lambda: SimpleNamespace(
+        uvt_error_string=lambda code: b"invalid argument"))
+    with pytest.raises(RuntimeError, match="probe: CUDA error 1"):
+        build.launch(lambda *a: 1, dev1, "probe")
+
+
+def test_launches_run_under_their_tensors_device(dev):
+    """A K1 layer stack and a K6 call on ``cuda:0`` while the current device
+    is another GPU: each launches on its tensor's device and matches its
+    plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs (the current device set elsewhere)")
+    d0 = torch.device("cuda", 0)
+    rng = np.random.default_rng(9)
+    layers = _layers(rng, [(3, 64, ACT_PRELU), (64, 64, ACT_PRELU),
+                           (64, 3, ACT_NONE)], d0)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 37, 53, 3)).astype(np.float32))
+    img = torch.from_numpy(_noisy_gradient(rng, 1, 37, 53)).to(d0)
+    with torch.cuda.device(1):
+        got = conv3x3_chain(x.to(d0, torch.bfloat16), layers, crop=False)
+        den = nl_means_denoise(img, 3.0)
+        torch.cuda.synchronize(d0)
+    want = conv3x3_chain_plain(x.to(d0, torch.bfloat16), layers, crop=False)
+    assert got.device == d0 and den.device == d0
+    torch.testing.assert_close(got.float(), want.float(), atol=5e-2, rtol=2e-2)
+    want_den = nl_means_denoise_plain(img, 3.0)
+    assert bool((den - want_den).abs().le(1e-5 + 1e-5 * want_den.abs()).all())

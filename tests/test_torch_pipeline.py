@@ -121,14 +121,20 @@ def test_cli_runs_on_cpu(tmp_path):
     ["-g", "0,1"], ["-g", "0,0,1"], ["--parallel", "sp"], ["--parallel", "tp"],
 ])
 def test_cli_flags_outside_the_slice_raise(tmp_path, flags):
-    """More than one GPU and ``--parallel sp|tp`` are all that the port
-    refuses, before any work."""
+    """``--parallel tp`` is all that the port refuses, before any work;
+    several GPUs and ``--parallel sp`` pass the check
+    (tests/test_torch_parallel.py runs them)."""
+    from upscale_video_tpu_torch.cli.upscale_video import build_parser, check_slice
+
     src = str(tmp_path / "in.y4m")
     _write_clip(src, c420=False)
     argv = ["-i", src, "-t", str(tmp_path / "t"), "--synthetic_models"]
     if "--device" not in flags:
         argv += ["--device", "cpu"]
-    with pytest.raises(NotImplementedError):
+    if "tp" not in flags:
+        check_slice(build_parser().parse_args(argv + flags))
+        return
+    with pytest.raises(NotImplementedError, match="--parallel tp"):
         cli_main(argv + flags)
     assert not os.path.exists(tmp_path / "t")
 

@@ -336,11 +336,17 @@ MODEL_CLIS = [
 @pytest.mark.parametrize("cli,argv", MODEL_CLIS,
                          ids=["upscale_only", "fix_frames", "test_images"])
 def test_cli_flags_outside_the_port_raise(tmp_path, cli, argv, flags):
-    """The flags the port's main CLI refuses, refused by check_slice before
-    any work (no file is read or written)."""
+    """The flag the port's main CLI refuses (``--parallel tp``), refused by
+    check_slice before any work (no file is read or written); several GPUs
+    and ``--parallel sp`` pass the check."""
+    from upscale_video_tpu_torch.cli.upscale_video import check_slice
+
     if "--device" not in flags:
         flags = flags + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError):
+    if "tp" not in flags:
+        check_slice(cli.build_parser().parse_args(argv + flags))
+        return
+    with pytest.raises(NotImplementedError, match="--parallel tp"):
         cli.main(argv + ["-t", str(tmp_path / "t")] + flags)
     assert not os.path.exists(tmp_path / "t")
 

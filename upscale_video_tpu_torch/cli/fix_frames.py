@@ -59,6 +59,7 @@ def main(argv=None) -> int:
         tta=args.tta,
         device=args.device,
         conv_impl=args.conv_impl,
+        parallel_mode=args.parallel,
     )
     return 0
 

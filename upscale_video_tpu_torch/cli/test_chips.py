@@ -1,8 +1,9 @@
-"""``test-chips-torch``: calibration on one GPU (the port's ``test-chips``).
+"""``test-chips-torch``: GPU inventory and calibration (the port's
+``test-chips``).
 
-Same flags as ``test-chips`` plus ``--device``; ``-g`` over more than one
-GPU raises ``NotImplementedError`` (:func:`~upscale_video_tpu_torch.cli.
-upscale_video.check_slice`).
+Same flags as ``test-chips`` plus ``--device``; ``-g`` over several GPUs
+times each point on their dp mesh, and an id the host lacks raises
+``ValueError`` ("out of range").
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 Same flags as ``upscale-video`` (the argparse option groups are
 :mod:`upscale_video_tpu_torch.cli.common`, a copy of the JAX package's),
 plus ``--device``.  ``--trace_dir`` writes a ``torch.profiler`` trace of
-the run (:mod:`upscale_video_tpu_torch.utils.trace`).  Flags outside the
-port (more than one GPU, ``--parallel sp|tp``) raise
-``NotImplementedError`` instead of silently doing something else.
+the run (:mod:`upscale_video_tpu_torch.utils.trace`).  ``-g`` over
+several GPUs runs under ``--parallel dp`` (frames split over the GPUs) or
+``sp`` (each frame's rows split); ``--parallel tp``, the one flag outside
+the port, raises ``NotImplementedError`` instead of silently doing
+something else.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from upscale_video_tpu_torch.cli.common import (
     add_logging_args,
     add_model_chain_args,
 )
-from upscale_video_tpu_torch.pipeline.chain import ChainSpec, parse_chips
+from upscale_video_tpu_torch.pipeline.chain import ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
 from upscale_video_tpu_torch.utils.trace import trace
 
@@ -82,19 +84,17 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def check_slice(args) -> None:
-    """Raise ``NotImplementedError`` for every flag outside the port: a
-    ``-g`` over more than one GPU and ``--parallel sp|tp`` (the port runs
-    on one GPU); an ``-m`` chain that does not parse.  Every CLI of the
-    port that runs a model checks its arguments here."""
+    """Raise ``NotImplementedError`` for every flag outside the port:
+    ``--parallel tp`` (channel tensor parallelism is not ported) and an
+    ``-m`` chain that does not parse.  Every CLI of the port that runs a
+    model checks its arguments here."""
     bad = []
     try:
         ChainSpec.parse(args.models)
     except ValueError:
         bad.append(f"-m {args.models}")
-    if len(parse_chips(args.chips)[0]) > 1:
-        bad.append(f"-g {args.chips} (more than one GPU)")
-    if getattr(args, "parallel", "dp") != "dp":
-        bad.append(f"--parallel {args.parallel}")
+    if getattr(args, "parallel", "dp") == "tp":
+        bad.append("--parallel tp")
     if bad:
         raise NotImplementedError(
             "not ported to the PyTorch/CUDA package yet: " + ", ".join(bad))
@@ -140,6 +140,7 @@ def _run(args) -> None:
         device=args.device,
         tta=args.tta,
         conv_impl=args.conv_impl,
+        parallel_mode=args.parallel,
     )
 
 

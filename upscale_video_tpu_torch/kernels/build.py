@@ -163,6 +163,25 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def launch(fn, device, what: str, *args) -> None:
+    """Call the entry point ``fn`` with ``args`` and the current stream of
+    ``device``, under that device, and raise if it returned a CUDA error.
+    The C side reads the current device for its SM count, its grid and its
+    shared-memory attribute, so every kernel launch of the port goes
+    through here: a launch for ``cuda:1`` from a thread whose current
+    device is 0 would otherwise run on device 1's stream with device 0's
+    set-up."""
+    import contextlib
+
+    import torch
+
+    scope = (torch.cuda.device(device) if device.type == "cuda"
+             else contextlib.nullcontext())
+    with scope:
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(code, what)
+
+
 def check(code: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if code != 0:

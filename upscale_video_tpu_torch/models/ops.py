@@ -232,8 +232,11 @@ def op_interp(layer: NcnnLayer, inputs, p, compute_dtype):
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     """A coefficient in ``like``'s dtype, as ``jnp.asarray(v, dtype)``: a
-    bf16 operand is multiplied by bf16(v), not by an f32 scalar."""
-    return torch.tensor(v, dtype=like.dtype, device=like.device)
+    bf16 operand is multiplied by bf16(v), not by an f32 scalar.  It stays a
+    0-dim host tensor, which a CUDA op takes by value: made on the device,
+    its blocking copy would synchronise the host with the device at every
+    residual of a step."""
+    return torch.tensor(v, dtype=like.dtype)
 
 
 _BINARY_OPS = {

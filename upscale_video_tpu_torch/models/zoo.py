@@ -140,6 +140,16 @@ class Model(nn.Module):
             self._forwards[emit] = fwd
         return self._forwards[emit]
 
+    def replicate(self, device: "torch.device | str") -> "Model":
+        """This model on ``device``: its weights made there from the host
+        copy, and every forward built so far built there too, with its
+        packed weight images (a replica of ``--parallel dp|sp``)."""
+        m = Model(self.name, self.scale, self.graph, self.params, device,
+                  self.compute_dtype, self.residual_dtype, self.conv_impl)
+        for emit in self._forwards:
+            m.frames_forward(emit)
+        return m
+
     @property
     def planar_scale(self) -> Optional[int]:
         return probe_srvgg_tail(self.graph)

@@ -184,7 +184,6 @@ def conv3x3_fused(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor,
 
     n, h, w, _ = x.shape
     lib = build.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     slope_ptr = slope.data_ptr() if act == ACT_PRELU else None
     leaky = float(slope) if act == ACT_LEAKY else 0.0
     if sm90:
@@ -196,19 +195,19 @@ def conv3x3_fused(x: torch.Tensor, wmat: torch.Tensor, bias: torch.Tensor,
                 f"conv3x3_fused: the sm90 kernel takes 16-byte aligned pixels "
                 f"and slices (in stride {c_in_total}, out stride {c_out_total}, "
                 f"offset {out_off})")
-        code = lib.uvt_conv3x3_fused_sm90(
+        build.launch(
+            lib.uvt_conv3x3_fused_sm90, x.device, "conv3x3_fused sm90 launch",
             x.data_ptr(), dst.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
             slope_ptr, leaky, n, h, w, cin, c_in_total, cout, c_out_total,
-            out_off, act, stream)
-        build.check(code, "conv3x3_fused sm90 launch")
+            out_off, act)
         y = dst if out is None else out[..., out_off:out_off + cout]
     else:
         y = torch.empty((n, h, w, cout), dtype=out_dtype, device=x.device)
-        code = lib.uvt_conv3x3_fused(
+        build.launch(
+            lib.uvt_conv3x3_fused, x.device, "conv3x3_fused launch",
             x.data_ptr(), y.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
             slope_ptr, leaky, n, h, w, cin, cout, act,
-            int(out_dtype == torch.float32), stream)
-        build.check(code, "conv3x3_fused launch")
+            int(out_dtype == torch.float32))
         y = _deliver(y, out, out_off)
     conv3x3_fused.launches += 1
     conv3x3_fused.launches_sm90 += sm90

@@ -307,13 +307,12 @@ def launch_chain_layer(src: torch.Tensor, dst: torch.Tensor,
                 f"layer {layer.cin}->{layer.cout}: the narrow kernel needs "
                 "its packed weights (ChainLayer.wpack from "
                 "pack_narrow_weights, contiguous bf16 on the input's device)")
-    code = fn(
+    build.launch(
+        fn, src.device, f"conv3x3_chain {kernel} layer launch",
         src.data_ptr(), dst.data_ptr(), weights.data_ptr(),
         layer.bias.data_ptr(), layer.slope.data_ptr(),
         n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
-        torch.cuda.current_stream(src.device).cuda_stream,
     )
-    build.check(code, f"conv3x3_chain {kernel} layer launch")
     conv3x3_chain.launches += 1
     conv3x3_chain.launches_sm90 += kernel != "wmma"
     conv3x3_chain.launches_narrow += kernel == "narrow"

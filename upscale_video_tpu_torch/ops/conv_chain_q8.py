@@ -239,15 +239,14 @@ def launch_q8_layer(src: torch.Tensor, dst: torch.Tensor,
     lib = build.library()
     fn = (lib.uvt_conv3x3_chain_q8_layer_sm90 if sm90
           else lib.uvt_conv3x3_chain_q8_layer)
-    code = fn(
+    build.launch(
+        fn, src.device, "conv3x3_chain_q8 sm90 layer launch" if sm90
+        else "conv3x3_chain_q8 layer launch",
         src.data_ptr(), dst.data_ptr(), weights.data_ptr(),
         layer.scale.data_ptr(), layer.bias.data_ptr(), layer.slope.data_ptr(),
         layer.inv_out, n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
         int(dst.dtype == torch.int8),
-        torch.cuda.current_stream(src.device).cuda_stream,
     )
-    build.check(code, "conv3x3_chain_q8 sm90 layer launch" if sm90
-                else "conv3x3_chain_q8 layer launch")
     conv3x3_chain_q8.launches += 1
     conv3x3_chain_q8.launches_sm90 += sm90
 

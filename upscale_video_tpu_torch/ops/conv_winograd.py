@@ -173,14 +173,13 @@ def launch_wino_layer(src: torch.Tensor, dst: torch.Tensor,
     sm90 = sm90_takes(layer.cin, layer.cout)
     lib = build.library()
     fn = lib.uvt_conv_winograd_layer_sm90 if sm90 else lib.uvt_conv_winograd_layer
-    code = fn(
+    build.launch(
+        fn, src.device, "conv_winograd sm90 layer launch" if sm90
+        else "conv_winograd layer launch",
         src.data_ptr(), dst.data_ptr(), layer.umat.data_ptr(),
         layer.bias.data_ptr(), layer.slope.data_ptr(),
         n, hp - 2, wp - 2, layer.cin, layer.cout, layer.act,
-        torch.cuda.current_stream(src.device).cuda_stream,
     )
-    build.check(code, "conv_winograd sm90 layer launch" if sm90
-                else "conv_winograd layer launch")
     winograd_chain.launches += 1
     winograd_chain.launches_sm90 += sm90
 

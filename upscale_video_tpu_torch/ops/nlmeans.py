@@ -134,11 +134,10 @@ def nl_means_denoise(x: torch.Tensor, h: float,
     nlm_launch_plan(n, hgt, wid)  # raises where the grid cannot hold the batch
     out = torch.empty_like(x)
     inv_h2, two_s2 = filter_params(h, sigma)
-    code = build.library().uvt_nl_means_sm90(
+    build.launch(
+        build.library().uvt_nl_means_sm90, x.device, "nl_means launch",
         x.data_ptr(), out.data_ptr(), n, hgt, wid, inv_h2, two_s2,
-        torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(code, "nl_means launch")
     nl_means_denoise.launches += 1
     return out
 

@@ -6,7 +6,7 @@ floats in [0, 1]** (the reference's cv2/ncnn feed); frames are uint8 RGB.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,21 @@ def frames_to_planar(f: torch.Tensor, s: int) -> torch.Tensor:
     h, w = hs // s, ws // s
     return (f.reshape(n, h, s, w, s, c).permute(0, 1, 3, 2, 4, 5)
             .reshape(n, h, w, s * s * c))
+
+
+def pad_to_multiple(x: torch.Tensor, multiple_h: int, multiple_w: int
+                    ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """Pad H/W (axes -3/-2) up to multiples by repeating the last row and
+    column; returns (padded, (ph, pw)), ``x`` itself when no pad is due
+    (``upscale_video_tpu/ops/pixel.py:111``, its ``edge`` mode)."""
+    h, w = x.shape[-3], x.shape[-2]
+    ph = (-h) % multiple_h
+    pw = (-w) % multiple_w
+    if ph == 0 and pw == 0:
+        return x, (0, 0)
+    rows = torch.clamp(torch.arange(h + ph, device=x.device), max=h - 1)
+    cols = torch.clamp(torch.arange(w + pw, device=x.device), max=w - 1)
+    return x.index_select(-3, rows).index_select(-2, cols), (ph, pw)
 
 
 def planar_to_frames(p: np.ndarray, s: int,

@@ -263,12 +263,12 @@ def rdb_block(x: torch.Tensor, weights: RDBWeights) -> torch.Tensor:
 
     n, h, w, _ = x.shape
     out = torch.empty_like(x)
-    code = build.library().uvt_rdb_block_sm90(
+    build.launch(
+        build.library().uvt_rdb_block_sm90, x.device,
+        "uvt_rdb_block_sm90 launch",
         x.data_ptr(), out.data_ptr(), wstream.data_ptr(),
         weights.bpack.data_ptr(), n, h, w, ctypes.c_float(weights.slope),
-        torch.cuda.current_stream(x.device).cuda_stream,
     )
-    build.check(code, "uvt_rdb_block_sm90 launch")
     rdb_block.launches += 1
     rdb_block.launches_sm90 += 1
     return out

@@ -181,20 +181,15 @@ def _launch(wrapper, fn, sm90, x, skip, weights, bias, n, h, w, cf, scale,
 
     kernel_layout = layout if sm90 or layout != "yuv420" else "planar"
     out = _out_tensor(n, h, w, scale, kernel_layout, x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = build.library()
+    args = [x.data_ptr(), skip.data_ptr(), weights.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n, h, w]
     if sm90:
-        args = [x.data_ptr(), skip.data_ptr(), weights.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), n, h, w]
         if fn == "uvt_sr_tail_plain_sm90":
             args.append(cf)
-        code = getattr(lib, fn)(*args, scale, LAYOUTS.index(layout),
-                                int(full_range), stream)
+        args += [scale, LAYOUTS.index(layout), int(full_range)]
     else:
-        code = getattr(lib, fn)(
-            x.data_ptr(), skip.data_ptr(), weights.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n, h, w, cf, scale, LAYOUTS.index(kernel_layout), stream)
-    build.check(code, f"{fn} launch")
+        args += [cf, scale, LAYOUTS.index(kernel_layout)]
+    build.launch(getattr(build.library(), fn), x.device, f"{fn} launch", *args)
     wrapper.launches += 1
     wrapper.launches_sm90 += sm90
     wrapper.launches_model += layout == "model"

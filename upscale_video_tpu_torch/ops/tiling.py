@@ -46,13 +46,33 @@ def tiled_apply(
     """Apply ``fn`` ((N, th, tw, C) -> (N, th*scale, tw*scale, C')) over
     haloed tiles of one ``(H, W, C)`` frame, ``tiles_per_step`` tiles per
     call (None: all at once); returns ``(H*scale, W*scale, C')``."""
-    h, w, c = img.shape
+    h, w, _ = img.shape
+    tile_h = tile if isinstance(tile, int) else tile[0]
+    ph = math.ceil(h / tile_h) * tile_h - h
+    rows = F.pad(img, (0, 0, 0, 0, halo, halo + ph))
+    return tiled_apply_rows(fn, rows, tile, halo, scale,
+                            tiles_per_step)[:h * scale]
+
+
+def tiled_apply_rows(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    rows: torch.Tensor,
+    tile: Union[int, Tuple[int, int]] = 512,
+    halo: int = 16,
+    scale: int = 1,
+    tiles_per_step: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`tiled_apply` over whole tile rows of a frame: ``rows`` holds
+    ``k`` tile rows with their ``halo`` rows above and below, ``(k*th +
+    2*halo, W, C)`` (zeros beyond the frame); returns their output,
+    ``(k*th*scale, W*scale, C')``.  A shard of ``--parallel sp`` calls it
+    for its own tile rows."""
+    hr, w, _ = rows.shape
     tile_h, tile_w = (tile, tile) if isinstance(tile, int) else tile
-    ty = math.ceil(h / tile_h)
+    ty = (hr - 2 * halo) // tile_h
     tx = math.ceil(w / tile_w)
-    ph = ty * tile_h - h
     pw = tx * tile_w - w
-    x = F.pad(img, (0, 0, halo, halo + pw, halo, halo + ph))
+    x = F.pad(rows, (0, 0, halo, halo + pw))
     span_h = tile_h + 2 * halo
     span_w = tile_w + 2 * halo
     tiles = torch.stack([
@@ -68,4 +88,4 @@ def tiled_apply(
     c_out = inner.shape[-1]
     full = (inner.reshape(ty, tx, ts_h, ts_w, c_out).permute(0, 2, 1, 3, 4)
             .reshape(ty * ts_h, tx * ts_w, c_out))
-    return full[:h * scale, :w * scale, :]
+    return full[:, :w * scale, :]

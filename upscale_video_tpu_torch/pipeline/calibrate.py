@@ -1,14 +1,15 @@
-"""Calibration on one GPU: time candidate configurations of the chain step.
+"""Calibration: time candidate configurations of the chain step.
 
 Port of ``upscale_video_tpu/pipeline/calibrate.py`` (the ``test-chips``
 sweep) over the port's :class:`~upscale_video_tpu_torch.pipeline.chain.
 ChainEngine`: the same tiles x batch depths, the same log lines and the
-same closing ``best: --tile_size ... --frames_per_step ...`` line.  The
-device line comes from ``torch.cuda.get_device_properties`` (the JAX
-package's ``describe_devices`` lists its chips); a ``-g`` over more than
-one GPU raises, as :meth:`ChainEngine.configure_chips` does.  Each point
+same closing ``best: --tile_size ... --frames_per_step ...`` line, after
+one line per GPU (:func:`~upscale_video_tpu_torch.parallel.mesh.
+describe_devices`).  A ``-g`` over several GPUs places each point on the
+dp mesh the pipeline would use (:meth:`ChainEngine.configure_chips`); an
+id the host does not have raises before any engine is built.  Each point
 is timed around :meth:`ChainEngine.process`, which returns host arrays,
-so the wall clock covers the device's work.
+so the wall clock covers the devices' work.
 """
 
 from __future__ import annotations
@@ -19,12 +20,14 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from upscale_video_tpu_torch.cli.common import tile_spec
 from upscale_video_tpu_torch.device import resolve_device
+from upscale_video_tpu_torch.parallel.mesh import (
+    describe_devices, parse_chips, select_devices,
+)
 from upscale_video_tpu_torch.pipeline.chain import (
-    ChainEngine, ChainSpec, parse_chips, precision_dtypes,
+    ChainEngine, ChainSpec, precision_dtypes,
 )
 
 log = logging.getLogger(__name__)
@@ -54,15 +57,6 @@ def sample_image(height: int = 540, width: int = 960, seed: int = 0) -> np.ndarr
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def describe_device(device: torch.device) -> List[str]:
-    """One log line for the device the sweep runs on."""
-    if device.type != "cuda":
-        return [f"device {device} (the plain PyTorch versions)"]
-    p = torch.cuda.get_device_properties(device)
-    return [f"device {device}: {p.name}, {p.total_memory / 2**30:.1f} GiB, "
-            f"{p.multi_processor_count} SMs, sm_{p.major}{p.minor}"]
-
-
 def run_calibration(
     chips: Optional[str] = None,
     scale: int = 2,
@@ -86,11 +80,12 @@ def run_calibration(
     build.  ``device`` is where it runs (``cuda`` unless the caller asks
     for the CPU)."""
     dev = resolve_device(device)
-    for line in describe_device(dev):
+    for line in describe_devices(dev.type):
         log.info(line)
 
     chip_ids, multiplier = parse_chips(chips)
     log.info("chips %s (batch multiplier %d)", chip_ids, multiplier)
+    select_devices(chip_ids, dev.type)  # an id out of range raises here
 
     spec = ChainSpec.parse(models)
     if tiles is None:
@@ -110,6 +105,7 @@ def run_calibration(
         if tile is not None:
             log.info("tile_size %s -> engine tile %r", tile, engine.tile)
         for depth in batch_depths:
+            # each point on the chip multiset's dp mesh, as the pipeline
             n = engine.configure_chips(chips, depth)
             if not chips:
                 n = depth * multiplier

@@ -40,6 +40,7 @@ host batch through the step, for calibration
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
@@ -54,9 +55,19 @@ from upscale_video_tpu_torch.ops.nlmeans import (
     nl_means_denoise, nl_means_denoise_plain,
 )
 from upscale_video_tpu_torch.ops.pixel import frames_to_model, model_to_frames
-from upscale_video_tpu_torch.ops.tiling import fit_tile_grid, tiled_apply
+from upscale_video_tpu_torch.ops.tiling import (
+    fit_tile_grid, tiled_apply, tiled_apply_rows,
+)
 from upscale_video_tpu_torch.ops.tta import tta_apply
 from upscale_video_tpu_torch.ops.yuv import i420_to_model, yuv420_from_frames
+from upscale_video_tpu_torch.parallel.data import ShardedStep, data_parallel_fn
+from upscale_video_tpu_torch.parallel.mesh import (  # noqa: F401 (parse_chips)
+    Mesh, make_mesh, parse_chips, select_devices,
+)
+from upscale_video_tpu_torch.parallel.spatial import (
+    NLMEANS_RADIUS, Band, graph_radius, receptive_radius, sp_sharded_fn,
+    whole_frame,
+)
 
 log = logging.getLogger(__name__)
 
@@ -151,19 +162,6 @@ def default_tile(spec: ChainSpec) -> "int | tuple":
     return VALAR_DEFAULT_TILE if spec.real_life else 0
 
 
-def parse_chips(chips: Optional[str]) -> Tuple[List[int], int]:
-    """``"0,0,1"`` -> (unique ids [0, 1], multiplier 2), as the JAX
-    ``parallel.mesh.parse_chips``."""
-    if not chips:
-        return [0], 1
-    try:
-        ids = [int(g) for g in chips.split(",")]
-    except ValueError as e:
-        raise ValueError(f"invalid chips spec {chips!r}") from e
-    uniq = sorted(set(ids))
-    return uniq, max(ids.count(i) for i in uniq)
-
-
 @dataclass
 class ChainEngine:
     """Executes the model chain on batches of uint8 frames on one device.
@@ -188,7 +186,10 @@ class ChainEngine:
     tta: bool = False
     channel_order: str = "bgr"
     conv_impl: str = "auto"
-    _yuv_steps: dict = field(default=None, repr=False)
+    _steps: dict = field(default=None, repr=False)
+    _mesh: Optional[Mesh] = field(default=None, repr=False)
+    _mesh_mode: str = field(default="dp", repr=False)
+    _replicas: dict = field(default=None, repr=False)
 
     @classmethod
     def build(cls, spec: ChainSpec, scale: int, device: "torch.device | str",
@@ -274,20 +275,44 @@ class ChainEngine:
                 self.anime_model.state, x)
         return x
 
+    def _tile_hw(self, h: int, w: int) -> Tuple[int, int]:
+        return (self.tile if isinstance(self.tile, tuple)
+                else fit_tile_grid(h, w, self.tile))
+
     def _tiled_sr(self, x: torch.Tensor) -> torch.Tensor:
         """Model-domain (N, H, W, 3) -> (N, sH, sW, 3) f32 over haloed
         tiles; each frame's tiles go through the model in batches of
         :data:`TILES_PER_STEP`."""
         fwd = self.sr_model.frames_forward("model")
         state = self.sr_model.state
-        tile_hw = (self.tile if isinstance(self.tile, tuple)
-                   else fit_tile_grid(int(x.shape[1]), int(x.shape[2]),
-                                      self.tile))
+        tile_hw = self._tile_hw(int(x.shape[1]), int(x.shape[2]))
         return torch.stack([
             tiled_apply(lambda t: fwd(state, t), x[i], tile_hw, self.halo,
                         self.scale, TILES_PER_STEP)
             for i in range(x.shape[0])
         ])
+
+    def _tiled_sr_band(self, x: torch.Tensor, band: Band) -> torch.Tensor:
+        """:meth:`_tiled_sr`'s output rows ``[band.lo, band.hi)`` of a frame
+        of ``band.frame_h`` rows, from its model-domain rows ``[band.top,
+        band.bottom)`` (exact from ``band.lo - halo`` to the tile rows'
+        end plus ``halo``): the tile rows of the frame's own grid that the
+        band's core covers."""
+        fwd = self.sr_model.frames_forward("model")
+        state = self.sr_model.state
+        n, _, w, c = x.shape
+        th, tw = self._tile_hw(band.frame_h, int(w))
+        first = band.lo - self.halo  # frame row of rows[:, 0]
+        k = -(-(band.hi - band.lo) // th)
+        rows = x.new_zeros((n, k * th + 2 * self.halo, w, c))
+        a, b = max(first, 0), min(first + rows.shape[1], band.frame_h)
+        rows[:, a - first:b - first] = x[:, a - band.top:b - band.top]
+        out = torch.stack([
+            tiled_apply_rows(lambda t: fwd(state, t), rows[i], (th, tw),
+                             self.halo, self.scale, TILES_PER_STEP)
+            for i in range(n)
+        ])
+        return out[:, :(band.hi - band.lo) * self.scale]
 
     def _sr_frames(self, x: torch.Tensor) -> torch.Tensor:
         """The SR stage emitting uint8 RGB frames: tiled or whole-frame,
@@ -312,7 +337,7 @@ class ChainEngine:
     @property
     def step(self) -> Callable:
         """uint8 RGB (N, H, W, 3) -> uint8 RGB (N, sH, sW, 3)."""
-        return lambda f: self._frames(self._prelude(self._to_model(f)))
+        return self._finalize(("step",))
 
     @property
     def planar_scale(self) -> Optional[int]:
@@ -328,9 +353,7 @@ class ChainEngine:
     @property
     def planar_step(self) -> Callable:
         """uint8 RGB (N, H, W, 3) -> uint8 planar (N, H, W, 3*s*s)."""
-        fwd = self.sr_model.frames_forward("planar")
-        return lambda f: fwd(self.sr_model.state,
-                             self._prelude(self._to_model(f)))
+        return self._finalize(("planar",))
 
     def yuv_step(self, full_range: bool, planar: bool,
                  i420_in: Optional[Tuple[int, int, bool]] = None) -> Callable:
@@ -338,31 +361,7 @@ class ChainEngine:
         ``i420_in=(src_h, src_w, in_full_range)``, flat I420 input.  With
         ``planar`` the SR model's tail emits the packed layout (``emit=
         "yuv420"``: on the card one tail launch, no separate pack)."""
-        if self._yuv_steps is None:
-            self._yuv_steps = {}
-        key = (full_range, planar, i420_in)
-        if key in self._yuv_steps:
-            return self._yuv_steps[key]
-        order = self.channel_order
-        s = self.planar_scale
-        if planar and (not s or s % 2):
-            raise ValueError(f"planar yuv contract unavailable (planar_scale={s})")
-
-        def fn(x):
-            x = x.to(self.device)
-            if i420_in is None:
-                m = frames_to_model(x, order)
-            else:
-                src_h, src_w, in_full = i420_in
-                m = i420_to_model(x, src_h, src_w, in_full, order)
-            m = self._prelude(m)
-            if planar:  # the tail writes the packed 4:2:0 layout itself
-                return self.sr_model.frames_forward("yuv420")(
-                    self.sr_model.state, m, full_range=full_range)
-            return yuv420_from_frames(self._frames(m), full_range)
-
-        self._yuv_steps[key] = fn
-        return fn
+        return self._finalize(("yuv", full_range, planar, i420_in))
 
     def stage_fn(self, stage: str) -> Callable:
         """One stage alone as a uint8 RGB (N, H, W, 3) -> uint8 RGB step,
@@ -370,7 +369,22 @@ class ChainEngine:
         chain.py:703-741): ``denoise`` is K6, ``anime`` the anime model's
         K1 chain, ``sr`` the SR stage (whole-frame K1 then K2 in its frames
         layout; tiled and ``--tta`` as :meth:`_sr_frames`)."""
+        return self._finalize(("stage", stage))
+
+    def _single(self, kind: tuple) -> Callable:
+        """The step ``kind`` on this engine's device (``step``, ``planar``,
+        ``yuv`` with its key, ``stage`` with its name); raises where the
+        chain has no such step."""
         order = self.channel_order
+        if kind[0] == "step":
+            return lambda f: self._frames(self._prelude(self._to_model(f)))
+        if kind[0] == "planar":
+            fwd = self.sr_model.frames_forward("planar")
+            return lambda f: fwd(self.sr_model.state,
+                                 self._prelude(self._to_model(f)))
+        if kind[0] == "yuv":
+            return self._yuv_single(*kind[1:])
+        stage = kind[1]
         if stage == "denoise":
             if not self.spec.denoise:
                 raise ValueError("chain has no denoise stage")
@@ -389,29 +403,182 @@ class ChainEngine:
             return lambda f: self._sr_frames(self._to_model(f))
         raise ValueError(f"unknown stage {stage!r}")
 
+    def _yuv_single(self, full_range: bool, planar: bool,
+                    i420_in: Optional[Tuple[int, int, bool]]) -> Callable:
+        order = self.channel_order
+        s = self.planar_scale
+        if planar and (not s or s % 2):
+            raise ValueError(f"planar yuv contract unavailable (planar_scale={s})")
+
+        def fn(x):
+            x = x.to(self.device)
+            if i420_in is None:
+                m = frames_to_model(x, order)
+            else:
+                src_h, src_w, in_full = i420_in
+                m = i420_to_model(x, src_h, src_w, in_full, order)
+            m = self._prelude(m)
+            if planar:  # the tail writes the packed 4:2:0 layout itself
+                return self.sr_model.frames_forward("yuv420")(
+                    self.sr_model.state, m, full_range=full_range)
+            return yuv420_from_frames(self._frames(m), full_range)
+
+        return fn
+
+    def _finalize(self, kind: tuple) -> Callable:
+        """The step ``kind`` on whatever :meth:`use_mesh` selected (cached
+        per kind): on one device the step itself; under ``dp`` a replica on
+        each GPU takes its share of the batch
+        (:func:`~upscale_video_tpu_torch.parallel.data.data_parallel_fn`);
+        under ``sp`` each GPU takes a band of every frame's rows
+        (:func:`~upscale_video_tpu_torch.parallel.spatial.sp_sharded_fn`)."""
+        if self._steps is None:
+            self._steps = {}
+        if kind in self._steps:
+            return self._steps[kind]
+        fn = self._single(kind)
+        if self._mesh is not None and self._mesh_mode == "sp":
+            radius, period, tiled = self._sp_plan(kind)
+            fn = sp_sharded_fn(
+                lambda d: self.replica(d)._band(kind, tiled), self._mesh,
+                radius, period=period)
+        elif self._mesh is not None:
+            fn = data_parallel_fn(lambda d: self.replica(d)._single(kind),
+                                  self._mesh)
+        self._steps[kind] = fn
+        return fn
+
+    def _sp_plan(self, kind: tuple):
+        """``(radius, period, tiled)`` of the step ``kind`` under ``sp``:
+        a whole-frame step's bands are widened by its receptive radius (a
+        multiple of the SR model's Reorg stride, at whose multiples they
+        are cut); a tiled SR stage's are cut between tile rows and widened
+        by the halo plus the pre-SR stages' radius."""
+        if kind[0] == "yuv" and (kind[3] is not None or not kind[2]):
+            raise ValueError(
+                "--parallel sp takes uint8 frames in and the planar packed "
+                "4:2:0 layout out (flat I420 input has no row axis; the "
+                "full-frame packed layout halves the rows)")
+        stage = kind[1] if kind[0] == "stage" else None
+        if stage == "denoise":
+            return NLMEANS_RADIUS, 1, False
+        if stage == "anime":
+            return graph_radius(self.anime_model.graph), 1, False
+        pre = 0 if stage == "sr" else receptive_radius(self, sr=False)
+        if self.sr_model is None:
+            return pre, 1, False
+        if self.tile:
+            return (self.halo + pre,
+                    lambda h, w: self._tile_hw(h, w)[0], True)
+        align = max([l.attr_i(0, 1) for l in self.sr_model.graph.layers
+                     if l.type == "Reorg"] or [1])
+        radius = pre + graph_radius(self.sr_model.graph)
+        return -(-radius // align) * align, align, False
+
+    def _band(self, kind: tuple, tiled: bool) -> Callable:
+        """The band step of ``kind`` on this engine's device for
+        :func:`~upscale_video_tpu_torch.parallel.spatial.sp_sharded_fn`."""
+        if not tiled:
+            return whole_frame(self._single(kind))
+        order = self.channel_order
+        if kind[0] == "stage":
+            return lambda f, band: model_to_frames(
+                self._tiled_sr_band(self._to_model(f), band), order)
+        return lambda f, band: model_to_frames(
+            self._tiled_sr_band(self._prelude(self._to_model(f)), band),
+            order)
+
+    def replica(self, device: "torch.device | str") -> "ChainEngine":
+        """This engine on ``device`` (itself on its own device): the same
+        chain, its models' weights and packed images made there (cached)."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if self._replicas is None:
+            self._replicas = {}
+        if device not in self._replicas:
+            self._replicas[device] = dataclasses.replace(
+                self, device=device,
+                sr_model=(self.sr_model.replicate(device)
+                          if self.sr_model is not None else None),
+                anime_model=(self.anime_model.replicate(device)
+                             if self.anime_model is not None else None),
+                _steps=None, _mesh=None, _mesh_mode="dp", _replicas=None)
+        return self._replicas[device]
+
     def process(self, frames_u8: np.ndarray) -> np.ndarray:
         """Run one host batch through :attr:`step`: uint8 RGB ``(N, H, W,
         3)`` in, uint8 RGB out on the host (the copy back waits for the
-        device's work)."""
-        x = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        devices' work)."""
+        x = torch.from_numpy(np.ascontiguousarray(frames_u8))
         return self.step(x).cpu().numpy()
 
     @property
-    def input_rank_flexible(self) -> bool:
-        """Steps accept the flat I420 input (no row sharding here)."""
-        return True
+    def row_sharded(self) -> bool:
+        """Whether steps run under ``--parallel sp`` (each frame's rows cut
+        over the mesh)."""
+        return self._mesh is not None and self._mesh_mode == "sp"
 
-    def configure_chips(self, chips: Optional[str],
-                        frames_per_step: int) -> int:
-        """Apply a ``-g`` multiset on one GPU: repetition of the one id
-        deepens the batch (as in JAX); more than one GPU raises."""
-        ids, multiplier = parse_chips(chips)
-        if len(ids) > 1:
+    @property
+    def input_rank_flexible(self) -> bool:
+        """Whether steps accept non-rank-4 inputs (the flat I420 input
+        contract): ``sp`` cuts each input's rows and so needs rank-4 frames;
+        one device and ``dp`` are rank-agnostic (JAX chain.py:522)."""
+        return not self.row_sharded
+
+    def use_mesh(self, mesh: Mesh, mode: str = "dp") -> None:
+        """Run every step over ``mesh``: ``dp`` splits each batch over its
+        devices, ``sp`` each frame's rows.  Replicas of the models are made
+        now on every device of the mesh but this engine's.  A mesh may
+        list a device more than once (its shards then run on it in turn)."""
+        if mode not in ("dp", "sp"):
+            raise NotImplementedError(f"--parallel {mode} is not ported")
+        if mode not in mesh.axis_names:
+            raise ValueError(f"--parallel {mode} needs a mesh with a {mode!r} "
+                             f"axis, got {mesh}")
+        if mode == "sp" and self.tta and self.tile:
             raise NotImplementedError(
-                f"-g {chips}: multi-GPU runs are not ported yet (one GPU)")
-        if chips:
-            frames_per_step = max(frames_per_step * multiplier, frames_per_step)
-            log.info("chips %s -> frames_per_step %d", chips, frames_per_step)
+                "--tta over a tiled SR stage under --parallel sp is not "
+                "ported (each dihedral pass has its own tile grid)")
+        self._mesh, self._mesh_mode = mesh, mode
+        self._steps = None
+        for d in mesh.distinct_devices():
+            self.replica(d)
+
+    def use_chips(self, chips: Optional[str], mode: str = "dp") -> int:
+        """Apply a ``-g`` chip multiset: returns the batch multiplier.
+
+        ``mode="dp"`` (default): several distinct GPUs -> frame-level data
+        parallelism (the reference's primary axis, SURVEY.md §2.4);
+        repetition of a chip id deepens the per-GPU batch instead of adding
+        workers (README:39-63 intent).  ``mode="sp"``: each frame's rows are
+        split across the GPUs (lower latency per frame instead of higher
+        throughput).  Chip ``i`` is ``cuda:i``; on the CPU (``--device
+        cpu``) ids are logical shards of the one CPU device."""
+        if mode not in ("dp", "sp"):
+            raise NotImplementedError(f"--parallel {mode} is not ported")
+        chip_ids, multiplier = parse_chips(chips)
+        if len(chip_ids) > 1:
+            devices = select_devices(chip_ids, self.device.type)
+            self.use_mesh(make_mesh({mode: len(devices)}, devices=devices),
+                          mode)
+        return multiplier
+
+    def configure_chips(self, chips: Optional[str], frames_per_step: int,
+                        mode: str = "dp") -> int:
+        """Apply a ``-g`` multiset and return the adjusted frames-per-step
+        (scaled by chip repetition; rounded up to a multiple of the dp
+        mesh size so the batch splits evenly), as in JAX chain.py:638.
+        Every workflow routes chip selection through here."""
+        if not chips:
+            return frames_per_step
+        multiplier = self.use_chips(chips, mode=mode)
+        frames_per_step = max(frames_per_step * multiplier, frames_per_step)
+        n_chips = self._mesh.size if self._mesh is not None else 1
+        if n_chips > 1 and mode == "dp" and frames_per_step % n_chips:
+            frames_per_step = ((frames_per_step // n_chips) + 1) * n_chips
+        log.info("chips %s -> frames_per_step %d over %d chip(s)",
+                 chips, frames_per_step, n_chips)
         return frames_per_step
 
     def describe(self) -> str:
@@ -429,7 +596,11 @@ class BatchedStepper:
     waited on before that buffer is refilled.  Each result comes down into
     a fresh pinned tensor (PyTorch's caching host allocator recycles them)
     with a non-blocking copy; its CUDA event is synchronised before the
-    host reads it, since the copy call returns before the bytes land.
+    host reads it, since the copy call returns before the bytes land.  A
+    step over a mesh (:class:`~upscale_video_tpu_torch.parallel.data.
+    ShardedStep`) takes the pinned buffer itself, uploads each shard to its
+    GPU and returns its pinned output with one event per shard, which
+    stand for both.
     """
 
     def __init__(self, step_fn: Callable, frames_per_step: int,
@@ -439,9 +610,9 @@ class BatchedStepper:
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         self._count = 0
-        self._pending = None  # (host tensor, event or None, valid count)
+        self._pending = None  # (host tensor, events, valid count)
         self._bufs: List[Optional[torch.Tensor]] = [None, None]
-        self._h2d_done: List[Optional[torch.cuda.Event]] = [None, None]
+        self._h2d_done: List[list] = [[], []]
         self._slot = 0
 
     def _buf_for(self, frame: np.ndarray) -> np.ndarray:
@@ -457,40 +628,47 @@ class BatchedStepper:
                               dtype=torch.from_numpy(np.empty(0, frame.dtype)).dtype,
                               pin_memory=self._cuda)
             self._bufs[self._slot] = buf
-            self._h2d_done[self._slot] = None
-        if self._count == 0 and self._h2d_done[self._slot] is not None:
+            self._h2d_done[self._slot] = []
+        if self._count == 0:
             # the previous upload from this buffer must have landed
-            self._h2d_done[self._slot].synchronize()
-            self._h2d_done[self._slot] = None
+            for ev in self._h2d_done[self._slot]:
+                ev.synchronize()
+            self._h2d_done[self._slot] = []
         return buf.numpy()
 
     def _collect(self) -> List[np.ndarray]:
         if self._pending is None:
             return []
-        host, ev, valid = self._pending
+        host, events, valid = self._pending
         self._pending = None
-        if ev is not None:
+        for ev in events:
             ev.synchronize()
         arr = host.numpy()
         return [arr[i] for i in range(valid)]
 
     def _dispatch(self, valid: int) -> List[np.ndarray]:
         buf = self._bufs[self._slot]
-        if self._cuda:
-            dev_in = buf.to(self.device, non_blocking=True)
-            up = torch.cuda.Event()
-            up.record()
-            self._h2d_done[self._slot] = up
-            out = self.step_fn(dev_in)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
+        if isinstance(self.step_fn, ShardedStep):
+            host, events = self.step_fn.launch(buf)
+            self._h2d_done[self._slot] = events
+        elif self._cuda:
+            with torch.cuda.device(self.device):
+                stream = torch.cuda.current_stream(self.device)
+                dev_in = buf.to(self.device, non_blocking=True)
+                up = torch.cuda.Event()
+                up.record(stream)
+                self._h2d_done[self._slot] = [up]
+                out = self.step_fn(dev_in)
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            events = [ev]
         else:
             host = self.step_fn(buf)  # a new tensor: never aliases buf
-            ev = None
+            events = []
         done = self._collect()
-        self._pending = (host, ev, valid)
+        self._pending = (host, events, valid)
         self._slot = 1 - self._slot
         return done
 

@@ -17,7 +17,12 @@ The stream plane (the default) decodes, steps and encodes without
 spilling a frame.  The PNG plane (``data_plane="png"``) lays out the
 reference's ``{frame}.{tag}.png`` store through the stage passes of
 :mod:`upscale_video_tpu_torch.pipeline.stages`, and ``extract_only`` stops
-after spilling ``{n}.extract.png``.  Not ported yet: multi-host runs.
+after spilling ``{n}.extract.png``.
+
+``-g`` over several GPUs runs the step over a mesh (``parallel_mode``
+``dp`` or ``sp``, :meth:`ChainEngine.configure_chips`), and a multi-host
+environment joins its process group first
+(:func:`~upscale_video_tpu_torch.parallel.mesh.initialize_multihost`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 
 from upscale_video_tpu_torch.device import resolve_device
 from upscale_video_tpu_torch.parallel.executor import AsyncSink, PrefetchSource
+from upscale_video_tpu_torch.parallel.mesh import initialize_multihost
 from upscale_video_tpu_torch.pipeline import stages
 from upscale_video_tpu_torch.pipeline.chain import (
     BatchedStepper, ChainEngine, ChainSpec, default_frames_per_step,
@@ -141,6 +147,7 @@ def process_file(
     tta: bool = False,
     engine: Optional[ChainEngine] = None,
     conv_impl: str = "auto",
+    parallel_mode: str = "dp",
 ) -> Optional[PipelineResult]:
     """Upscale a video file end to end on ``device``.  Returns a
     PipelineResult, or None when the resume sentinel short-circuits.
@@ -151,7 +158,9 @@ def process_file(
     stage over the 8 dihedral transforms of each frame; ``data_plane``
     ``png`` runs the stage passes over PNG files (:func:`_run_png_plane`);
     ``extract_only`` returns None after spilling ``{n}.extract.png``;
-    ``conv_impl`` picks the kernels (:class:`ChainEngine`)."""
+    ``conv_impl`` picks the kernels (:class:`ChainEngine`);
+    ``parallel_mode`` (``dp`` or ``sp``) is how ``chips`` share the
+    work."""
     if scale not in VALID_SCALES:
         raise ValueError(f"scale must be one of {VALID_SCALES}")
     if not os.path.exists(input_file):
@@ -192,6 +201,12 @@ def process_file(
         log.info("extract only — frames extraction completed")
         return None
 
+    # a no-op outside a multi-host environment
+    n_procs = initialize_multihost("gloo" if dev.type == "cpu" else "nccl")
+    if n_procs > 1:
+        log.info("multi-host process group initialized (%d processes)",
+                 n_procs)
+
     if engine is None:
         compute_dtype, residual_dtype = precision_dtypes(precision, spec)
         engine = ChainEngine.build(
@@ -202,7 +217,8 @@ def process_file(
         )
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
-    frames_per_step = engine.configure_chips(chips, frames_per_step)
+    frames_per_step = engine.configure_chips(chips, frames_per_step,
+                                             parallel_mode)
     log.info("model chain: %s on %s", engine.describe(), dev)
 
     if pipe_pix == "auto":
@@ -255,6 +271,10 @@ def _auto_pipe_pix(backend, engine, info, crop, data_plane) -> str:
         why = f"odd output geometry {out_w}x{out_h}"
     elif not backend.auto_yuv420(info):
         why = "encode target is not 4:2:0 8-bit"
+    elif engine.row_sharded and not (
+        engine.planar_scale and engine.planar_scale % 2 == 0
+    ):
+        why = "sp row-sharding needs the even planar contract"
     if why is not None:
         log.info("pipe_pix auto -> rgb24 (%s)", why)
         return "rgb24"
@@ -339,6 +359,16 @@ def _run_stream_plane(
             "yuv420" if existing else "rgb24",
         )
         yuv420 = existing
+    if yuv420 and engine.row_sharded and not (
+        planar and planar % 2 == 0
+    ):
+        # sp cuts rows: only the planar packed grid (one packed row per
+        # input row) keeps its crop ratio (JAX process.py:354)
+        log.warning(
+            "--pipe_pix yuv420p under --parallel sp needs the planar "
+            "contract (unavailable here) — falling back to rgb24",
+        )
+        yuv420 = False
     inner_src = backend.open_source(
         input_file, info, crop, start_frame=start_frame,
         raw_i420=(yuv420 and src_h % 2 == 0 and src_w % 2 == 0

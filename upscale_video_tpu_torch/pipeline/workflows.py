@@ -18,8 +18,8 @@ stage tags), so a JAX box and a port box can each take one half of a job:
   run candidate chains on chosen extracted frames with artifacts kept.
 
 The model-running workflows take ``device`` (``cuda`` unless the caller
-asks for the CPU) and ``conv_impl`` as the JAX ones do (the JAX
-``parallel_mode`` has no counterpart: one GPU); every PNG goes through the
+asks for the CPU), ``conv_impl`` and ``parallel_mode`` (how ``-g`` chips
+share the work: ``dp`` or ``sp``) as the JAX ones do; every PNG goes through the
 port's codec (:mod:`upscale_video_tpu_torch.video.png`), and a fragment is
 written beside its name and moved there once whole
 (:func:`~upscale_video_tpu_torch.pipeline.process.open_fragment`).
@@ -97,6 +97,7 @@ def upscale_only(
     tta: bool = False,
     device: str = "cuda",
     conv_impl: str = "auto",
+    parallel_mode: str = "dp",
 ) -> Optional[int]:
     """Split-machine stage 1: upscale + zip, no video encode."""
     if scale not in VALID_SCALES:
@@ -138,7 +139,8 @@ def upscale_only(
                            synthetic_models, device, conv_impl, tta=tta)
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
-    frames_per_step = engine.configure_chips(chips, frames_per_step)
+    frames_per_step = engine.configure_chips(chips, frames_per_step,
+                                             parallel_mode)
     log.info("model chain: %s on %s", engine.describe(), engine.device)
 
     all_frames = range(1, frames_count + 1)
@@ -299,6 +301,7 @@ def fix_frames(
     tta: bool = False,
     device: str = "cuda",
     conv_impl: str = "auto",
+    parallel_mode: str = "dp",
 ) -> List[int]:
     """Repair listed frames: re-extract missing intermediates, re-run the
     chain on just those frames (reference upscale/fix_frames.py:25-277)."""
@@ -353,7 +356,8 @@ def fix_frames(
                            synthetic_models, device, conv_impl, tta=tta)
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
-    frames_per_step = engine.configure_chips(chips, frames_per_step)
+    frames_per_step = engine.configure_chips(chips, frames_per_step,
+                                             parallel_mode)
 
     for f in frames:  # clear stale final artifacts (ref :240-244)
         p = os.path.join(workdir, f"{f}.png")
@@ -417,6 +421,7 @@ def process_image(
     tta: bool = False,
     device: str = "cuda",
     conv_impl: str = "auto",
+    parallel_mode: str = "dp",
 ) -> List[str]:
     """Sampling tool: run a candidate chain on selected extracted frames,
     keeping every intermediate, and name results ``{frame}.{models}.png``
@@ -447,7 +452,8 @@ def process_image(
                            synthetic_models, device, conv_impl, tta=tta)
     if frames_per_step is None:
         frames_per_step = default_frames_per_step(spec)
-    frames_per_step = engine.configure_chips(chips, frames_per_step)
+    frames_per_step = engine.configure_chips(chips, frames_per_step,
+                                             parallel_mode)
     in_tag = stages.run_chain_stages(engine, output_dir, frames, frames_per_step,
                                      remove=False)
 
