@@ -58,6 +58,17 @@ contracts, counting kernel launches:
   the 12-frame clip byte-equal to the single-device run; ``-g 0,1``
   refused as out of range on a one-GPU card; a dp step's host syncs
   counted under ``torch.cuda.set_sync_debug_mode("warn")``.
+- ``[finetune]``: ``vsr-finetune-torch`` on a hermetic 1080p clip (the
+  default Compact at full width, f32, batch 4, patch 64, 30 steps,
+  checkpoints every 10; training runs the aten route, no hand kernel has
+  a backward): the loss falls, one step's ms with its spread, its
+  profile, its peak memory and 0 host syncs; a run killed at step 10 and
+  resumed equals the uninterrupted one; the export serves through
+  ``upscale-video-torch -m sr=x_<stem>`` on K1 + K2 (Hopper), held to
+  the same run on the plain versions; the 23-RRDB Valar graph trains
+  (``[finetune_valar]``); the dp x sp train step on ``cuda:0`` four times
+  equals the single step (``[finetune_mesh]``); a bilinear and a bicubic
+  Interp make no host sync (``[interp_sync]``).
   ``[K4_valar]`` holds K4 at Valar's five dense-block shapes on the
   ``-m r`` tile batch (the ``pallas`` route's) and ``[K2_tiles]`` K2's
   model layout at ``--tile_size 256``'s tile batch, each against its plain
@@ -297,6 +308,23 @@ TRACE_K1 = "chain_layer_sm90"  # K1's sm90 kernel, as a profiler trace names it
 # (58.76 dB, 2 LSB measured on an NVIDIA H100 80GB HBM3 at 700 W), the
 # bound ~7 dB under that reading
 PNG_PRELUDE_MIN_PSNR = 52.0
+# [finetune]: the Compact trained through vsr-finetune-torch on a 1080p clip
+FT_CLIP_FRAMES = 4             # one 4-frame step when the export serves
+FT_STEPS = 30                  # checkpoints at 10, 20, 30
+FT_TIMED = 20                  # train steps timed alone, after 3 warm-up
+FT_VALAR_STEPS = 3
+FT_MESH_STEPS = 3              # compared after one warm-up step
+# the resumed run repeats the uninterrupted one's arithmetic (train steps
+# run cuDNN's deterministic algorithms): each leaf within 1e-5 of its max
+FT_RESUME_RTOL = 1e-5
+# the served export against the same run on the plain versions: the
+# default step's bound against its plain step (as --tta and --tile_size)
+FT_SERVE_MIN_PSNR = TTA_MIN_PSNR
+# sharded vs single: f32 summation order (conv shapes differ per band);
+# Adam turns a near-zero gradient's noise into a step of up to lr, so the
+# params are held where the first gradient is settled (|g| >= 1e-5), and
+# every param within 2 * steps * lr
+FT_MESH_RTOL, FT_MESH_LOSS_RTOL, FT_ADAM_SETTLED = 1e-5, 1e-4, 1e-5
 # the card's published peaks (NVIDIA's H100 SXM data sheet, dense, at
 # 700 W): HBM bytes/s and
 # operations/s per type.  The SFU's exp rate is 16 per clock per SM
@@ -1156,6 +1184,7 @@ def main() -> int:
         flag_phases(dev, tmp, drive, counted, steps_of, rng)
         multi_gpu_phases(dev, tmp, counted, smi, peng, veng,
                          os.path.join(tmp, "c444.y4m"), stream_out, rng)
+        finetune_phases(dev, tmp, counted, smi)
     HermeticBackend.concat = concat
 
     # device throughput at 1080p -> 4K: the default and a,n=3 steps (4
@@ -1588,6 +1617,330 @@ def multi_gpu_phases(dev, tmp, counted, smi, peng, veng, clip, stream_out,
         os.remove(out)
     del eng, frames
     torch.cuda.empty_cache()
+
+
+def finetune_phases(dev, tmp, counted, smi) -> None:
+    """Fine-tuning (``vsr-finetune-torch``, the aten route by design: no
+    hand kernel has a backward) and its served export, plus C6's drive.
+
+    - ``[finetune]``: the default Compact at full width (16 x 64, f32) at
+      the CLI's batch 4 and patch 64 (HR crops 128x128) on a hermetic
+      1080p clip, ``FT_STEPS`` steps with ``--ckpt_every 10``: first and
+      last loss (the last five must average below the first five), then
+      the step alone, ms by CUDA events after warm-up with its spread,
+      wall ms, the host's crop sampling and the peak memory.
+    - ``[finetune_sync]``: one train step under
+      ``torch.cuda.set_sync_debug_mode("warn")``: 0 synchronising calls.
+    - ``[finetune_resume]``: the same run in a subprocess, killed once
+      ``step_10`` is on disk, then ``--resume`` to ``FT_STEPS``: its params
+      against the uninterrupted run's within ``FT_RESUME_RTOL`` of each
+      leaf's largest value.
+    - ``[finetune_serve]``: the export through ``upscale-video-torch -m
+      sr=x_<stem> -s 2 --model_path <out>``: 17 K1 launches on Hopper and
+      one K2 on Hopper, its output against the same run on the plain
+      versions (``FT_SERVE_MIN_PSNR``, the default step's bound against
+      its plain step).
+    - ``[finetune_valar]``: ``make_synthetic_rrdb_model`` at 23 RRDBs, f32,
+      saved and trained as ``-m x_<stem> -s 4`` at batch 4, patch 64 ->
+      256: ms per step, peak memory, the losses.
+    - ``[finetune_mesh]``: ``make_sharded_train_step`` over ``dp=2,sp=2``
+      on ``cuda:0`` four times against the single step: loss and params
+      after ``FT_MESH_STEPS`` steps, ms per step of each.
+    - ``[interp_sync]``: a bilinear and a bicubic Interp graph (bf16, the
+      aten route) under the sync debug mode: 0 synchronising calls (C6)."""
+    import signal
+    import warnings
+
+    import torch
+
+    from upscale_video_tpu_torch.cli import finetune as ft_cli
+    from upscale_video_tpu_torch.cli.upscale_video import main as cli_main
+    from upscale_video_tpu_torch.models.executor import build_forward
+    from upscale_video_tpu_torch.models.param_parser import NcnnGraph, NcnnLayer
+    from upscale_video_tpu_torch.models.zoo import (
+        make_synthetic_model, make_synthetic_rrdb_model,
+    )
+    from upscale_video_tpu_torch.ops.pixel import psnr
+    from upscale_video_tpu_torch.parallel.mesh import make_mesh
+    from upscale_video_tpu_torch.train import trainer as tt
+    from upscale_video_tpu_torch.train.checkpoint import STATE_FILE
+    from upscale_video_tpu_torch.train.finetune import (
+        _load_hr_frames, _sample_batch,
+    )
+    from upscale_video_tpu_torch.video import Y4MSource
+
+    t_phases = time.perf_counter()
+    clip = os.path.join(tmp, "finetune.y4m")
+    write_clip(clip, False, seed=5, frames=FT_CLIP_FRAMES)
+    results = []
+    run_finetune = ft_cli.finetune
+
+    def recorded(**kw):
+        results.append(run_finetune(**kw))
+        return results[-1]
+
+    def ft_main(args):
+        """``vsr-finetune-torch`` in process; its summary dict."""
+        ft_cli.finetune = recorded
+        try:
+            if ft_cli.main(args) != 0:
+                raise SystemExit(f"vsr-finetune-torch {args} failed")
+        finally:
+            ft_cli.finetune = run_finetune
+        return results[-1]
+
+    def syncs_in(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return sorted({f"{os.path.relpath(w.filename)}:{w.lineno}"
+                       for w in caught if "synchroniz" in str(w.message)})
+
+    def timed_steps(step, state, batches, warm):
+        """``(state, per-step event ms, wall ms per step, peak GB)``."""
+        for lr, hr in batches[:warm]:
+            state, _ = step(state, lr, hr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        events = []
+        t0 = time.perf_counter()
+        for lr, hr in batches[warm:]:
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            state, _ = step(state, lr, hr)
+            e1.record()
+            events.append((e0, e1))
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / len(events)
+        ms = sorted(a.elapsed_time(b) for a, b in events)
+        return state, ms, wall, torch.cuda.max_memory_allocated(dev) / 2**30
+
+    def spread(ms):
+        return dict(ms_per_step=f"{float(np.median(ms)):.3f}",
+                    ms_min=f"{ms[0]:.3f}", ms_max=f"{ms[-1]:.3f}", reps=len(ms))
+
+    # [finetune]: through the CLI on cuda:0, checkpoints every 10 steps
+    out_a, ck_a = os.path.join(tmp, "ft_out"), os.path.join(tmp, "ft_ck")
+    base = ["-i", clip, "--synthetic_models", "--steps", str(FT_STEPS),
+            "--ckpt_every", "10"]
+    t0 = time.perf_counter()
+    res = ft_main([*base, "-o", out_a, "--ckpt_dir", ck_a])
+    wall = time.perf_counter() - t0
+    losses = res["losses"]
+    ok = (res["steps"] == FT_STEPS and len(losses) == FT_STEPS
+          and all(np.isfinite(losses))
+          and np.mean(losses[-5:]) < np.mean(losses[:5]))
+    say("finetune", model="2x Compact 16x64 f32", batch=4, patch=64,
+        hr_crop=128, steps=res["steps"], first_loss=f"{losses[0]:.6f}",
+        last_loss=f"{losses[-1]:.6f}",
+        first5_mean=f"{np.mean(losses[:5]):.6f}",
+        last5_mean=f"{np.mean(losses[-5:]):.6f}",
+        checkpoints=sorted(os.listdir(ck_a)), cli_wall_s=f"{wall:.2f}",
+        card=repr(smi), ok=ok)
+    if not ok:
+        raise SystemExit("fine-tuning the Compact did not lower its loss")
+
+    frames = _load_hr_frames(clip, 64, None)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    batches = [_sample_batch(frames, 4, 64, 2, rng) for _ in range(FT_TIMED + 3)]
+    sample_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    model = make_synthetic_model(scale=2, device=dev, compute_dtype=torch.float32)
+    state, opt = tt.make_train_state(model, 1e-4)
+    step = tt.make_train_step(model, opt)
+    state, ms, wall_ms, peak = timed_steps(step, state, batches, 3)
+    # 17 convs 64 wide + the 64->12 tail over 4x64x64 LR pixels, forward
+    # and the two backward convolutions: 3 x 2 x 9 x cin x cout a pixel
+    flop = 3 * 2 * 9 * 4 * 64 * 64 * (3 * 64 + 16 * 64 * 64 + 64 * 12)
+    say("finetune_step", **spread(ms), wall_ms_per_step=f"{wall_ms:.3f}",
+        host_sample_ms=f"{sample_ms:.3f}", peak_gb=f"{peak:.3f}",
+        gflop=f"{flop / 1e9:.1f}",
+        f32_bound_ms=f"{1e3 * flop / PEAK_OPS['f32']:.3f}",
+        per="one train step, batch 4, patch 64, host batch in", card=repr(smi))
+    # where the step's time goes: one step under torch.profiler, cuDNN's
+    # forward, data-gradient and weight-gradient convolutions and the rest
+    # (pads, permutes, bias adds, PReLU, Adam and their backwards); the
+    # device's idle share of the step is 1 - device_ms / ms_per_step
+    say("finetune_profile", per="one train step",
+        **profile_shares(lambda: step(state, *batches[0]), FT_GROUPS))
+    where = syncs_in(lambda: step(state, *batches[0]))
+    say("finetune_sync", sync_calls=len(where), where=where, ok=not where)
+    if where:
+        raise SystemExit(f"the train step synchronises with the host: {where}")
+    del state, opt, step, model
+
+    # [finetune_resume]: killed once step_10 is on disk, resumed to the end
+    out_b, ck_b = os.path.join(tmp, "ft_out_b"), os.path.join(tmp, "ft_ck_b")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    with open(os.path.join(tmp, "ft_killed.log"), "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "upscale_video_tpu_torch.cli.finetune",
+             *base, "-o", out_b, "--ckpt_dir", ck_b],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+        deadline = time.perf_counter() + 300
+        try:
+            while not os.path.exists(os.path.join(ck_b, "step_10", STATE_FILE)):
+                if proc.poll() is not None or time.perf_counter() > deadline:
+                    raise SystemExit("the run to be killed ended or stalled "
+                                     f"before step 10 (rc {proc.returncode})")
+                time.sleep(0.005)
+            proc.send_signal(signal.SIGKILL)
+        finally:
+            proc.kill()
+            proc.wait()
+    at_kill = sorted(n for n in os.listdir(ck_b) if n.startswith("step_"))
+    resumed = ft_main([*base, "-o", out_b, "--ckpt_dir", ck_b, "--resume"])
+    a = torch.load(os.path.join(ck_a, f"step_{FT_STEPS}", STATE_FILE),
+                   weights_only=True)["params"]
+    b = torch.load(os.path.join(ck_b, f"step_{FT_STEPS}", STATE_FILE),
+                   weights_only=True)["params"]
+    worst = max(float((b[n][k] - t).abs().max() / t.abs().max())
+                for n, p in a.items() for k, t in p.items())
+    stem = "2x_compact_finetuned"
+    with open(os.path.join(out_a, stem + ".bin"), "rb") as f1, \
+            open(os.path.join(out_b, stem + ".bin"), "rb") as f2:
+        bin_equal = f1.read() == f2.read()
+    ok = (proc.returncode == -signal.SIGKILL and resumed["steps"] == FT_STEPS
+          and worst <= FT_RESUME_RTOL)
+    say("finetune_resume", killed_rc=proc.returncode, checkpoints_at_kill=at_kill,
+        resumed_steps=len(resumed["losses"]), max_rel_param_diff=worst,
+        export_byte_equal=bin_equal, bound=f"<={FT_RESUME_RTOL}", ok=ok)
+    if not ok:
+        raise SystemExit("the resumed run differs from the uninterrupted one")
+
+    # [finetune_serve]: the export on the default route, then on the plain
+    # versions
+    served, plain_out = (os.path.join(tmp, f"ft_{n}.y4m") for n in ("served", "plain"))
+    serve = ["-i", clip, "-m", "sr=x_compact_finetuned", "-s", "2",
+             "--model_path", out_a, "-b", "1"]
+    rc, k, wall = counted(cli_main, [*serve, "-o", served, "-t",
+                                     os.path.join(tmp, "work_ft_served")])
+    with plain_kernels():
+        rc_plain = cli_main([*serve, "-o", plain_out, "-t",
+                             os.path.join(tmp, "work_ft_plain")])
+    with Y4MSource(served) as s1, Y4MSource(plain_out) as s2:
+        got, want = np.stack(list(s1)), np.stack(list(s2))
+    quality = psnr(got, want)
+    ok = (rc == rc_plain == 0 and got.shape == (FT_CLIP_FRAMES, 2 * H, 2 * W, 3)
+          and k["K1"] == k["K1_sm90"] == 17 and k["K2"] == k["K2_sm90"] == 1
+          and quality >= FT_SERVE_MIN_PSNR)
+    say("finetune_serve", model="sr=x_compact_finetuned", shape=got.shape,
+        k1_launches=k["K1"], k1_sm90_launches=k["K1_sm90"],
+        k2_launches=k["K2"], k2_sm90_launches=k["K2_sm90"],
+        psnr_vs_plain_db=f"{quality:.2f}",
+        max_lsb=int(np.abs(got.astype(int) - want.astype(int)).max()),
+        bound=f">={FT_SERVE_MIN_PSNR}dB", wall_s=f"{wall:.2f}", ok=ok)
+    if not ok:
+        raise SystemExit("the fine-tuned export does not serve on K1 + K2 "
+                         "within its bound")
+    del got, want
+
+    # [finetune_valar]: the 23-RRDB Valar graph, f32, -m x_<stem> -s 4
+    mdir = os.path.join(tmp, "ft_models")
+    make_synthetic_rrdb_model(scale=4, num_rrdb=23,
+                              compute_dtype=torch.float32).save(
+        mdir, stem="4x_valar_ft")
+    t0 = time.perf_counter()
+    vres = ft_main(["-i", clip, "-o", os.path.join(tmp, "ft_valar_out"),
+                    "-m", "x_valar_ft", "-s", "4", "--model_path", mdir,
+                    "--steps", str(FT_VALAR_STEPS)])
+    vwall = time.perf_counter() - t0
+    vmodel = make_synthetic_rrdb_model(scale=4, num_rrdb=23, device=dev,
+                                       compute_dtype=torch.float32)
+    vstate, vopt = tt.make_train_state(vmodel, 1e-4)
+    vbatches = [_sample_batch(frames, 4, 64, 4, rng) for _ in range(4)]
+    _, vms, vwall_ms, vpeak = timed_steps(tt.make_train_step(vmodel, vopt),
+                                          vstate, vbatches, 1)
+    ok = (vres["steps"] == FT_VALAR_STEPS and all(np.isfinite(vres["losses"])))
+    say("finetune_valar", model="4x Valar 23 RRDBs f32", batch=4, patch=64,
+        hr_crop=256, losses=[round(v, 6) for v in vres["losses"]],
+        **spread(vms), wall_ms_per_step=f"{vwall_ms:.1f}",
+        peak_gb=f"{vpeak:.3f}", cli_wall_s=f"{vwall:.2f}", card=repr(smi),
+        ok=ok)
+    if not ok:
+        raise SystemExit("fine-tuning the Valar graph failed")
+    del vstate, vopt, vmodel
+    torch.cuda.empty_cache()
+
+    # [finetune_mesh]: dp=2,sp=2 on cuda:0 four times against the single step
+    mbatches = [_sample_batch(frames, 4, 64, 2, rng)
+                for _ in range(FT_MESH_STEPS + 1)]
+    mmodel = make_synthetic_model(scale=2, device=dev, compute_dtype=torch.float32)
+    single_state, sopt = tt.make_train_state(mmodel, 1e-4)
+    single = tt.make_train_step(mmodel, sopt)
+    mstate, mopt = tt.make_train_state(mmodel, 1e-4)
+    mesh = make_mesh("dp=2,sp=2", devices=[dev] * 4)
+    sharded = tt.make_state_apply(tt.make_sharded_train_step(mmodel, mopt, mesh))
+    losses_s, losses_m, single_ms, mesh_ms, grads = [], [], [], [], None
+    for i, (lr, hr) in enumerate(mbatches):
+        for fn, st, lst, ms_list in ((single, "single", losses_s, single_ms),
+                                     (sharded, "mesh", losses_m, mesh_ms)):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            if st == "single":
+                single_state, loss = fn(single_state, lr, hr)
+            else:
+                mstate, loss = fn(mstate, lr, hr)
+            e1.record()
+            lst.append(float(loss))
+            if i:
+                ms_list.append((e0, e1))
+        if grads is None:
+            grads = {n: {k: t.grad.clone() for k, t in p.items()}
+                     for n, p in single_state.params.items()}
+    torch.cuda.synchronize()
+    loss_rel = [abs(a - b) / b for a, b in zip(losses_m, losses_s)]
+    settled_worst = adam_worst = 0.0
+    for n, p in single_state.params.items():
+        for k, t in p.items():
+            t = t.detach()
+            d = (mstate.params[n][k].detach() - t).abs()
+            settled = grads[n][k].abs() >= FT_ADAM_SETTLED
+            if settled.any():
+                settled_worst = max(settled_worst,
+                                    float(d[settled].max() / t.abs().max()))
+            adam_worst = max(adam_worst, float(d.max()))
+    ok = (loss_rel[0] <= FT_MESH_RTOL and max(loss_rel) <= FT_MESH_LOSS_RTOL
+          and settled_worst <= FT_MESH_RTOL
+          and adam_worst <= 2 * len(mbatches) * 1e-4)
+    say("finetune_mesh", mesh="dp=2,sp=2 on cuda:0 x4", steps=len(mbatches),
+        loss_rel=[f"{v:.2e}" for v in loss_rel],
+        settled_max_rel_param_diff=f"{settled_worst:.2e}",
+        max_abs_param_diff=f"{adam_worst:.2e}",
+        mesh_ms_per_step=f"{np.median([a.elapsed_time(b) for a, b in mesh_ms]):.3f}",
+        single_ms_per_step=f"{np.median([a.elapsed_time(b) for a, b in single_ms]):.3f}",
+        bound=(f"first loss and settled params <={FT_MESH_RTOL}, losses "
+               f"<={FT_MESH_LOSS_RTOL}, every param <=2*steps*lr"),
+        card=repr(smi), ok=ok)
+    if not ok:
+        raise SystemExit("the dp x sp train step disagrees with the single step")
+    del mstate, mopt, single_state, sopt, mmodel
+    torch.cuda.empty_cache()
+
+    # [interp_sync] (C6): the resize weights live on the device once made
+    for rtype, name in ((2, "bilinear"), (3, "bicubic")):
+        graph = NcnnGraph(layers=[
+            NcnnLayer("Input", "input", [], ["input"]),
+            NcnnLayer("Interp", "up", ["input"], ["output"],
+                      {0: rtype, 1: 2.0, 2: 2.0})], blob_count=2)
+        fwd = build_forward(graph, dev, torch.bfloat16, "model", conv_impl="xla")
+        x = torch.rand(4, 270, 480, 3, device=dev)
+        fwd({}, x)
+        where = syncs_in(lambda: fwd({}, x))
+        say("interp_sync", interp=name, shape=tuple(x.shape),
+            sync_calls=len(where), where=where, ok=not where)
+        if where:
+            raise SystemExit(f"the {name} Interp synchronises: {where}")
+    say("finetune_phases", seconds=f"{time.perf_counter() - t_phases:.1f}")
 
 
 def y4m_payload(path):
@@ -3364,6 +3717,10 @@ def srvgg_state_dict(seed: int, num_conv: int, nf: int, scale: int):
     return sd
 
 
+# cuDNN's kernels of a train step by direction (names hold fprop, dgrad or
+# wgrad; other convolution kernels join "conv")
+FT_GROUPS = {"fprop": "fprop", "dgrad": "dgrad", "wgrad": "wgrad",
+             "conv": "onv"}
 K_GROUPS = {"k5": "rdb_block", "k4": "conv3x3_fused", "k1": "chain_layer",
             "cat": "CatArray"}
 

@@ -459,6 +459,56 @@ def test_trace_dir_and_test_chips_run_with_jax_blocked(tmp_path):
     assert r.stdout.strip().endswith("OK")
 
 
+def test_finetune_runs_with_jax_blocked(tmp_path):
+    """With ``jax``, ``optax``, ``orbax``, ``upscale_video_tpu`` and ``PIL``
+    refused: ``vsr-finetune-torch`` on the CPU trains on a 40x48 Y4M clip,
+    checkpoints, resumes, shards over a logical mesh and exports, and none
+    of them was loaded."""
+    code = textwrap.dedent("""
+        import importlib.abc, os, sys
+
+        BLOCKED = ("jax", "optax", "orbax", "upscale_video_tpu", "PIL")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError(f"blocked import of {name}")
+                return None
+
+        def loaded():
+            return [m for m in sys.modules if sys.modules[m] is not None
+                    and any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        from upscale_video_tpu_torch.cli import finetune
+        from upscale_video_tpu_torch.video import Y4MSink
+        rng = np.random.default_rng(0)
+        with Y4MSink("in.y4m", 48, 40, "24/1") as sink:
+            for _ in range(3):
+                sink.write(rng.integers(0, 256, (40, 48, 3), dtype=np.uint8))
+        base = ["-i", "in.y4m", "-o", "out", "--batch", "2", "--patch", "8",
+                "--synthetic_models", "--device", "cpu", "--ckpt_dir", "ck",
+                "--ckpt_every", "1"]
+        assert finetune.main([*base, "--steps", "2"]) == 0
+        assert finetune.main([*base, "--steps", "3", "--resume",
+                              "--mesh", "dp=2,sp=2"]) == 0
+        assert sorted(os.listdir("ck")) == ["step_1", "step_2", "step_3"]
+        assert sorted(os.listdir("out")) == ["2x_compact_finetuned.bin",
+                                             "2x_compact_finetuned.param"]
+        assert not loaded(), loaded()
+        print("OK")
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "2"  # beside the suite's other workers
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=str(tmp_path), env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().endswith("OK")
+
+
 def test_port_sources_never_import_the_jax_package():
     """No module of the port, and not chip_smoke.py, imports anything of
     ``upscale_video_tpu`` (its name stays only in comments and docs)."""

@@ -18,6 +18,7 @@ from tests.test_pipeline import make_test_video
 from upscale_video_tpu.pipeline import workflows as jax_wf
 from upscale_video_tpu.pipeline.process import process_file as jax_process
 from upscale_video_tpu_torch.cli import compare as port_compare_cli
+from upscale_video_tpu_torch.cli import finetune as port_finetune_cli
 from upscale_video_tpu_torch.cli import test_chips as port_chips_cli
 from upscale_video_tpu_torch.cli import fix_frames as port_fix_cli
 from upscale_video_tpu_torch.cli import merge_only as port_merge_cli
@@ -263,6 +264,7 @@ CLI_PAIRS = [
     ("test_images", port_images_cli),
     ("compare", port_compare_cli),
     ("test_chips", port_chips_cli),
+    ("finetune", port_finetune_cli),
 ]
 
 
@@ -283,7 +285,7 @@ def test_cli_parser_equals_jax(name, port_mod):
     got, want = port_mod.build_parser(), jax_mod.build_parser()
     assert _parser_spec(got) == _parser_spec(want)
     runs_a_model = name in ("upscale_only", "fix_frames", "test_images",
-                            "test_chips")
+                            "test_chips", "finetune")
     devices = [a for a in got._actions if a.dest == "device"]
     assert [a.default for a in devices] == (["cuda"] if runs_a_model else [])
 

@@ -19,6 +19,7 @@ K4 launch planned in :mod:`upscale_video_tpu_torch.models.executor`.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Sequence
 
 import numpy as np
@@ -182,6 +183,17 @@ def resize_weights(size_in: int, size_out: int, kernel) -> np.ndarray:
     return np.where(inside[None, :], w, 0.0).astype(f32)
 
 
+@functools.lru_cache(maxsize=256)
+def resize_weights_on(size_in: int, size_out: int, kernel,
+                      device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`resize_weights` rounded to ``dtype`` and held in f32 on
+    ``device``, made once per ``(size_in, size_out, kernel, device,
+    dtype)``: a blocking host-to-device copy at every resize would
+    synchronise the host with the device inside each step."""
+    return (torch.from_numpy(resize_weights(size_in, size_out, kernel))
+            .to(device, dtype).float())
+
+
 def _resize(x: torch.Tensor, out_h: int, out_w: int, kernel) -> torch.Tensor:
     """``jax.image.resize`` with a separable kernel: one contraction per
     resized axis.  f32 keeps f32 weights throughout.  Lower precisions take
@@ -192,15 +204,15 @@ def _resize(x: torch.Tensor, out_h: int, out_w: int, kernel) -> torch.Tensor:
     n, h, w, c = x.shape
     axes = []
     if out_h != h:
-        axes.append(("nhwc,ho->nowc", resize_weights(h, out_h, kernel)))
+        axes.append(("nhwc,ho->nowc", h, out_h))
     if out_w != w:
-        axes.append(("nhwc,wo->nhoc", resize_weights(w, out_w, kernel)))
+        axes.append(("nhwc,wo->nhoc", w, out_w))
     if (x.dtype != torch.float32 and len(axes) == 2
             and h * out_w * (w + out_h) < w * out_h * (h + out_w)):
         axes.reverse()  # H then W costs w*oh*(h+ow), W then H h*ow*(w+oh)
     y = x
-    for eq, wmat in axes:
-        wt = torch.from_numpy(wmat).to(x.device, x.dtype).float()
+    for eq, size_in, size_out in axes:
+        wt = resize_weights_on(size_in, size_out, kernel, x.device, x.dtype)
         y = torch.einsum(eq, y.float(), wt).to(x.dtype)
     return y
 
