@@ -58,6 +58,18 @@ contracts, counting kernel launches:
   the 12-frame clip byte-equal to the single-device run; ``-g 0,1``
   refused as out of range on a one-GPU card; a dp step's host syncs
   counted under ``torch.cuda.set_sync_debug_mode("warn")``.
+- ``[tp]``: ``--parallel tp`` over two and four mesh entries (one card:
+  ``cuda:0`` listed that many times): the default chain's planar and
+  packed 4:2:0 steps and ``a,n=3``'s at 4x1080p, ``-m r``'s on two; each
+  conv's output channels split, one K4 launch per entry (the 64->32 and
+  64->16 body slices on its sm90 kernel), the tail one K3 launch; bit-equal
+  to the one-entry tp forward and within the route-swap bound of the
+  single ``auto`` step, with ms, the exchange's bytes and ms, the peak
+  memory and the conv TFLOP/s; ``[tp_cli]`` the 12-frame clip through
+  ``process_file`` on a two-entry tp mesh, byte-equal to a one-entry one;
+  ``[tta_sp]`` ``-m r --tta`` under sp on two entries, bit-equal to the
+  single ``--tta`` step; ``[warmup]`` ``vsr-warmup-torch`` for the default
+  chain and ``-m r`` in subprocesses.
 - ``[finetune]``: ``vsr-finetune-torch`` on a hermetic 1080p clip (the
   default Compact at full width, f32, batch 4, patch 64, 30 steps,
   checkpoints every 10; training runs the aten route, no hand kernel has
@@ -1184,6 +1196,10 @@ def main() -> int:
         flag_phases(dev, tmp, drive, counted, steps_of, rng)
         multi_gpu_phases(dev, tmp, counted, smi, peng, veng,
                          os.path.join(tmp, "c444.y4m"), stream_out, rng)
+        tp_phases(dev, tmp, counted, smi, peng, veng,
+                  os.path.join(tmp, "c444.y4m"), stream_out, rng)
+        tta_sp_phase(dev, counted, smi, veng, rng)
+        warmup_phase()
         finetune_phases(dev, tmp, counted, smi)
     HermeticBackend.concat = concat
 
@@ -1617,6 +1633,263 @@ def multi_gpu_phases(dev, tmp, counted, smi, peng, veng, clip, stream_out,
         os.remove(out)
     del eng, frames
     torch.cuda.empty_cache()
+
+
+def tp_launches(engine, n: int) -> dict:
+    """The K4 launches (and those on its sm90 kernel) one step of the
+    ``tp`` engine ``engine`` should make over ``n`` entries, from its
+    models' plans: a split conv once per entry at its slice's width, a
+    whole conv once per entry before the last split conv and once after."""
+    import torch
+
+    from upscale_video_tpu_torch.ops.conv3x3 import sm90_takes
+
+    want = {"K4": 0, "K4_sm90": 0}
+    for m in (engine._tp.anime_model, engine._tp.sr_model):
+        if m is None:
+            continue
+        fwd = m.frames_forward("model")
+        for name in fwd.plan.solos:
+            wmat = m.state[name].wmat
+            split = name in fwd.split
+            cout = wmat.shape[1] // n if split else wmat.shape[1]
+            k = n if split or fwd.index[name] <= fwd.last_split else 1
+            want["K4"] += k
+            want["K4_sm90"] += k * sm90_takes(wmat.shape[0] // 9, cout,
+                                              torch.bfloat16)
+    return want
+
+
+def tp_phases(dev, tmp, counted, smi, peng, veng, clip, stream_out,
+              rng) -> None:
+    """``[tp]``: ``--parallel tp`` at full width over meshes of two and
+    four entries (on one card ``cuda:0`` listed that many times, on two or
+    four cards one entry each): the default Compact's planar and packed
+    4:2:0 steps and ``a,n=3``'s planar step at 4x1080p, and ``-m r``'s
+    (23 RRDBs, mixed, 8 tiles of 576x512) on two entries.  Each step is
+    held bit for bit to the same tp forward on a one-entry mesh (every
+    conv whole on K4, the tail on K3), and to the single-GPU ``auto`` step
+    (K1 + K2, or K5) within the route-swap bound of ``[flags]``
+    (``XLA_MIN_PSNR``/``XLA_MAX_LSB``; ``-m r``'s ``pallas``-vs-``auto``
+    bound, ``VALAR_PLAIN_BOUNDS[23]``, where K4 replaces K5 over 23
+    RRDBs); with ms per step host to host and its spread against the
+    single step, the exchange's bytes and ms (the step timed again with
+    the exchange skipped), the K4 launches and their sm90 share against
+    the plans', the peak device memory and the conv TFLOP/s
+    (``models/flops.py``).  ``[tp_cli]``: the 12-frame clip through
+    ``process_file`` with an engine on a two-entry tp mesh, byte-equal to
+    the same clip on a one-entry tp mesh and within the ``[tp]`` bound of
+    the single-GPU run."""
+    import dataclasses
+
+    import torch
+
+    from upscale_video_tpu_torch.models import executor
+    from upscale_video_tpu_torch.models.flops import chain_step_flops
+    from upscale_video_tpu_torch.ops.pixel import psnr
+    from upscale_video_tpu_torch.parallel.mesh import make_mesh
+    from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
+    from upscale_video_tpu_torch.pipeline.process import process_file
+
+    t_phases = time.perf_counter()
+    count = torch.cuda.device_count()
+
+    def entries(n):
+        return ([torch.device("cuda", i) for i in range(n)] if count >= n
+                else [dev] * n)
+
+    def on_mesh(engine, n):
+        copy = dataclasses.replace(engine, _steps=None, _mesh=None,
+                                   _replicas=None, _tp=None)
+        copy.use_mesh(make_mesh({"tp": n}, devices=entries(n)), "tp")
+        return copy
+
+    def to_host(step, x):
+        out = step(x.to(dev, non_blocking=True))
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.synchronize()
+        return host
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return ms
+
+    def spread(ms):
+        return f"{np.mean(ms):.2f} ({min(ms):.2f}-{max(ms):.2f})"
+
+    def lsb_db(got, want):
+        g, w = np.asarray(got), np.asarray(want)
+        return int(np.abs(g.astype(int) - w.astype(int)).max()), psnr(g, w)
+
+    say("tp", nvidia_smi=repr(smi), device_count=count,
+        meshes=[",".join(str(d) for d in entries(n)) for n in (2, 4)])
+    eng = ChainEngine.build(ChainSpec(), 2, dev, synthetic=True)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (N, H, W, 3), dtype=np.uint8)).pin_memory()
+    cases = (
+        ("default_planar", eng, lambda e: e.planar_step, (2, 4), N, 5,
+         (XLA_MIN_PSNR, XLA_MAX_LSB), {"K3": 1}),
+        ("default_yuv420", eng, lambda e: e.yuv_step(True, planar=True),
+         (2, 4), N, 5, (XLA_MIN_PSNR, XLA_MAX_LSB), {"K3": 1}),
+        (f"{PRELUDE}_planar", peng, lambda e: e.planar_step, (2, 4), N, 5,
+         (XLA_MIN_PSNR, XLA_MAX_LSB), {"K3": 1, "K6": 1}),
+        ("valar", veng, lambda e: e.step, (2,), 1, 2,
+         VALAR_PLAIN_BOUNDS[23], {"K3": 0, "K6": 0}),
+    )
+    for name, base, get, meshes, nf, reps, (min_db, max_lsb), fixed in cases:
+        x = frames[:nf]
+        auto, _, _ = counted(to_host, get(base), x)
+        auto_ms = wall_ms(lambda: to_host(get(base), x), reps)
+        one = on_mesh(base, 1)
+        ref, _, _ = counted(get(one), x)
+        flop = chain_step_flops(base, H, W) * nf
+        for n in meshes:
+            engine = on_mesh(base, n)
+            step = get(engine)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = executor.exchange_channels.bytes
+            got, k, _ = counted(step, x)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            moved = executor.exchange_channels.bytes - before
+            ms = wall_ms(lambda: step(x), reps)
+            exchange = executor.exchange_channels
+            executor.exchange_channels = lambda parts: None
+            try:
+                bare_ms = wall_ms(lambda: step(x), reps)
+            finally:
+                executor.exchange_channels = exchange
+            want = tp_launches(engine, n)
+            launched = {kk: k[kk] for kk in ("K4", "K4_sm90", *fixed)}
+            lsb_one = int((got.int() - ref.int()).abs().max())
+            lsb, db = lsb_db(got, auto)
+            ok = (got.shape == auto.shape and lsb_one == 0
+                  and lsb <= max_lsb and db >= min_db
+                  and launched == {**want, **fixed}
+                  and k["K1"] == k["K2"] == k["K5"] == 0)
+            say("tp", step=name, shards=n, frames=nf, shape=tuple(got.shape),
+                bit_equal_to_one_entry=lsb_one == 0, max_lsb_one_entry=lsb_one,
+                vs_auto_max_lsb=lsb, vs_auto_psnr_db=f"{db:.2f}",
+                bound=f">={min_db}dB,max_lsb<={max_lsb}",
+                launches=launched, launches_planned={**want, **fixed},
+                ms_per_step=spread(ms), single_ms_per_step=spread(auto_ms),
+                ratio=f"{np.mean(ms) / np.mean(auto_ms):.3f}",
+                exchange_gb=f"{moved / 1e9:.3f}",
+                exchange_ms=f"{np.mean(ms) - np.mean(bare_ms):.2f}",
+                no_exchange_ms=spread(bare_ms), peak_device_gb=f"{peak_gb:.2f}",
+                conv_tflops=f"{flop / np.mean(ms) / 1e9:.1f}",
+                single_conv_tflops=f"{flop / np.mean(auto_ms) / 1e9:.1f}",
+                per="host batch in, host out", card=repr(smi), ok=ok)
+            if not ok:
+                raise SystemExit(f"the tp step of {name} over {n} entries "
+                                 "disagrees or missed its kernels")
+            del got, step, engine
+            torch.cuda.empty_cache()
+        del auto, ref, one
+        torch.cuda.empty_cache()
+
+    # [tp_cli]: the 12-frame clip through process_file on a two-entry tp
+    # mesh, against a one-entry tp mesh and the single-GPU run
+    outs = {}
+    for n in (1, 2):
+        out = os.path.join(tmp, f"tp{n}.out.y4m")
+        engine = on_mesh(eng, n)
+        _, k, wall = counted(lambda: process_file(
+            clip, out, temp_dir=os.path.join(tmp, f"work_tp{n}"),
+            batch_size=1, resume_processing=True, engine=engine))
+        outs[n] = (y4m_payload(out), k, wall)
+        os.remove(out)
+    (two, k, wall), (one, _, _) = outs[2], outs[1]
+    lsb, db = lsb_db(two, y4m_payload(stream_out))
+    equal = two.shape == one.shape and bool((two == one).all())
+    ok = (equal and lsb <= XLA_MAX_LSB and db >= XLA_MIN_PSNR
+          and k["K4"] > 0 and k["K3"] > 0 and k["K1"] == k["K2"] == 0)
+    say("tp_cli", how="process_file, engine on a two-entry tp mesh",
+        mesh=",".join(str(d) for d in entries(2)), frames=CLIP_FRAMES,
+        byte_equal_to_one_entry=equal, vs_single_max_lsb=lsb,
+        vs_single_psnr_db=f"{db:.2f}", k4_launches=k["K4"],
+        k4_sm90_launches=k["K4_sm90"], k3_launches=k["K3"],
+        wall_s=f"{wall:.2f}", wall_fps=f"{CLIP_FRAMES / wall:.2f}", ok=ok)
+    if not ok:
+        raise SystemExit("the tp clip differs from the one-entry tp run or "
+                         "from the single-GPU run")
+    del eng, frames
+    torch.cuda.empty_cache()
+    say("tp_phases", seconds=f"{time.perf_counter() - t_phases:.1f}")
+
+
+def tta_sp_phase(dev, counted, smi, veng, rng) -> None:
+    """``[tta_sp]``: ``-m r --tta`` (tiles of the 544 budget) under
+    ``--parallel sp`` on a two-entry mesh, one 1080p frame: each dihedral
+    pass's frame cut into bands of its own tile rows, one per entry, bit
+    for bit the single-device ``--tta`` step on the frame sp pads (1080
+    rows need no pad over two)."""
+    import dataclasses
+
+    import torch
+
+    from upscale_video_tpu_torch.parallel.mesh import make_mesh
+
+    devs = ([torch.device("cuda", 0), torch.device("cuda", 1)]
+            if torch.cuda.device_count() >= 2 else [dev, dev])
+    teng = dataclasses.replace(veng, tta=True, _steps=None, _mesh=None,
+                               _replicas=None, _tp=None)
+    x = torch.from_numpy(
+        rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8)).pin_memory()
+    t0 = time.perf_counter()
+    want = teng.step(x.to(dev)).cpu()
+    single_s = time.perf_counter() - t0
+    sp = dataclasses.replace(teng, _steps=None, _mesh=None, _replicas=None)
+    sp.use_mesh(make_mesh({"sp": 2}, devices=devs), "sp")
+    t0 = time.perf_counter()
+    got, k, _ = counted(sp.step, x)
+    sp_s = time.perf_counter() - t0
+    lsb = int((got.int() - want.int()).abs().max())
+    ok = (got.shape == want.shape == (1, 4 * H, 4 * W, 3) and lsb == 0
+          and k["K5"] == 8 * VALAR_BLOCKS * 2)
+    say("tta_sp", mesh=",".join(str(d) for d in devs), frames=1,
+        shape=tuple(got.shape), bit_equal=lsb == 0, max_lsb=lsb,
+        k5_launches=k["K5"], k4_launches=k["K4"], k1_launches=k["K1"],
+        ms_per_step=f"{1e3 * sp_s:.1f}", single_ms_per_step=f"{1e3 * single_s:.1f}",
+        per="host frame in, host out, one run each", card=repr(smi), ok=ok)
+    if not ok:
+        raise SystemExit("--tta under sp differs from the single --tta step")
+    del teng, sp, want, got
+    torch.cuda.empty_cache()
+
+
+def warmup_phase() -> None:
+    """``[warmup]``: ``vsr-warmup-torch`` in a subprocess for the default
+    chain and for ``-m r`` (its stdout's seconds per program); afterwards
+    the kernel library's file exists."""
+    import re
+
+    from upscale_video_tpu_torch.kernels import build
+
+    for models in ([], ["-m", "r"]):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "upscale_video_tpu_torch.cli.warmup",
+             "--synthetic_models", *models], capture_output=True, text=True,
+            timeout=600)
+        lines = [l for l in r.stdout.splitlines()
+                 if re.search(r" in [0-9.]+s\b", l)]
+        ok = (r.returncode == 0 and build.library_path().exists()
+              and any(l.startswith("ran step program in") for l in lines))
+        say("warmup", models=" ".join(models) or "default", rc=r.returncode,
+            programs=lines, wall_s=f"{time.perf_counter() - t0:.1f}",
+            library=build.library_path().name, ok=ok)
+        if not ok:
+            raise SystemExit(f"vsr-warmup-torch {' '.join(models)} failed: "
+                             f"{r.stderr[-2000:]}")
 
 
 def finetune_phases(dev, tmp, counted, smi) -> None:

@@ -190,7 +190,7 @@ HOST_COPIES = [
     "native/__init__.py", "native/buildlib.py", "native/imgproc.py",
     "native/pipeio.py", "cli/common.py", "utils/logsetup.py",
     "utils/profiling.py", "utils/wake.py", "pipeline/quality.py",
-    "cli/merge_only.py", "cli/compare.py",
+    "cli/merge_only.py", "cli/compare.py", "models/flops.py",
 ]
 
 
@@ -259,6 +259,50 @@ def _ffmpeg_png_verify(src: str) -> str:
     return [frame for frame in range(start_frame, end_frame + 1)
             if not verify_png(f"{frame}.png")]
 ''')])
+
+
+@pytest.mark.parametrize("chain", ["", "a,n=3", "r", "sr", "tta"])
+def test_flops_of_port_engines_equal_jax(chain):
+    """``chain_step_flops`` (and ``graph_conv_flops`` per model) on port
+    engines equal the JAX package's on engines of the same graphs: the
+    default chain, ``a,n=3``, ``-m r`` (23 RRDBs), an ``sr=`` import of a
+    basicsr RRDBNet state dict, and ``--tta`` (8x the SR stage)."""
+    from tests.test_torch_sr_import import rrdb_sd
+    from upscale_video_tpu.models.flops import chain_step_flops as jax_flops
+    from upscale_video_tpu.models.flops import graph_conv_flops as jax_gflops
+    from upscale_video_tpu.models.torch_import import (
+        import_torch_checkpoint as jax_import,
+    )
+    from upscale_video_tpu.pipeline.chain import ChainEngine as JaxEngine
+    from upscale_video_tpu_torch.models.flops import (
+        chain_step_flops, graph_conv_flops,
+    )
+    from upscale_video_tpu_torch.models.torch_import import (
+        import_torch_checkpoint,
+    )
+    from upscale_video_tpu_torch.pipeline.chain import ChainEngine
+
+    if chain == "sr":
+        sd = rrdb_sd(1)
+        peng = ChainEngine(ChainSpec.parse("sr=x_e"), 4,
+                           import_torch_checkpoint(sd), torch.device("cpu"))
+        jeng = JaxEngine(JaxSpec.parse("sr=x_e"), 4,
+                         jax_import(sd, compute_dtype=jnp.float32))
+    else:
+        text = "" if chain == "tta" else chain
+        kw = dict(synthetic=True, tta=chain == "tta")
+        peng = ChainEngine.build(ChainSpec.parse(text), 2, "cpu",
+                                 compute_dtype=torch.float32, **kw)
+        jeng = JaxEngine.build(JaxSpec.parse(text), 2,
+                               compute_dtype=jnp.float32, **kw)
+    for h, w in ((1080, 1920), (37, 53)):
+        got = chain_step_flops(peng, h, w)
+        assert got > 0 and got == jax_flops(jeng, h, w)
+        for pm, jm in ((peng.sr_model, jeng.sr_model),
+                       (peng.anime_model, jeng.anime_model)):
+            if pm is not None:
+                assert graph_conv_flops(pm.graph, h, w) \
+                    == jax_gflops(jm.graph, h, w)
 
 
 # the one named edit of each copy that is not its original verbatim

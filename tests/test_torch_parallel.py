@@ -1,5 +1,7 @@
 """Multi-GPU serving on the CPU: the port's meshes, ``dp`` and ``sp`` steps
-on logical CPU shards against the JAX package's on its 8 host devices.
+on logical CPU shards against the JAX package's on its 8 host devices
+(``tp``'s steps: tests/test_torch_tensor_parallel.py; here its CLI and
+``process_file`` runs).
 
 - Mesh helpers against JAX's: ``parse_chips``, ``parse_mesh_spec``,
   ``make_mesh`` (inferred axis, subset, too big) and the out-of-range
@@ -394,7 +396,14 @@ def test_port_sp_equals_its_single_step_on_the_padded_frame(text, tile,
 
 
 def test_sp_refuses_what_cuts_no_rows():
+    """sp refuses the contracts that cut no rows; ``--tta`` over a tiled SR
+    stage, which it refused before, now runs (each dihedral pass banded on
+    its own tile grid: bit for bit the single step on the padded frame),
+    and so does ``--parallel tp``, which takes every contract (equal to
+    the single step within 1 LSB)."""
     eng = _bf16_engine("")
+    single = _bf16_engine("")
+    single.sr_model = eng.sr_model
     eng.use_chips("0,1", mode="sp")
     assert not eng.input_rank_flexible and eng.row_sharded
     with pytest.raises(ValueError, match="planar packed"):
@@ -403,10 +412,15 @@ def test_sp_refuses_what_cuts_no_rows():
         eng.yuv_step(True, planar=True, i420_in=(12, 16, True))
     tta = _bf16_engine("r", tile=8)
     tta.tta = True
-    with pytest.raises(NotImplementedError, match="--tta"):
-        tta.use_chips("0,1", mode="sp")
-    with pytest.raises(NotImplementedError, match="--parallel tp"):
-        eng.use_chips("0,1", mode="tp")
+    x = torch.from_numpy(_frames(13, n=1, h=11, w=12))
+    want = tta.step(pad_to_multiple(x, 2, 1)[0])[:, :44]
+    tta.use_chips("0,1", mode="sp")
+    assert _lsb(tta.step(x), want) == 0
+    eng.use_chips("0,1", mode="tp")
+    assert eng.input_rank_flexible and not eng.row_sharded
+    x = torch.from_numpy(_frames(14, n=2, h=12, w=16))
+    assert _lsb(eng.yuv_step(True, planar=False)(x),
+                single.yuv_step(True, planar=False)(x)) <= 1
 
 
 # --- receptive radius ------------------------------------------------------
@@ -545,8 +559,8 @@ def _payload(path):
 
 @pytest.mark.parametrize("chips,mode,c420", [
     ("0,1,2", "sp", False), ("0,1,2", "sp", True), ("0,0,1", "dp", False),
-    ("0,1", "dp", True),
-], ids=["sp_c444", "sp_c420", "dp_c444", "dp_c420"])
+    ("0,1", "dp", True), ("0,1", "tp", False), ("0,1,2,3", "tp", True),
+], ids=["sp_c444", "sp_c420", "dp_c444", "dp_c420", "tp_c444", "tp_c420"])
 def test_process_file_matches_jax(tmp_path, chips, mode, c420):
     src = str(tmp_path / "in.y4m")
     _write_clip(src, c420)
@@ -566,7 +580,8 @@ def test_process_file_matches_jax(tmp_path, chips, mode, c420):
     assert ph == jh and pf.shape == jf.shape and _lsb(pf, jf) <= 1
 
 
-@pytest.mark.parametrize("chips,mode", [("0,1,2", "sp"), ("0,0,1", "dp")])
+@pytest.mark.parametrize("chips,mode", [("0,1,2", "sp"), ("0,0,1", "dp"),
+                                        ("0,1", "tp")])
 def test_cli_runs_several_shards_like_jax(tmp_path, chips, mode):
     """``upscale-video-torch --device cpu -g ... --parallel ...`` (the
     synthetic 2x Compact, f32) end to end, against the JAX package's

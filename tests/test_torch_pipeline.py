@@ -121,9 +121,11 @@ def test_cli_runs_on_cpu(tmp_path):
     ["-g", "0,1"], ["-g", "0,0,1"], ["--parallel", "sp"], ["--parallel", "tp"],
 ])
 def test_cli_flags_outside_the_slice_raise(tmp_path, flags):
-    """``--parallel tp`` is all that the port refuses, before any work;
-    several GPUs and ``--parallel sp`` pass the check
-    (tests/test_torch_parallel.py runs them)."""
+    """None of these is outside the port any more: each passes the check,
+    and ``--parallel tp`` over ``-g 0,1`` (two logical CPU shards, f32)
+    runs end to end equal to the JAX package's ``process_file`` with the
+    same flags, within 1 LSB (tests/test_torch_parallel.py runs dp and sp,
+    tests/test_torch_tensor_parallel.py each tp step)."""
     from upscale_video_tpu_torch.cli.upscale_video import build_parser, check_slice
 
     src = str(tmp_path / "in.y4m")
@@ -131,12 +133,18 @@ def test_cli_flags_outside_the_slice_raise(tmp_path, flags):
     argv = ["-i", src, "-t", str(tmp_path / "t"), "--synthetic_models"]
     if "--device" not in flags:
         argv += ["--device", "cpu"]
+    check_slice(build_parser().parse_args(argv + flags))
     if "tp" not in flags:
-        check_slice(build_parser().parse_args(argv + flags))
         return
-    with pytest.raises(NotImplementedError, match="--parallel tp"):
-        cli_main(argv + flags)
-    assert not os.path.exists(tmp_path / "t")
+    out = str(tmp_path / "tp.y4m")
+    assert cli_main(argv + flags + ["-o", out, "-g", "0,1", "--precision",
+                                    "f32"]) == 0
+    jax_process(src, str(tmp_path / "jax.y4m"), temp_dir=str(tmp_path / "j"),
+                chips="0,1", parallel_mode="tp", synthetic_models=True,
+                precision="f32")
+    (jh, jf), (ph, pf) = _raw(str(tmp_path / "jax.y4m")), _raw(out)
+    assert ph == jh and pf.shape == jf.shape == (N_FRAMES, 2 * H * 2 * W * 3)
+    assert np.abs(pf.astype(int) - jf.astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("flags,scale", [

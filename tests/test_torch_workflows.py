@@ -338,19 +338,68 @@ MODEL_CLIS = [
 @pytest.mark.parametrize("cli,argv", MODEL_CLIS,
                          ids=["upscale_only", "fix_frames", "test_images"])
 def test_cli_flags_outside_the_port_raise(tmp_path, cli, argv, flags):
-    """The flag the port's main CLI refuses (``--parallel tp``), refused by
-    check_slice before any work (no file is read or written); several GPUs
-    and ``--parallel sp`` pass the check."""
+    """None of these is outside the port any more: each passes check_slice,
+    and ``-g 0,1 --parallel tp`` runs each CLI on two logical CPU shards
+    (f32), its frames within 1 LSB of the JAX workflow's with the same
+    flags."""
     from upscale_video_tpu_torch.cli.upscale_video import check_slice
 
     if "--device" not in flags:
         flags = flags + ["--device", "cpu"]
+    check_slice(cli.build_parser().parse_args(argv + flags))
     if "tp" not in flags:
-        check_slice(cli.build_parser().parse_args(argv + flags))
         return
-    with pytest.raises(NotImplementedError, match="--parallel tp"):
-        cli.main(argv + ["-t", str(tmp_path / "t")] + flags)
-    assert not os.path.exists(tmp_path / "t")
+    got, want = _tp_cli_and_jax(tmp_path, cli)
+    assert len(got) == len(want) > 0
+    assert max(_max_lsb(g, w) for g, w in zip(got, want)) <= 1
+
+
+def _tp_cli_and_jax(tmp_path, cli):
+    """The frames one model-running CLI writes under ``-g 0,1 --parallel
+    tp`` on the CPU, and those of the JAX workflow with the same flags."""
+    vid = _video(tmp_path, 4)
+    tp = ["-g", "0,1", "--parallel", "tp", "--synthetic_models",
+          "--precision", "f32", "--device", "cpu"]
+    jkw = dict(JAX, chips="0,1", parallel_mode="tp")
+    out, names = {}, {}
+    for name in ("port", "jax"):
+        tdir = str(tmp_path / name)
+        work = os.path.join(tdir, "upscale_video")
+        if cli is port_upscale_cli:
+            if name == "port":
+                assert cli.main(["-i", vid, "-t", tdir, "-b", "1", *tp]) == 0
+            else:
+                jax_wf.upscale_only(vid, scale=2, temp_dir=tdir, batch_size=1,
+                                    **jkw)
+            frames = []
+            for z in sorted(f for f in os.listdir(work) if f.endswith(".zip")):
+                with zipfile.ZipFile(os.path.join(work, z)) as zf:
+                    zf.extractall(str(tmp_path / f"{name}_png"))
+            for f in sorted(os.listdir(tmp_path / f"{name}_png")):
+                frames.append(read_png(str(tmp_path / f"{name}_png" / f)))
+            out[name] = frames
+            continue
+        jax_process(vid, scale=2, temp_dir=tdir, extract_only=True,
+                    resume_processing=True, synthetic_models=True)
+        if cli is port_fix_cli:
+            os.remove(os.path.join(work, "2.extract.png"))
+            if name == "port":
+                assert cli.main(["-i", vid, "-b", "2", "-t", tdir, *tp]) == 0
+            else:
+                jax_wf.fix_frames(vid, "2", scale=2, temp_dir=tdir, **jkw)
+            out[name] = [read_png(os.path.join(work, "2.png"))]
+            continue
+        samples = str(tmp_path / f"{name}_samples")
+        if name == "port":
+            assert cli.main(["-i", "1,3", "-t", tdir, "-o", samples, "-m",
+                             "n=3,a", *tp]) == 0
+        else:
+            jax_wf.process_image("1,3", tdir, samples, scale=2, models="n=3,a",
+                                 **jkw)
+        names[name] = sorted(os.listdir(samples))
+        out[name] = [read_png(os.path.join(samples, f)) for f in names[name]]
+    assert names.get("port") == names.get("jax")
+    return out["port"], out["jax"]
 
 
 @pytest.mark.parametrize("flags", [

@@ -4,10 +4,9 @@ Same flags as ``upscale-video`` (the argparse option groups are
 :mod:`upscale_video_tpu_torch.cli.common`, a copy of the JAX package's),
 plus ``--device``.  ``--trace_dir`` writes a ``torch.profiler`` trace of
 the run (:mod:`upscale_video_tpu_torch.utils.trace`).  ``-g`` over
-several GPUs runs under ``--parallel dp`` (frames split over the GPUs) or
-``sp`` (each frame's rows split); ``--parallel tp``, the one flag outside
-the port, raises ``NotImplementedError`` instead of silently doing
-something else.
+several GPUs runs under ``--parallel dp`` (frames split over the GPUs),
+``sp`` (each frame's rows split) or ``tp`` (each conv's output channels
+split).
 """
 
 from __future__ import annotations
@@ -84,20 +83,15 @@ def add_device_arg(p: argparse.ArgumentParser) -> None:
 
 
 def check_slice(args) -> None:
-    """Raise ``NotImplementedError`` for every flag outside the port:
-    ``--parallel tp`` (channel tensor parallelism is not ported) and an
-    ``-m`` chain that does not parse.  Every CLI of the port that runs a
-    model checks its arguments here."""
-    bad = []
+    """Raise ``NotImplementedError`` for an ``-m`` chain that does not
+    parse, before any work.  Every CLI of the port that runs a model checks
+    its arguments here."""
     try:
         ChainSpec.parse(args.models)
     except ValueError:
-        bad.append(f"-m {args.models}")
-    if getattr(args, "parallel", "dp") == "tp":
-        bad.append("--parallel tp")
-    if bad:
         raise NotImplementedError(
-            "not ported to the PyTorch/CUDA package yet: " + ", ".join(bad))
+            f"not ported to the PyTorch/CUDA package yet: -m {args.models}"
+        ) from None
 
 
 def main(argv=None) -> int:

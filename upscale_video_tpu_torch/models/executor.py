@@ -32,6 +32,10 @@ flag (:func:`conv_routes`): ``xla`` (and every f32 forward) is the graph
 walk on generic ops alone, the aten route; ``rdb`` adds K5 alone;
 ``pallas`` the conv kernels without K5; ``auto`` both.
 
+:class:`TensorParallelForward` is the graph walk under ``--parallel tp``:
+no K1 chain, each conv's output channels split over the GPUs of a mesh,
+one K4 launch per GPU at its slice, then :func:`exchange_channels`.
+
 A layer type outside the op set raises ``NotImplementedError``; nothing
 falls back.
 """
@@ -704,6 +708,8 @@ class GraphForward(nn.Module):
       their conv's), no Concat runs.  The conv outputs are channel views
       of the buffer; the bytes each conv reads are the ones its Concat
       would have made.
+    - Without ``chains`` (``--parallel tp``, :class:`TensorParallelForward`)
+      no K1 chain is planned: each of its convs is a K4 solo.
     - Without ``kernels`` (``--conv_impl xla`` or ``rdb``, and every f32
       forward, :func:`conv_routes`) no chain, solo, dense buffer or K3
       tail is planned: each conv is a generic ``F.conv2d`` (TF32 off), the
@@ -736,7 +742,7 @@ class GraphForward(nn.Module):
 
     def __init__(self, graph: NcnnGraph, device: torch.device,
                  compute_dtype: torch.dtype, residual_dtype, emit: str,
-                 kernels: bool = True, rdb: bool = True):
+                 kernels: bool = True, rdb: bool = True, chains: bool = True):
         super().__init__()
         if emit not in self.EMITS:
             raise ValueError(f"emit {emit!r} not in {self.EMITS}")
@@ -762,7 +768,7 @@ class GraphForward(nn.Module):
                             if rdb and fused else ([], set()))
         self.chains, self.chain_absorbed = (
             _plan_chains(graph, consumers, absorbed | tail_names)
-            if self.kernels else ({}, set()))
+            if self.kernels and chains else ({}, set()))
         self.graph = graph
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
@@ -832,19 +838,9 @@ class GraphForward(nn.Module):
                 f"this state (first: {unpacked[0]}): call prepare(state)")
         cd = self.compute_dtype
         graph = self.graph
-        x = x.to(self.device)
-        in_h, in_w = x.shape[1], x.shape[2]
-        mod_h, mod_w = (-in_h) % self.reorg_mod, (-in_w) % self.reorg_mod
-        if mod_h or mod_w:
-            x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
-                      mode="replicate").permute(0, 2, 3, 1)
+        x, in_hw = self.pad_input(x.to(self.device))
         blobs: Dict[str, torch.Tensor] = {graph.input_blobs[0]: x.to(cd)}
         dense_bufs: Dict[int, torch.Tensor] = {}  # block -> its shared buffer
-
-        def free(i, layer):
-            for b in layer.inputs:
-                if self.last_use.get(b) == i and b in blobs:
-                    del blobs[b]
 
         for i, layer in enumerate(graph.layers):
             if layer.type == "Input":
@@ -889,34 +885,300 @@ class GraphForward(nn.Module):
                     tw.wmat, tw.bias, self.tail["scale"], self.emit,
                     full_range)
             elif layer.name not in self.absorbed:
-                ins = [blobs[b] for b in layer.inputs]
-                if self.residual_f32 and layer.type in ("Eltwise", "BinaryOp"):
-                    ins = [t.to(torch.float32) if t.is_floating_point() else t
-                           for t in ins]
-                p = state[layer.name] if layer.name in state else None
-                out = OP_REGISTRY[layer.type](layer, ins, p, cd)
-                if isinstance(out, list):
-                    for name, t in zip(layer.outputs, out):
-                        blobs[name] = t
-                else:
-                    blobs[layer.outputs[0]] = out
-                if layer.name in self.dense_adds:  # over its conv's channels
-                    block, off = self.dense_adds[layer.name]
-                    dense_bufs[block][..., off:off + out.shape[-1]] = out
-            free(i, layer)
-        y = blobs[graph.output_blobs[0]]
-        if self.tail is None:
-            y = y.to(torch.float32)
-            if mod_h or mod_w:
-                r = y.shape[1] // (in_h + mod_h)
-                y = y[:, :in_h * r, :in_w * r]
-            if self.emit != "model":
-                y = model_to_frames(y)
-            if self.emit in ("planar", "yuv420"):
-                y = frames_to_planar(y, self.tail_scale)
-            if self.emit == "yuv420":
-                y = yuv420_from_planar(y, self.tail_scale, full_range)
+                self.run_op(layer, blobs, state, dense_bufs)
+            self.free(i, layer, blobs)
+        y = self.finish(blobs[graph.output_blobs[0]], tuple(x.shape[1:3]),
+                        in_hw, full_range)
         return y[0] if squeeze else y
+
+    def pad_input(self, x: torch.Tensor):
+        """``x`` edge-padded to the Reorg stride's multiples, and its
+        ``(H, W)`` before (executor.py:1222-1241)."""
+        in_h, in_w = x.shape[1], x.shape[2]
+        mod_h, mod_w = (-in_h) % self.reorg_mod, (-in_w) % self.reorg_mod
+        if mod_h or mod_w:
+            x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
+                      mode="replicate").permute(0, 2, 3, 1)
+        return x, (in_h, in_w)
+
+    def free(self, i: int, layer: NcnnLayer, blobs: dict) -> None:
+        """Drop the blobs whose last use is layer ``i``."""
+        for b in layer.inputs:
+            if self.last_use.get(b) == i and b in blobs:
+                del blobs[b]
+
+    def run_op(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict):
+        """One layer outside every kernel plan as its generic op, the
+        residual spine in f32 under ``mixed``; an add a dense block takes
+        in writes its result over its conv's channels of the buffer."""
+        ins = [blobs[b] for b in layer.inputs]
+        if self.residual_f32 and layer.type in ("Eltwise", "BinaryOp"):
+            ins = [t.to(torch.float32) if t.is_floating_point() else t
+                   for t in ins]
+        p = state[layer.name] if layer.name in state else None
+        out = OP_REGISTRY[layer.type](layer, ins, p, self.compute_dtype)
+        if isinstance(out, list):
+            for name, t in zip(layer.outputs, out):
+                blobs[name] = t
+        else:
+            blobs[layer.outputs[0]] = out
+        if layer.name in self.dense_adds:  # over its conv's channels
+            block, off = self.dense_adds[layer.name]
+            dense_bufs[block][..., off:off + out.shape[-1]] = out
+
+    def finish(self, y: torch.Tensor, padded_hw, in_hw,
+               full_range: bool) -> torch.Tensor:
+        """The graph's output in the ``emit`` layout: a K3 tail's as it
+        is; otherwise f32, the Reorg padding cropped (``padded_hw`` the
+        input's size after :meth:`pad_input`, ``in_hw`` before), then
+        quantized and packed as ``emit`` asks."""
+        if self.tail is not None:
+            return y
+        y = y.to(torch.float32)
+        if tuple(padded_hw) != tuple(in_hw):
+            r = y.shape[1] // padded_hw[0]
+            y = y[:, :in_hw[0] * r, :in_hw[1] * r]
+        if self.emit != "model":
+            y = model_to_frames(y)
+        if self.emit in ("planar", "yuv420"):
+            y = frames_to_planar(y, self.tail_scale)
+        if self.emit == "yuv420":
+            y = yuv420_from_planar(y, self.tail_scale, full_range)
+        return y
+
+
+def full_width(shape, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """A split conv's full-width output on one rank (or a dense block's
+    buffer there), uninitialized: its slice is written by the rank's own
+    conv, every other channel by :func:`exchange_channels`."""
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def exchange_channels(parts: List[torch.Tensor]) -> None:
+    """The all-gather after a split conv: ``parts[r]`` is rank r's
+    full-width ``(N, H, W, C)`` output (a tensor, or a channel view of a
+    dense block's buffer) in which rank r wrote channels ``[r*C/n,
+    (r+1)*C/n)``; every other rank's slice is copied in, so each rank then
+    holds the whole output.  ``exchange_channels.bytes`` counts the bytes
+    received, ``(n-1)`` times the output's size a call.
+
+    Ordering, from one thread: every rank's work is queued on its device's
+    current stream.  A copy between two devices (``Tensor.copy_``) runs on
+    the source device's current stream after its device waits on the
+    destination's current stream, and the destination's stream then waits
+    on the copy.  So the copy reads a slice only after the source rank's
+    conv wrote it, writes only after the destination's earlier work, the
+    destination's next layer reads it only after it landed, and the
+    source's next layer (queued behind the copy on its stream) cannot
+    overwrite the slice before it was read.  Between entries of one device
+    stream order alone does all of it."""
+    n = len(parts)
+    c = parts[0].shape[-1] // n
+    for r, dst in enumerate(parts):
+        for q, src in enumerate(parts):
+            if q != r:
+                dst[..., q * c:(q + 1) * c].copy_(src[..., q * c:(q + 1) * c])
+    exchange_channels.bytes += (n - 1) * parts[0].numel() * parts[0].element_size()
+
+
+exchange_channels.bytes = 0
+
+
+class TensorParallelForward(nn.Module):
+    """``--parallel tp``: the graph walk of :class:`GraphForward` with each
+    conv's output channels split over the devices of a ``tp`` mesh (the
+    program GSPMD makes of ``upscale_video_tpu/parallel/tensor.py:23-46``'s
+    placement, chain.py:541-559).
+
+    Every activation is replicated: rank r (entry r of the mesh, on
+    ``devices[r]``) holds a whole copy of each blob.  A conv whose cout
+    divides the mesh size n (the JAX package's placement rule,
+    :func:`~upscale_video_tpu_torch.parallel.tensor.shard_params_channelwise`,
+    whose per-rank states ``shards`` are) runs on every rank over its slice
+    of the weights, writing channels ``[r*C/n, (r+1)*C/n)`` of a full-width
+    output on its device; :func:`exchange_channels` then gives every rank
+    the other slices before the next layer.
+
+    - The kernel route (``kernels``, :func:`conv_routes`): each SAME 3x3
+      conv is one K4 launch per rank, reading the replicated input and
+      writing its slice at its offset (``out=``/``out_off``).  No K1 chain
+      is planned: a chain holds a whole stack in one launch and tp
+      exchanges after every conv.  A dense block keeps
+      :func:`_plan_dense_buffers`: each rank holds the block's buffer, and
+      each conv's growth slice lands at ``out_off + r*g/n``.  An SRVGG tail
+      is one K3 launch, on the first device.
+    - ``rdb`` (``--conv_impl rdb``): each matched dense block is one K5
+      launch, whole, on every rank.
+    - 1x1 convs, and every conv of the aten route, are ``F.conv2d`` on the
+      rank's weight slice (:func:`~upscale_video_tpu_torch.models.ops.
+      op_convolution`), placed at its offset; a PReLU that alone consumes
+      such a conv is applied to its slice.
+    - A conv whose cout does not divide n runs whole on every rank; every
+      other op runs on every rank (elementwise ops, Interp, the f32 spine
+      of ``mixed``).
+    - After the last split conv's exchange only rank 0 runs on (the SRVGG
+      tail's K3 launch, the last whole convs, the shuffle): the output is
+      the first device's.
+
+    ``forward(state, x)``: ``state`` is the model's whole state on
+    ``devices[0]`` (the K3 tail reads it); ``x`` is broadcast from the
+    first device to every rank.  The output is on ``devices[0]``."""
+
+    def __init__(self, graph: NcnnGraph, devices, shards,
+                 compute_dtype: torch.dtype, residual_dtype, emit: str,
+                 kernels: bool = True, rdb: bool = False):
+        super().__init__()
+        self.plan = plan = GraphForward(graph, devices[0], compute_dtype,
+                                        residual_dtype, emit, kernels, rdb,
+                                        chains=False)
+        self.devices = [torch.device(d) for d in devices]
+        self.shards = shards
+        n = len(self.devices)
+        consumers = _consumers(graph)
+        self.index = {layer.name: i for i, layer in enumerate(graph.layers)}
+        tail_conv = plan.tail["conv"] if plan.tail else None
+        # convs the walk runs as generic ops -> the PReLU that alone
+        # consumes one (or None), applied to its slice
+        self.generic = {
+            layer.name: _conv_item(graph, consumers, layer)["prelu"]
+            for layer in graph.layers
+            if layer.type == "Convolution" and layer.name not in plan.absorbed
+            and layer.name not in plan.solos and layer.name != tail_conv}
+        self.absorbed = plan.absorbed | {p for p in self.generic.values() if p}
+        self.split = {name for name in [*plan.solos, *self.generic]
+                      if graph.layers[self.index[name]].attr_i(0) % n == 0}
+        self.last_split = max([self.index[name] for name in self.split]
+                              or [-1])
+        for i, layer in enumerate(graph.layers):
+            if (layer.type == "PReLU" and layer.name not in self.absorbed
+                    and n > 1 and layer.attr_i(0, 1) % n == 0):
+                raise NotImplementedError(
+                    f"{layer.name}: a PReLU that no conv alone feeds has no "
+                    "whole slope under --parallel tp")
+            if layer.name == tail_conv and i <= self.last_split:
+                raise NotImplementedError(
+                    f"{layer.name}: the SRVGG tail comes before a split conv")
+
+    def forward(self, state, x: torch.Tensor,
+                full_range: bool = False) -> torch.Tensor:
+        plan = self.plan
+        squeeze = x.ndim == 3
+        if squeeze:
+            x = x[None]
+        unpacked = [t for t in plan.rdb_triggers if t not in self.shards[0]]
+        if unpacked:
+            raise RuntimeError(
+                f"{len(unpacked)} dense blocks have no packed K5 weights in "
+                f"the shards (first: {unpacked[0]})")
+        cd = plan.compute_dtype
+        graph = plan.graph
+        x, in_hw = plan.pad_input(x.to(self.devices[0]))
+        n = len(self.devices)
+        blobs = [{graph.input_blobs[0]: x.to(d).to(cd)} for d in self.devices]
+        dense_bufs: List[Dict[int, torch.Tensor]] = [{} for _ in range(n)]
+        for i, layer in enumerate(graph.layers):
+            if layer.type == "Input":
+                continue
+            ranks = range(n) if i <= self.last_split else range(1)
+            name = layer.name
+            block = plan.rdb_triggers.get(name)
+            if block is not None:
+                for r in ranks:
+                    pw = self.shards[r][name]
+                    blobs[r][block["out"]] = rdb_block(
+                        blobs[r][layer.inputs[1]].to(cd).contiguous(),
+                        RDBWeights(pw.wpack, pw.bpack, block["slope"],
+                                   pw.wpack_sm90))
+            elif name in plan.solos:
+                self._solo(layer, ranks, blobs, dense_bufs)
+            elif plan.tail is not None and name == plan.tail["conv"]:
+                tw = state[name]
+                blobs[0][plan.tail["out"]] = sr_tail_fused(
+                    blobs[0][layer.inputs[0]].to(cd).contiguous(),
+                    blobs[0][plan.tail["skip_blob"]].to(cd).contiguous(),
+                    tw.wmat, tw.bias, plan.tail["scale"], plan.emit,
+                    full_range)
+            elif name in self.generic:
+                self._generic_conv(layer, ranks, blobs)
+            elif name not in self.absorbed:
+                for r in ranks:
+                    plan.run_op(layer, blobs[r], self.shards[r], dense_bufs[r])
+            for r in ranks:
+                plan.free(i, layer, blobs[r])
+        y = plan.finish(blobs[0][graph.output_blobs[0]], tuple(x.shape[1:3]),
+                        in_hw, full_range)
+        return y[0] if squeeze else y
+
+    def _solo(self, layer: NcnnLayer, ranks, blobs, dense_bufs) -> None:
+        """A K4 conv on every rank in ``ranks``: its slice at its offset of
+        a full-width output (or of the dense block's buffer), then the
+        exchange; whole where its cout does not divide the mesh."""
+        plan, cd = self.plan, self.plan.compute_dtype
+        solo = plan.solos[layer.name]
+        d = plan.dense.get(layer.name)
+        split = layer.name in self.split
+        cout = layer.attr_i(0)
+        c = cout // len(self.devices) if split else cout
+        outs = []
+        for r in ranks:
+            wmat, bias, slope, act = _solo_args(solo, self.shards[r])
+            dst, base = None, 0
+            if d is not None:
+                if d["first"]:  # the block's input, rounded as .to(cd) does
+                    x0 = blobs[r][layer.inputs[0]]
+                    buf = full_width((*x0.shape[:3], d["total"]), cd, x0.device)
+                    buf[..., :d["cin"]] = x0
+                    dense_bufs[r][d["block"]] = buf
+                buf = dense_bufs[r][d["block"]]
+                src = buf[..., :d["cin"]]
+                if d["out_off"] is None:
+                    del dense_bufs[r][d["block"]]
+                else:
+                    dst, base = buf, d["out_off"]
+            else:
+                src = blobs[r][layer.inputs[0]].to(cd).contiguous()
+            if split and dst is None:
+                dst = full_width((*src.shape[:3], cout), cd, src.device)
+            if dst is None:
+                outs.append(conv3x3_fused(src, wmat, bias, slope, act,
+                                          out_dtype=cd))
+                continue
+            conv3x3_fused(src, wmat, bias, slope, act, out_dtype=cd, out=dst,
+                          out_off=base + (r * c if split else 0))
+            outs.append(dst[..., base:base + cout])
+        if split and len(outs) > 1:
+            exchange_channels(outs)
+        for r, y in zip(ranks, outs):
+            blobs[r][solo["out"]] = y
+
+    def _generic_conv(self, layer: NcnnLayer, ranks, blobs) -> None:
+        """A conv outside the K4 plan (1x1, strided; every conv of the aten
+        route) as ``F.conv2d`` on every rank's weights, its PReLU on the
+        slice, the slice placed in a full-width output, then the exchange."""
+        plan, cd = self.plan, self.plan.compute_dtype
+        prelu = self.generic[layer.name]
+        prelu = plan.graph.layers[self.index[prelu]] if prelu else None
+        split = layer.name in self.split and len(self.devices) > 1
+        cout = layer.attr_i(0)
+        c = cout // len(self.devices)
+        outs = []
+        for r in ranks:
+            y = OP_REGISTRY["Convolution"](
+                layer, [blobs[r][layer.inputs[0]]], self.shards[r][layer.name], cd)
+            if prelu:
+                y = OP_REGISTRY["PReLU"](prelu, [y],
+                                         self.shards[r][prelu.name], cd)
+            if split:
+                full = full_width((*y.shape[:3], cout), y.dtype, y.device)
+                full[..., r * c:(r + 1) * c] = y
+                y = full
+            outs.append(y)
+        if split:
+            exchange_channels(outs)
+        out = (prelu or layer).outputs[0]
+        for r, y in zip(ranks, outs):
+            blobs[r][out] = y
 
 
 CONV_IMPLS = ("auto", "pallas", "rdb", "xla")

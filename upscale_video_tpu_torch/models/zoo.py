@@ -143,7 +143,8 @@ class Model(nn.Module):
     def replicate(self, device: "torch.device | str") -> "Model":
         """This model on ``device``: its weights made there from the host
         copy, and every forward built so far built there too, with its
-        packed weight images (a replica of ``--parallel dp|sp``)."""
+        packed weight images (a replica of ``--parallel dp|sp``; ``tp``
+        slices the weights instead, ``parallel/tensor.py``)."""
         m = Model(self.name, self.scale, self.graph, self.params, device,
                   self.compute_dtype, self.residual_dtype, self.conv_impl)
         for emit in self._forwards:

@@ -55,6 +55,18 @@ def record_done(device: torch.device) -> "torch.cuda.Event | None":
     return ev
 
 
+def run_to_host(step: Callable, x: torch.Tensor, device: torch.device):
+    """``step`` on ``device`` over the host batch ``x`` (a non-blocking
+    upload): its output in a host tensor (pinned for a GPU) and the events
+    after which it has landed."""
+    with on_device(device):
+        y = step(x.to(device, non_blocking=True))
+        host = host_tensor(y.shape, y.dtype, device.type == "cuda")
+        host.copy_(y, non_blocking=True)
+        ev = record_done(device)
+    return host, [ev] if ev is not None else []
+
+
 class ShardedStep:
     """A step spread over a mesh: a host batch in, one host tensor out.
 

@@ -14,7 +14,11 @@ A tiled step (``-m r``, ``--tile_size``) is not translation-invariant (its
 tile grid is anchored to the frame), so its bands are cut between tile rows
 of the grid that ``fit_tile_grid`` makes for the (padded) frame, and each
 shard computes its own tile rows (:class:`Band` tells it where it is): the
-output is the single-device tiled output.
+output is the single-device tiled output.  ``--tta`` over a tiled SR stage
+runs on the first GPU with only each dihedral pass's tiled stage spread
+(:func:`sp_tiled_fn`: every pass cut on its own tile grid; a rotated pass
+bands the frame's columns), under the same row padding
+(:func:`row_padded_fn`).
 
 :func:`spatial_forward` is the explicit fixed-halo form (neighbour rows
 exchanged, zero rows at the frame border), which the tests hold against
@@ -34,7 +38,7 @@ import torch
 from upscale_video_tpu_torch.models.ops import conv_geometry
 from upscale_video_tpu_torch.ops.pixel import pad_to_multiple
 from upscale_video_tpu_torch.parallel.data import (
-    ShardedStep, as_batch, host_tensor, on_device, record_done,
+    ShardedStep, as_batch, host_tensor, on_device, record_done, run_to_host,
 )
 from upscale_video_tpu_torch.parallel.mesh import Mesh
 
@@ -165,6 +169,77 @@ def sp_sharded_fn(band_step_of_device: Callable[[torch.device], Callable],
     (:func:`whole_frame` makes one of a whole-frame step); it is called
     once per distinct device here."""
     return SpatialStep(band_step_of_device, mesh, radius, axis, period)
+
+
+class RowPaddedStep(ShardedStep):
+    """:func:`row_padded_fn`'s step."""
+
+    def __init__(self, step: Callable, mesh: Mesh, axis: str):
+        self.step = step
+        self.n = mesh.shape[axis]
+        self.device = mesh.axis_devices(axis)[0]
+
+    def launch(self, batch):
+        x = as_batch(batch)
+        h = x.shape[1]
+        x, (ph, _) = pad_to_multiple(x, self.n, 1)
+        if ph and self.device.type == "cuda":
+            x = x.pin_memory()
+
+        def cropped(xd):
+            y = self.step(xd)
+            return y[:, :h * (y.shape[1] // x.shape[1])]
+
+        return run_to_host(cropped, x, self.device)
+
+
+def row_padded_fn(step: Callable, mesh: Mesh, axis: str = "sp") -> ShardedStep:
+    """A step that spreads its own work over ``mesh[axis]`` (``--tta`` over
+    a tiled SR stage, :func:`sp_tiled_fn`) under the sp contract: the host
+    batch edge-padded to a multiple of the axis size in rows, as
+    :func:`sp_sharded_fn` pads it, run on the axis's first device, the
+    padding cropped at the output's row ratio, the output on the host."""
+    return RowPaddedStep(step, mesh, axis)
+
+
+class TiledBands:
+    """:func:`sp_tiled_fn`'s callable."""
+
+    def __init__(self, band_step_of_device: Callable, mesh: Mesh,
+                 radius: int, period: Callable[[int, int], int], axis: str):
+        self.devices = mesh.axis_devices(axis)
+        self.steps = {d: band_step_of_device(d)
+                      for d in dict.fromkeys(self.devices)}
+        self.radius = radius
+        self.period = period
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        bands = plan_bands(h, len(self.devices), self.radius,
+                           self.period(h, w))
+        parts = []
+        for dev, band in zip(self.devices, bands):
+            if band is None:
+                continue
+            with on_device(dev):
+                y = self.steps[dev](x[:, band.top:band.bottom].to(dev), band)
+            parts.append(y.to(x.device))
+        return torch.cat(parts, dim=1)
+
+
+def sp_tiled_fn(band_step_of_device: Callable[[torch.device], Callable],
+                mesh: Mesh, radius: int, period: Callable[[int, int], int],
+                axis: str = "sp") -> Callable[[torch.Tensor], torch.Tensor]:
+    """A tiled stage's rows spread over ``mesh[axis]``, called on the
+    axis's first device: ``fn(x)`` cuts ``x`` ``(N, H, W, C)`` into one
+    band per entry at multiples of ``period(H, W)`` (its tile height),
+    widened by ``radius`` (the halo), runs each band's step on its device
+    (``band_step_of_device(device)`` returns ``fn(rows, band) -> core
+    output``, the engine's tiled band step) and concatenates the outputs on
+    ``x``'s device: the tiled stage's own output.  Under ``--tta`` each
+    dihedral pass calls it on its transformed frame, so every pass is cut
+    on its own tile grid."""
+    return TiledBands(band_step_of_device, mesh, radius, period, axis)
 
 
 def _row_reach(layer, scale: Fraction) -> int:

@@ -35,7 +35,9 @@ the flag).
 ``ChainEngine.stage_fn`` runs one of these stages alone, uint8 in and out,
 for the PNG plane (``pipeline/stages.py``); ``ChainEngine.process`` one
 host batch through the step, for calibration
-(``pipeline/calibrate.py``).
+(``pipeline/calibrate.py``).  ``ChainEngine.use_chips`` puts every step on
+a mesh of GPUs: ``dp`` (frames), ``sp`` (rows) or ``tp`` (each conv's
+output channels, ``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -65,8 +67,11 @@ from upscale_video_tpu_torch.parallel.mesh import (  # noqa: F401 (parse_chips)
     Mesh, make_mesh, parse_chips, select_devices,
 )
 from upscale_video_tpu_torch.parallel.spatial import (
-    NLMEANS_RADIUS, Band, graph_radius, receptive_radius, sp_sharded_fn,
-    whole_frame,
+    NLMEANS_RADIUS, Band, graph_radius, receptive_radius, row_padded_fn,
+    sp_sharded_fn, sp_tiled_fn, whole_frame,
+)
+from upscale_video_tpu_torch.parallel.tensor import (
+    TensorParallelModel, tensor_parallel_fn, tp_routes,
 )
 
 log = logging.getLogger(__name__)
@@ -190,6 +195,9 @@ class ChainEngine:
     _mesh: Optional[Mesh] = field(default=None, repr=False)
     _mesh_mode: str = field(default="dp", repr=False)
     _replicas: dict = field(default=None, repr=False)
+    _tp: Optional["ChainEngine"] = field(default=None, repr=False)
+    _tp_warned: bool = field(default=False, repr=False)
+    _tiles: Optional[Callable] = field(default=None, repr=False)
 
     @classmethod
     def build(cls, spec: ChainSpec, scale: int, device: "torch.device | str",
@@ -282,7 +290,12 @@ class ChainEngine:
     def _tiled_sr(self, x: torch.Tensor) -> torch.Tensor:
         """Model-domain (N, H, W, 3) -> (N, sH, sW, 3) f32 over haloed
         tiles; each frame's tiles go through the model in batches of
-        :data:`TILES_PER_STEP`."""
+        :data:`TILES_PER_STEP`.  Under ``--parallel sp`` with ``--tta``
+        each pass's frame is cut into bands of tile rows instead, one per
+        GPU (``_tiles``, :func:`~upscale_video_tpu_torch.parallel.spatial.
+        sp_tiled_fn`)."""
+        if self._tiles is not None:
+            return self._tiles(x)
         fwd = self.sr_model.frames_forward("model")
         state = self.sr_model.state
         tile_hw = self._tile_hw(int(x.shape[1]), int(x.shape[2]))
@@ -431,18 +444,30 @@ class ChainEngine:
         each GPU takes its share of the batch
         (:func:`~upscale_video_tpu_torch.parallel.data.data_parallel_fn`);
         under ``sp`` each GPU takes a band of every frame's rows
-        (:func:`~upscale_video_tpu_torch.parallel.spatial.sp_sharded_fn`)."""
+        (:func:`~upscale_video_tpu_torch.parallel.spatial.sp_sharded_fn`;
+        with ``--tta`` over a tiled SR stage, a band of each dihedral
+        pass's tile rows, :meth:`_sp_tta`); under ``tp`` the step runs on
+        the first GPU with its models' convs split over all of them
+        (:func:`~upscale_video_tpu_torch.parallel.tensor.tensor_parallel_fn`)."""
         if self._steps is None:
             self._steps = {}
         if kind in self._steps:
             return self._steps[kind]
-        fn = self._single(kind)
-        if self._mesh is not None and self._mesh_mode == "sp":
+        if self._mesh is None:
+            fn = self._single(kind)
+        elif self._mesh_mode == "tp":
+            self._warn_narrow_tp(self._mesh)
+            fn = tensor_parallel_fn(self._tp._single(kind), self._mesh)
+        elif (self._mesh_mode == "sp" and self.tta and self.tile
+              and self.sr_model is not None
+              and kind in (("step",), ("stage", "sr"))):
+            fn = self._sp_tta(kind)
+        elif self._mesh_mode == "sp":
             radius, period, tiled = self._sp_plan(kind)
             fn = sp_sharded_fn(
                 lambda d: self.replica(d)._band(kind, tiled), self._mesh,
                 radius, period=period)
-        elif self._mesh is not None:
+        else:
             fn = data_parallel_fn(lambda d: self.replica(d)._single(kind),
                                   self._mesh)
         self._steps[kind] = fn
@@ -475,6 +500,41 @@ class ChainEngine:
         radius = pre + graph_radius(self.sr_model.graph)
         return -(-radius // align) * align, align, False
 
+    def _sp_tta(self, kind: tuple):
+        """``--tta`` over a tiled SR stage under ``sp``: the step on the
+        first GPU over the frame sp pads, each dihedral pass's frame cut
+        into bands of its own tile grid's rows, one per GPU
+        (:func:`~upscale_video_tpu_torch.parallel.spatial.sp_tiled_fn`;
+        a rotated pass bands the frame's columns), each band's output
+        gathered there before the pass is inverse-transformed and averaged
+        in f32 as on one device.  The pre-SR stages run on the first GPU."""
+        tiles = sp_tiled_fn(
+            lambda d: self.replica(d)._tiled_sr_band, self._mesh, self.halo,
+            lambda h, w: self._tile_hw(h, w)[0])
+        first = dataclasses.replace(
+            self.replica(self._mesh.axis_devices("sp")[0]), _tiles=tiles,
+            _steps=None, _mesh=None, _mesh_mode="dp", _replicas=None)
+        return row_padded_fn(first._single(kind), self._mesh)
+
+    def _warn_narrow_tp(self, mesh: Mesh) -> None:
+        """The guardrail of ``--parallel tp`` (JAX chain.py:566-590): with
+        the widest conv under 128 channels per GPU, tp's exchange of every
+        layer's activation almost certainly loses to dp or sp; say so.
+        Once per engine (several steps get finalized)."""
+        if self._tp_warned:
+            return
+        self._tp_warned = True
+        widths = [int(p.wmat.shape[-1])
+                  for m in (self.anime_model, self.sr_model) if m is not None
+                  for p in m.state.values() if hasattr(p, "wmat")]
+        n = mesh.size
+        if widths and max(widths) < 128 * n:
+            log.warning(
+                "--parallel tp: widest conv is %d channels over %d GPUs "
+                "(%d per GPU): tp exchanges every layer's activation between "
+                "the GPUs, so dp (throughput) or sp (latency) is likely "
+                "faster for these widths", max(widths), n, max(widths) // n)
+
     def _band(self, kind: tuple, tiled: bool) -> Callable:
         """The band step of ``kind`` on this engine's device for
         :func:`~upscale_video_tpu_torch.parallel.spatial.sp_sharded_fn`."""
@@ -503,7 +563,8 @@ class ChainEngine:
                           if self.sr_model is not None else None),
                 anime_model=(self.anime_model.replicate(device)
                              if self.anime_model is not None else None),
-                _steps=None, _mesh=None, _mesh_mode="dp", _replicas=None)
+                _steps=None, _mesh=None, _mesh_mode="dp", _replicas=None,
+                _tp=None, _tiles=None)
         return self._replicas[device]
 
     def process(self, frames_u8: np.ndarray) -> np.ndarray:
@@ -523,27 +584,56 @@ class ChainEngine:
     def input_rank_flexible(self) -> bool:
         """Whether steps accept non-rank-4 inputs (the flat I420 input
         contract): ``sp`` cuts each input's rows and so needs rank-4 frames;
-        one device and ``dp`` are rank-agnostic (JAX chain.py:522)."""
+        one device, ``dp`` and ``tp`` are rank-agnostic (JAX chain.py:522)."""
         return not self.row_sharded
 
     def use_mesh(self, mesh: Mesh, mode: str = "dp") -> None:
         """Run every step over ``mesh``: ``dp`` splits each batch over its
-        devices, ``sp`` each frame's rows.  Replicas of the models are made
-        now on every device of the mesh but this engine's.  A mesh may
-        list a device more than once (its shards then run on it in turn)."""
-        if mode not in ("dp", "sp"):
-            raise NotImplementedError(f"--parallel {mode} is not ported")
+        devices, ``sp`` each frame's rows, ``tp`` each conv's output
+        channels.  Replicas of the models are made now on every device of
+        the mesh but this engine's (under ``tp`` each entry's weight slices
+        instead, :meth:`_use_tp`).  A mesh may list a device more than once
+        (its shards then run on it in turn)."""
+        if mode not in ("dp", "sp", "tp"):
+            raise ValueError(f"unknown --parallel {mode!r} (dp, sp or tp)")
         if mode not in mesh.axis_names:
             raise ValueError(f"--parallel {mode} needs a mesh with a {mode!r} "
                              f"axis, got {mesh}")
-        if mode == "sp" and self.tta and self.tile:
-            raise NotImplementedError(
-                "--tta over a tiled SR stage under --parallel sp is not "
-                "ported (each dihedral pass has its own tile grid)")
         self._mesh, self._mesh_mode = mesh, mode
         self._steps = None
+        self._tp = None
+        if mode == "tp":
+            self._use_tp(mesh)
+            return
         for d in mesh.distinct_devices():
             self.replica(d)
+
+    def _use_tp(self, mesh: Mesh) -> None:
+        """The engine the ``tp`` steps run: this one on the mesh's first
+        device with each model over the mesh.  ``auto`` takes the
+        ``pallas`` plan there; ``--conv_impl rdb`` keeps each dense block
+        whole on every GPU, with the JAX package's warning (chain.py:
+        621-653)."""
+        base = self.replica(mesh.axis_devices("tp")[0])
+        models = [m for m in (base.sr_model, base.anime_model) if m is not None]
+        n = mesh.shape["tp"]
+        if self.conv_impl == "auto":
+            log.info("--parallel tp over %d GPUs: auto conv_impl takes the "
+                     "pallas plan (no K5, no K1 chain: every conv on K4, its "
+                     "output channels split)", n)
+        elif any(tp_routes(m.conv_impl, m.compute_dtype)[1] for m in models):
+            log.warning(
+                "conv_impl=%s under --parallel tp over %d GPUs: K5 runs each "
+                "dense block whole on every GPU; expect no multi-GPU speedup "
+                "on kernel-claimed layers", self.conv_impl, n)
+        self._tp = dataclasses.replace(
+            base,
+            sr_model=(TensorParallelModel(base.sr_model, mesh)
+                      if base.sr_model is not None else None),
+            anime_model=(TensorParallelModel(base.anime_model, mesh)
+                         if base.anime_model is not None else None),
+            _steps=None, _mesh=None, _mesh_mode="dp", _replicas=None,
+            _tp=None, _tiles=None)
 
     def use_chips(self, chips: Optional[str], mode: str = "dp") -> int:
         """Apply a ``-g`` chip multiset: returns the batch multiplier.
@@ -553,10 +643,10 @@ class ChainEngine:
         repetition of a chip id deepens the per-GPU batch instead of adding
         workers (README:39-63 intent).  ``mode="sp"``: each frame's rows are
         split across the GPUs (lower latency per frame instead of higher
-        throughput).  Chip ``i`` is ``cuda:i``; on the CPU (``--device
-        cpu``) ids are logical shards of the one CPU device."""
-        if mode not in ("dp", "sp"):
-            raise NotImplementedError(f"--parallel {mode} is not ported")
+        throughput); ``mode="tp"``: each conv's output channels are split
+        across the GPUs (``parallel/tensor.py``).  Chip ``i`` is
+        ``cuda:i``; on the CPU (``--device cpu``) ids are logical shards of
+        the one CPU device."""
         chip_ids, multiplier = parse_chips(chips)
         if len(chip_ids) > 1:
             devices = select_devices(chip_ids, self.device.type)

@@ -20,7 +20,7 @@ reference's ``{frame}.{tag}.png`` store through the stage passes of
 after spilling ``{n}.extract.png``.
 
 ``-g`` over several GPUs runs the step over a mesh (``parallel_mode``
-``dp`` or ``sp``, :meth:`ChainEngine.configure_chips`), and a multi-host
+``dp``, ``sp`` or ``tp``, :meth:`ChainEngine.configure_chips`), and a multi-host
 environment joins its process group first
 (:func:`~upscale_video_tpu_torch.parallel.mesh.initialize_multihost`).
 """
@@ -159,8 +159,8 @@ def process_file(
     ``png`` runs the stage passes over PNG files (:func:`_run_png_plane`);
     ``extract_only`` returns None after spilling ``{n}.extract.png``;
     ``conv_impl`` picks the kernels (:class:`ChainEngine`);
-    ``parallel_mode`` (``dp`` or ``sp``) is how ``chips`` share the
-    work."""
+    ``parallel_mode`` (``dp``, ``sp`` or ``tp``) is how ``chips`` share
+    the work."""
     if scale not in VALID_SCALES:
         raise ValueError(f"scale must be one of {VALID_SCALES}")
     if not os.path.exists(input_file):

@@ -19,7 +19,7 @@ stage tags), so a JAX box and a port box can each take one half of a job:
 
 The model-running workflows take ``device`` (``cuda`` unless the caller
 asks for the CPU), ``conv_impl`` and ``parallel_mode`` (how ``-g`` chips
-share the work: ``dp`` or ``sp``) as the JAX ones do; every PNG goes through the
+share the work: ``dp``, ``sp`` or ``tp``) as the JAX ones do; every PNG goes through the
 port's codec (:mod:`upscale_video_tpu_torch.video.png`), and a fragment is
 written beside its name and moved there once whole
 (:func:`~upscale_video_tpu_torch.pipeline.process.open_fragment`).
