@@ -73,6 +73,7 @@ from upscale_video_tpu_torch.parallel.spatial import (
 from upscale_video_tpu_torch.parallel.tensor import (
     TensorParallelModel, tensor_parallel_fn, tp_routes,
 )
+from upscale_video_tpu_torch.utils.trace import NO_TRACE
 
 log = logging.getLogger(__name__)
 
@@ -691,13 +692,21 @@ class BatchedStepper:
     ShardedStep`) takes the pinned buffer itself, uploads each shard to its
     GPU and returns its pinned output with one event per shard, which
     stand for both.
+
+    With a :class:`~upscale_video_tpu_torch.utils.trace.LoopTrace` it
+    records the parts of the loop's ``infer`` stage: ``loop.pack`` (a frame
+    into the pinned buffer), ``loop.h2d_wait`` (the buffer's last upload),
+    ``loop.dispatch`` (upload, step and queued download, or
+    ``ShardedStep.launch``) and ``loop.d2h_wait`` (the previous batch's
+    download), each step's but ``loop.pack`` once per frame.
     """
 
     def __init__(self, step_fn: Callable, frames_per_step: int,
-                 device: "torch.device | str"):
+                 device: "torch.device | str", trace=None):
         self.step_fn = step_fn
         self.n = frames_per_step
         self.device = torch.device(device)
+        self._trace = NO_TRACE if trace is None else trace
         self._cuda = self.device.type == "cuda"
         self._count = 0
         self._pending = None  # (host tensor, events, valid count)
@@ -721,8 +730,9 @@ class BatchedStepper:
             self._h2d_done[self._slot] = []
         if self._count == 0:
             # the previous upload from this buffer must have landed
-            for ev in self._h2d_done[self._slot]:
-                ev.synchronize()
+            with self._trace.span("loop.h2d_wait"):
+                for ev in self._h2d_done[self._slot]:
+                    ev.synchronize()
             self._h2d_done[self._slot] = []
         return buf.numpy()
 
@@ -731,32 +741,35 @@ class BatchedStepper:
             return []
         host, events, valid = self._pending
         self._pending = None
-        for ev in events:
-            ev.synchronize()
+        with self._trace.span("loop.d2h_wait"):
+            for ev in events:
+                ev.synchronize()
         arr = host.numpy()
         return [arr[i] for i in range(valid)]
 
     def _dispatch(self, valid: int) -> List[np.ndarray]:
         buf = self._bufs[self._slot]
-        if isinstance(self.step_fn, ShardedStep):
-            host, events = self.step_fn.launch(buf)
-            self._h2d_done[self._slot] = events
-        elif self._cuda:
-            with torch.cuda.device(self.device):
-                stream = torch.cuda.current_stream(self.device)
-                dev_in = buf.to(self.device, non_blocking=True)
-                up = torch.cuda.Event()
-                up.record(stream)
-                self._h2d_done[self._slot] = [up]
-                out = self.step_fn(dev_in)
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(stream)
-            events = [ev]
-        else:
-            host = self.step_fn(buf)  # a new tensor: never aliases buf
-            events = []
+        with self._trace.span("loop.dispatch"):
+            if isinstance(self.step_fn, ShardedStep):
+                host, events = self.step_fn.launch(buf)
+                self._h2d_done[self._slot] = events
+            elif self._cuda:
+                with torch.cuda.device(self.device):
+                    stream = torch.cuda.current_stream(self.device)
+                    dev_in = buf.to(self.device, non_blocking=True)
+                    up = torch.cuda.Event()
+                    up.record(stream)
+                    self._h2d_done[self._slot] = [up]
+                    out = self.step_fn(dev_in)
+                    host = torch.empty(out.shape, dtype=out.dtype,
+                                       pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                events = [ev]
+            else:
+                host = self.step_fn(buf)  # a new tensor: never aliases buf
+                events = []
         done = self._collect()
         self._pending = (host, events, valid)
         self._slot = 1 - self._slot
@@ -765,7 +778,8 @@ class BatchedStepper:
     def feed(self, frame: np.ndarray) -> List[np.ndarray]:
         """Add one frame; returns any completed output frames (in order)."""
         buf = self._buf_for(frame)
-        np.copyto(buf[self._count], frame)
+        with self._trace.span("loop.pack"):
+            np.copyto(buf[self._count], frame)
         self._count += 1
         if self._count < self.n:
             return []

@@ -47,7 +47,7 @@ from upscale_video_tpu_torch.pipeline.chain import (
     precision_dtypes,
 )
 from upscale_video_tpu_torch.utils.logsetup import setup_logging
-from upscale_video_tpu_torch.utils.profiling import StageTimer
+from upscale_video_tpu_torch.utils.trace import LoopTrace
 from upscale_video_tpu_torch.utils.wake import keep_awake
 from upscale_video_tpu_torch.video import (
     SENTINEL_COMPLETED,
@@ -322,7 +322,17 @@ def _run_stream_plane(
     pipe_pix: str = "rgb24",
 ) -> int:
     """Streaming loop: sequential decode -> device step -> fragment
-    encoders, with skip-if-exists resume per fragment."""
+    encoders, with skip-if-exists resume per fragment.
+
+    A :class:`~upscale_video_tpu_torch.utils.trace.LoopTrace` times it:
+    ``loop.open`` from entry (for a later fragment, from its start) to the
+    fragment's first frame read, the stages ``decode``, ``infer`` and
+    ``encode``, and ``loop.close`` (the sink's close and the fragment's
+    commit); the stepper, sink and prefetch source record their own
+    spans.  It logs the ``stage timing`` and ``loop spans`` lines at the
+    end."""
+    timer = LoopTrace()
+    timer.begin("loop.open")
     src_h, src_w = backend.source_geometry(info, crop)
     out_h, out_w = src_h * engine.scale, src_w * engine.scale
     yuv420 = pipe_pix == "yuv420p"
@@ -333,7 +343,6 @@ def _run_stream_plane(
         )
         yuv420 = False
     processed = 0
-    timer = StageTimer()
 
     first_todo = 1
     while first_todo <= len(batches) and os.path.exists(
@@ -421,7 +430,7 @@ def _run_stream_plane(
         inner_src.close()
         raise
 
-    source = PrefetchSource(inner_src, depth=2 * frames_per_step)
+    source = PrefetchSource(inner_src, depth=2 * frames_per_step, trace=timer)
     try:
         for batch, (start, end) in batches.items():
             if batch < first_todo:
@@ -433,17 +442,21 @@ def _run_stream_plane(
                         break
                 log.info("batch %d exists, skipped", batch)
                 continue
+            timer.begin("loop.open")  # later fragments (no-op for the first)
             sink = AsyncSink(
                 open_fragment(backend, batch, out_w, out_h, info, workdir,
                               yuv420=yuv420),
                 depth=2 * frames_per_step,
                 transform=transform,
+                trace=timer,
             )
-            stepper = BatchedStepper(step_fn, frames_per_step, engine.device)
+            stepper = BatchedStepper(step_fn, frames_per_step, engine.device,
+                                     trace=timer)
             wrote = 0
             ended_early = False
             try:
                 try:
+                    timer.end("loop.open")
                     for f in range(start, end + 1):
                         with timer.stage("decode", 1):
                             frame = source.read()
@@ -464,6 +477,7 @@ def _run_stream_plane(
                             sink.write(out)
                             wrote += 1
                 finally:
+                    timer.begin("loop.close")
                     sink.close()
             except Exception:
                 discard_fragment(backend, batch, workdir)
@@ -478,9 +492,12 @@ def _run_stream_plane(
                     "fix the source, then resume"
                 )
             commit_fragment(backend, batch, workdir)
+            timer.end("loop.close")
             processed += wrote
             log.info("batch %d: %d frames upscaled+encoded", batch, wrote)
     finally:
+        timer.end("loop.open")
+        timer.end("loop.close")
         source.close()
     timer.log_summary()
     return processed
