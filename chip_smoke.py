@@ -132,9 +132,11 @@ bit-equal to the contiguous call, sentinels untouched) and each conv of a
 dense block run on one shared buffer; ``[K4_ab]`` times each dense shape
 and one dense block on the sm90 kernel, the WMMA kernel (called directly)
 and cuDNN; every CLI run counts the sm90 launches.  ``[K5_sm90]`` holds
-K5's Hopper kernel against its plain version at four shapes, ``[K5_ab]``
-times it beside the plain version and two yardsticks (the block's convs on
-K4's sm90 kernel and on cuDNN), and ``[valar_profile]`` splits one 1080p
+K5's Hopper stage kernels against their plain version at four shapes,
+``[K5_ab]`` times one call (five stage launches) beside the plain version
+and two yardsticks (the block's convs on K4's sm90 kernel and on cuDNN),
+``[K5_stages]`` gives each stage's device ms beside its own bound, and
+``[valar_profile]`` splits one 1080p
 ``-m r`` step's device time by kernel.  K1 is held against its plain version at
 every path's shapes (the Compact stack and the anime chain at 4x1080p;
 ``-m r``'s last three convs on a 1080p frame's tiles at 4x), K4 at every
@@ -259,12 +261,19 @@ E2E_MIN_PSNR = 40.0            # bf16 CUDA step vs the f32 plain path, dB
 # weights (measured at most 0.015625 on an NVIDIA H100 80GB HBM3)
 K5_ATOL, K5_RTOL = 2.0 ** -6, 2.0 ** -7
 # [K5_sm90]: the -m r tiles of a 1080p frame, a ragged batch, a frame
-# smaller than one 12x16 tile, one whose rows and columns fit no whole tile
+# smaller than one 2x64 tile's halo, one whose rows and columns fit no
+# whole tile
 K5_SM90_SHAPES = (TILES, (2, 37, 53), (1, 5, 7), (1, 61, 70))
 # [K5_ab]: the least share of its bound K5 must reach at TILES (an earlier
-# mma.sync version reached 0.093, the Hopper kernel 0.181 on an NVIDIA
-# H100 80GB HBM3 at 700 W)
-K5_MIN_BOUND_SHARE = 0.12
+# mma.sync version reached 0.093, the fused Hopper kernel 0.181, the five
+# stage kernels 0.38-0.39 on an NVIDIA H100 80GB HBM3 at 700 W)
+K5_MIN_BOUND_SHARE = 0.25
+# [K5_stages]: each stage kernel's device traffic a pixel (its inputs and
+# output in bf16; stage 2 also writes c2 in f32, stage 4 reads it) and its
+# MACs a pixel (stage 2 with the 1x1 skip), for its own bound
+K5_STAGE_BYTES = (192, 384, 320, 512, 512)
+K5_STAGE_MACS = (9 * 64 * 32, 9 * 96 * 32 + 64 * 32, 9 * 128 * 32, 9 * 160 * 32,
+                 9 * 192 * 64)
 VALAR_MIN_PSNR = 36.0          # mixed -m r step vs the f32 plain path, dB
 # (37.15 dB measured on an NVIDIA H100 80GB HBM3 for the 1x64x96 frame at
 # 23 RRDBs below; PARITY.md's bf16 quality class for the model is 34.5 dB)
@@ -3314,16 +3323,17 @@ def k4_phases(dev, errs) -> dict:
 
 
 def k5_sm90_phases(dev, errs, veng, blk, wts, rng) -> dict:
-    """[K5_sm90], [K5_time] and [K5_ab]: K5's Hopper kernel (what the
-    path runs) against its plain version at ``K5_SM90_SHAPES``, each call
-    counted on ``launches_sm90``; then at ``TILES`` the Hopper kernel and
+    """[K5_sm90], [K5_time], [K5_ab] and [K5_stages]: K5's Hopper stages
+    (what the path runs) against their plain version at ``K5_SM90_SHAPES``,
+    each call counted on ``launches_sm90``; then at ``TILES`` the stages and
     the plain version timed, one run each, beside two yardsticks that
     skip K5's per-source rounding and its adds: the block's five convs
     (leaky on c1..c4) on K4's sm90 kernel over one 192-channel buffer with
     the 1x1 skip as one matmul, and on cuDNN (bf16, channels-last, a conv per
     layer, no activation); fails if the kernel reaches less than
-    ``K5_MIN_BOUND_SHARE`` of its bound.  Returns the kernels line's K5
-    figures."""
+    ``K5_MIN_BOUND_SHARE`` of its bound; then each stage's device time
+    under torch.profiler beside its own bound (``K5_STAGE_BYTES``,
+    ``K5_STAGE_MACS``).  Returns the kernels line's K5 figures."""
     import torch
 
     from upscale_video_tpu_torch.ops.common import ACT_LEAKY, ACT_NONE
@@ -3411,10 +3421,47 @@ def k5_sm90_phases(dev, errs, veng, blk, wts, rng) -> dict:
     if share < K5_MIN_BOUND_SHARE:
         raise SystemExit(f"K5's sm90 kernel reached {share:.3f} of its bound, "
                          f"under {K5_MIN_BOUND_SHARE}")
+    stages = k5_stage_times(lambda: rdb_block(k5_x, wts), 5)
+    stage_ms, stage_bound_ms = [], []
+    for t, ms in enumerate(stages):
+        sb = roofline(pix * K5_STAGE_BYTES[t] + 2 * 9 * 32 * CINS[t]
+                      * (2 if t == 4 else 1), {"bf16": 2 * K5_STAGE_MACS[t] * pix})
+        say("K5_stages", stage=t + 1, shape="x".join(map(str, TILES)) + "x64",
+            ms=f"{ms:.4f}", bound_ms=f"{sb[0]:.4f}", bound_by=sb[1],
+            share_of_bound=f"{sb[0] / ms:.3f}")
+        stage_ms.append(round(ms, 4))
+        stage_bound_ms.append(round(sb[0], 4))
     del k5_x, buf, c5, xs
     return {"ms": times["sm90"], "plain_ms": times["plain"],
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-            "k4_sm90_ms": times["k4_sm90"], "cudnn_convs_ms": times["cudnn"]}
+            "k4_sm90_ms": times["k4_sm90"], "cudnn_convs_ms": times["cudnn"],
+            "stage_ms": stage_ms, "stage_bound_ms": stage_bound_ms}
+
+
+def k5_stage_times(fn, calls: int) -> list:
+    """Device ms a call of each of K5's five stage kernels
+    (``rdb_block_sm90_kernel<1>`` .. ``<5>``) over ``calls`` calls of
+    ``fn`` under torch.profiler; fails if the profiler saw none of them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [0.0] * 5
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for t in range(5):
+            if f"rdb_block_sm90_kernel<{t + 1}>" in e.key:
+                us[t] += getattr(e, "device_time_total", 0.0)
+    if not all(us):
+        raise SystemExit("[K5_stages] the profiler saw no device time of a K5 stage")
+    return [u / calls / 1e3 for u in us]
 
 
 def wmma_conv(x, y, wmat, bias, slope, act) -> None:

@@ -358,9 +358,10 @@ def _rdb_weights(rng, dev):
 @pytest.mark.parametrize("shape", [(2, 37, 53), (1, 14, 16), (3, 5, 70),
                                    (8, 576, 512), (1, 5, 7), (1, 61, 70)])
 def test_rdb_kernel_matches_plain(dev, shape):
-    """The Hopper kernel against the plain version, among them chip_smoke's
+    """The Hopper stages against the plain version, among them chip_smoke's
     [K5_sm90] shapes: the -m r tiles of a 1080p frame, a frame smaller than
-    one 12x16 tile, and one whose rows and columns fit no whole tile."""
+    one 2x64 tile's halo, and ones whose rows and columns fit no whole
+    tile."""
     rng = np.random.default_rng(3)
     wts = _rdb_weights(rng, dev)
     x = torch.from_numpy(rng.normal(0, 0.5, shape + (NF,)).astype(np.float32)
@@ -375,6 +376,34 @@ def test_rdb_kernel_matches_plain(dev, shape):
     assert bool(torch.isfinite(got.float()).all())
     d = (got.float() - want.float()).abs()
     assert bool((d <= 2.0 ** -6 + 2.0 ** -7 * want.float().abs()).all())
+
+
+def test_rdb_block_launches_its_five_stage_kernels_only(dev):
+    """One ``rdb_block`` call under torch.profiler: exactly five kernels ran
+    on the card, stages 1..5 in order, each a name that
+    ``port_bench/metrics/k5_roofline.py`` counts as K5, and no fill or copy
+    (the scratches come from ``torch.empty``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from port_bench.metrics.k5_roofline import KERNELS
+
+    rng = np.random.default_rng(5)
+    wts = _rdb_weights(rng, dev)
+    x = torch.from_numpy(rng.normal(0, 0.5, (2, 37, 53, NF)).astype(np.float32)
+                         ).to(dev, torch.bfloat16)
+    rdb_block(x, wts)  # builds and loads the library outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rdb_block(x, wts)
+        torch.cuda.synchronize()
+    ran = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in ran]
+    assert len(names) == 5, names
+    assert all(KERNELS.search(n) for n in names), names
+    assert [f"rdb_block_sm90_kernel<{t}>" in n for t, n in
+            zip(range(1, 6), names)] == [True] * 5, names
 
 
 def test_rdb_kernel_refuses_bad_inputs(dev):

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from upscale_video_tpu.models.executor import _plan_rdb_blocks as jax_plan
 from upscale_video_tpu.models.zoo import make_rrdb_graph as jax_rrdb_graph
@@ -39,25 +40,25 @@ from upscale_video_tpu_torch.models.executor import (
 from upscale_video_tpu_torch.models.param_parser import NcnnGraph, NcnnLayer
 from upscale_video_tpu_torch.models.zoo import make_rrdb_graph
 from upscale_video_tpu_torch.ops.rdb import (
-    BPACK_NUMEL, CINS, MACS_PER_PIXEL, WIDTHS, WPACK_NUMEL, _source_weight,
-    pack_rdb_weights, pack_rdb_weights_sm90, rdb_block, rdb_block_plain,
-    sm90_blocks, sm90_swizzle,
+    B_OFFS, BPACK_NUMEL, C2F_CH, CINS, MACS_PER_PIXEL, SCRATCH_CH, SKIP_B_OFF,
+    STAGE_CHUNKS, WIDTHS, WPACK_NUMEL, _source_weight, pack_rdb_weights,
+    pack_rdb_weights_sm90, rdb_block, rdb_block_plain, sm90_blocks,
+    sm90_gather_index, sm90_slices,
 )
 from tests.torch_fixtures import one_torch_thread  # noqa: F401
 
-# The tile plan that csrc/rdb_block_sm90.cu states (its static_asserts hold
-# the same numbers at compile time): 12x16 output pixels per tile, halo 5;
-# stage t (0 = the x window, 1..5 = c1..c5) covers a region that starts at
-# window row/col t.  Shared memory: a ring of 8 weight slots of 4 KB, the x
-# window (128 B per pixel), c1..c4 (64 B per pixel), c2's f32 value on c4's
-# region, 18 mbarriers and 1 KB of alignment slack.
-SM90_TH, SM90_TW, SM90_HALO = 12, 16, 5
-SM90_SLOTS, SM90_SLOT_BYTES = 8, 4096
+# The stage plan that csrc/rdb_block_sm90.cu states (its static_asserts hold
+# the same numbers at compile time): tiles of 2 output rows x 64 columns,
+# each consumer's halo in a top and a bottom part of 2 rows x 66 columns x
+# 128 B (1024-aligned), 64-channel weight slices of 9 taps x 32 lines x 128
+# B resident (c2's skip one more tap block), three consumers (two in stage
+# 2), 4 mbarriers a consumer, a bias and a skip bias per column, 1 KB of
+# alignment slack.
+SM90_KR, SM90_TW = 2, 64
+SM90_WGS = (3, 2, 3, 3, 3)
+SM90_PART = -(-2 * 66 * 128 // 1024) * 1024
+SM90_TAP = 32 * 128
 SM90_SMEM_LIMIT = 232448
-
-
-def _sm90_region(t):
-    return (SM90_TH + 2 * (SM90_HALO - t), SM90_TW + 2 * (SM90_HALO - t))
 
 
 def _weights(seed):
@@ -143,69 +144,159 @@ def test_pack_layout_and_formats():
         pack_rdb_weights([ws[1]] + ws[1:], bs, skw)
 
 
-def _unpack_sm90_block(stream, b):
-    """One block of the Hopper kernel's stream back in logical order:
-    ``(n, k)`` values, row ``r``'s chunk ``c`` read from its swizzled place."""
-    rows = stream[b.offset:b.offset + b.n * b.k].reshape(b.n, b.k // 8, 8)
-    return torch.stack([
-        torch.cat([rows[r, sm90_swizzle(r, c, b.k)] for c in range(b.k // 8)])
-        for r in range(b.n)])
+def _sm90_block_want(a, skw, b):
+    """What block ``b`` of the Hopper pack must hold, from
+    ``pack_rdb_weights``' values: ``(32, k)``, row = output channel ``32 *
+    chunk + row``, column = channel of the slice (c_s's 32, then
+    c_{s+1}'s)."""
+    rows = slice(GC * b.chunk, GC * (b.chunk + 1))
+    if b.s < 0:
+        return torch.from_numpy(skw.reshape(NF, GC).T.copy())[rows]
+    dy, dx = divmod(b.tap, 3)
+    srcs = [b.s] if b.s == 0 else range(b.s, b.s + b.k // GC)
+    return torch.cat([_source_weight(a.wpack, b.t, s)[rows, :, dy, dx]
+                      for s in srcs], dim=1)
 
 
-def test_sm90_stream_unpacks_to_pack_rdb_weights():
-    """Every (target, source, tap) value of ``pack_rdb_weights`` comes back
-    exactly from its block of the Hopper stream; the blocks tile the stream
-    with no gap or pad (the stream holds each weight once)."""
+@pytest.mark.parametrize("t", range(5))
+def test_sm90_pack_unpacks_to_pack_rdb_weights(t):
+    """Stage ``t``'s part of the Hopper pack, for every cout chunk, slice
+    and tap, holds exactly ``pack_rdb_weights``' values in the order the
+    stage copies them; the stages' parts tile the pack with no gap or pad,
+    and the pack is a permutation of ``wpack`` (each value once)."""
     ws, bs, skw, skb, _ = _weights(6)
     a = pack_rdb_weights(ws, bs, skw, skb)
     assert torch.equal(a.wpack_sm90, pack_rdb_weights_sm90(a.wpack))
-    stream = a.wpack_sm90.float()
+    idx = sm90_gather_index()
+    assert torch.equal(torch.sort(idx).values, torch.arange(WPACK_NUMEL))
     blocks = sm90_blocks()
-    assert len(blocks) == 145
-    end = 0
-    for b in blocks:
-        assert b.offset == end and b.n * b.k * 2 <= SM90_SLOT_BYTES
-        end = b.offset + b.n * b.k
-        got = _unpack_sm90_block(stream, b)
-        if b.s < 0:  # c2's 1x1 skip
-            want = torch.from_numpy(skw.reshape(NF, GC).T.copy())
-        else:
-            dy, dx = divmod(b.tap, 3)
-            want = _source_weight(a.wpack, b.t, b.s)[:, b.k0:b.k0 + b.k, dy, dx]
-        assert torch.equal(got, want.to(torch.bfloat16).float()), b
-    assert end == WPACK_NUMEL == a.wpack_sm90.numel()
-    # each (target, source, tap, channel) once: 9 * cin * width per target
-    for t in range(5):
-        seen = sum(b.n * b.k for b in blocks if b.t == t and b.s >= 0)
-        assert seen == 9 * CINS[t] * WIDTHS[t]
-    # only a bf16 pack carries the stream (the kernel's dtype)
+    assert [b.offset for b in blocks] == list(np.cumsum(
+        [0] + [GC * b.k for b in blocks[:-1]]))
+    stage = [b for b in blocks if b.t == t]
+    assert sorted({b.chunk for b in stage}) == list(range(STAGE_CHUNKS[t]))
+    pack = a.wpack_sm90.float()
+    for b in stage:
+        got = pack[b.offset:b.offset + GC * b.k].reshape(GC, b.k)
+        assert torch.equal(got, _sm90_block_want(a, skw, b).to(
+            torch.bfloat16).float()), b
+    # each (output, source, tap, channel) of target t once; stage 2 also the skip
+    want = 9 * CINS[t] * WIDTHS[t] + (GC * NF if t == 1 else 0)
+    assert sum(GC * b.k for b in stage) == want
     assert pack_rdb_weights(ws, bs, skw, skb, dtype=torch.float32).wpack_sm90 is None
 
 
-def test_sm90_tile_plan():
-    """The Hopper kernel's plan as its source states it: shared memory
-    within the 232,448 bytes, the 8x576x512 -m r tiles covered once each
-    by 12x16 tiles, stage regions shrinking by 2 per conv, 8/7/5/4/3 M
-    tiles of 64 pixels, and 1.406x the output's MACs computed."""
-    regions = [_sm90_region(t) for t in range(6)]
-    assert regions == [(22, 26), (20, 24), (18, 22), (16, 20), (14, 18), (12, 16)]
-    px = [r * c for r, c in regions]
-    act = px[0] * NF * 2 + sum(px[1:5]) * GC * 2 + px[4] * GC * 4
-    assert act == 198144
-    smem = 1024 + SM90_SLOTS * SM90_SLOT_BYTES + act + 18 * 8
-    assert smem == 232080 <= SM90_SMEM_LIMIT
-    assert [-(-p // 64) for p in px[1:]] == [8, 7, 5, 4, 3]
-    h, w = 576, 512
-    cover = np.zeros((h, w), np.int32)
-    for y0 in range(0, h, SM90_TH):
-        for x0 in range(0, w, SM90_TW):
-            cover[y0:y0 + SM90_TH, x0:x0 + SM90_TW] += 1
-    assert (cover == 1).all() and h % SM90_TH == 0 and w % SM90_TW == 0
-    assert (h // SM90_TH) * (w // SM90_TW) * 8 == 12288
-    # MACs per tile: each stage over its whole region, the 1x1 skip on c2's
-    done = sum(px[t + 1] * 9 * CINS[t] * WIDTHS[t] for t in range(5)) + px[2] * NF * GC
-    assert done == 65249280 and px[5] * MACS_PER_PIXEL == 46399488
-    assert round(done / (px[5] * MACS_PER_PIXEL), 3) == 1.406
+def _sm90_pack_weight(pack, t, chunk, i):
+    """Slice ``i`` of stage ``t``'s chunk as the stage keeps it: OIHW
+    ``(32, k, 3, 3)`` (``(32, 64, 1, 1)`` for the skip)."""
+    blk = [b for b in sm90_blocks() if (b.t, b.chunk, b.slice) == (t, chunk, i)]
+    taps = [pack[b.offset:b.offset + GC * b.k].reshape(GC, b.k) for b in blk]
+    if blk[0].s < 0:
+        return taps[0][:, :, None, None]
+    return torch.stack(taps, -1).reshape(GC, blk[0].k, 3, 3)
+
+
+def _sm90_walk(x, wts):
+    """The Hopper stages' walk in f32 on the CPU, from the pack: each slice
+    read from x or from the c1..c4 scratch at its channels, a slice of two
+    c sources drained at its 32-channel boundary, each piece rounded to bf16
+    and added in the walk's order, then each stage's epilogue.  Unwritten
+    scratch channels are NaN, so a read of one shows in the output.
+    Returns the block's output and per stage the log of what it read and
+    wrote: ``("read", buffer, c0, c1)``, ``("piece", source)``, ``("write",
+    buffer, c0, c1)``."""
+    pack = wts.wpack_sm90.float()
+    bp = wts.bpack.float()
+    n, h, w, _ = x.shape
+    xs = x.to(torch.bfloat16).permute(0, 3, 1, 2).float()
+    scratch = torch.full((n, SCRATCH_CH, h, w), float("nan"))
+    c2f = torch.full((n, C2F_CH, h, w), float("nan"))
+    out = torch.full((n, NF, h, w), float("nan"))
+    rnd = lambda v: v.to(torch.bfloat16).float()  # noqa: E731
+    logs = []
+    for t in range(5):
+        log = []
+        for chunk in range(STAGE_CHUNKS[t]):
+            tot = skip = None
+            for i, (s, k) in enumerate(sm90_slices(t)):
+                wt = _sm90_pack_weight(pack, t, chunk, i)
+                if s < 0:
+                    skip = F.conv2d(xs, wt)
+                    continue
+                c0 = 0 if s == 0 else GC * (s - 1)
+                log.append(("read", "x" if s == 0 else "scratch", c0, c0 + k))
+                src = xs if s == 0 else scratch[:, c0:c0 + k]
+                step = NF if s == 0 else GC
+                for p in range(0, k, step):
+                    log.append(("piece", s + p // GC))
+                    piece = rnd(F.conv2d(src[:, p:p + step].contiguous(),
+                                         wt[:, p:p + step].contiguous(),
+                                         padding=1))
+                    tot = piece if tot is None else tot + piece
+            cols = slice(B_OFFS[t] + GC * chunk, B_OFFS[t] + GC * (chunk + 1))
+            val = tot + bp[cols].view(1, -1, 1, 1)
+            if t == 4:
+                o = slice(GC * chunk, GC * (chunk + 1))
+                out[:, o] = rnd(xs[:, o] + 0.2 * val)
+                log.append(("write", "out", o.start, o.stop))
+                continue
+            val = torch.where(val >= 0, val, val * wts.slope)
+            if t == 1:
+                val = val + (skip + bp[SKIP_B_OFF:].view(1, -1, 1, 1))
+                c2f[:] = val
+                log.append(("write", "c2f", 0, C2F_CH))
+            elif t == 3:
+                log.append(("read", "c2f", 0, C2F_CH))
+                val = val + c2f
+            scratch[:, GC * t:GC * (t + 1)] = rnd(val)
+            log.append(("write", "scratch", GC * t, GC * (t + 1)))
+        logs.append(log)
+    return out.permute(0, 2, 3, 1).to(torch.bfloat16), logs
+
+
+@pytest.mark.parametrize("t", range(5))
+def test_sm90_stage_plan(t):
+    """Stage ``t``'s plan as csrc/rdb_block_sm90.cu states it, walked from
+    the pack on the CPU: its slices read x and the scratch channels earlier
+    stages wrote (c_s at 32 (s - 1)), a c slice drains at its 32-channel
+    boundary, the pieces follow the plain version's source order (stage 2:
+    c1 then x, a sum of two), c2's f32 value is written by stage 2 and read
+    by stage 4 only, the stage writes its own 32 scratch channels (c5 the
+    output, in two chunks), and its shared memory fits.  The whole walk
+    agrees with ``rdb_block_plain`` to its pieces' rounding."""
+    ws, bs, skw, skb, mk = _weights(8)
+    wts = pack_rdb_weights(ws, bs, skw, skb)
+    x = torch.from_numpy(mk(7, 10))[None]
+    got, logs = _sm90_walk(x, wts)
+    assert bool(torch.isfinite(got.float()).all())
+    _assert_piece_ulp(got[0].float().numpy(),
+                      rdb_block_plain(x, wts)[0].float().numpy())
+    log = logs[t]
+    pieces = [e[1] for e in log if e[0] == "piece"]
+    order = [1, 0] if t == 1 else list(range(t + 1))
+    assert pieces == order * STAGE_CHUNKS[t]
+    written = {("x", c) for c in range(NF)}
+    for e in (e for lg in logs[:t] for e in lg if e[0] == "write"):
+        written |= {(e[1], c) for c in range(e[2], e[3])}
+    reads = [e for e in log if e[0] == "read"]
+    for _, buf, c0, c1 in reads:
+        assert {(buf, c) for c in range(c0, c1)} <= written
+        assert buf != "scratch" or (c0 % 64 == 0 and c1 - c0 in (GC, 2 * GC))
+    assert (("read", "c2f", 0, C2F_CH) in log) == (t == 3)
+    writes = [e for e in log if e[0] == "write"]
+    if t == 4:
+        assert writes == [("write", "out", 0, GC), ("write", "out", GC, NF)]
+    else:
+        assert ("write", "scratch", GC * t, GC * (t + 1)) in writes
+        assert (("write", "c2f", 0, C2F_CH) in writes) == (t == 1)
+    # shared memory: the weights of the stage's slices (+ the skip), two
+    # consumers' two parts, barriers and the per-column constants
+    nslice = len([1 for s, _ in sm90_slices(t) if s >= 0])
+    smem = (1024 + (nslice * 9 + (t == 1)) * SM90_TAP
+            + SM90_WGS[t] * (2 * SM90_PART + 4 * 8) + 2 * GC * 4)
+    assert smem <= SM90_SMEM_LIMIT and (t < 3 or smem == 216416)
+    # tiles of 2 rows x 64 columns cover the -m r batch once each
+    assert (576 // SM90_KR) * (512 // SM90_TW) * 8 == 18432
+    assert MACS_PER_PIXEL == sum(9 * CINS[u] * WIDTHS[u] for u in range(5)) + NF * GC
 
 
 def test_cpu_wrapper_takes_the_plain_version_without_a_hopper_stream():

@@ -57,25 +57,6 @@ using namespace uvt_halo;
 
 constexpr int kWGs = 2;                   // consumer warpgroups
 
-// A 4 x 4 transpose of 32-bit words within a quad (lanes 4i..4i+3):
-// thread q ends with word[q] of each of the quad's threads, in thread
-// order.  Round i: each thread sends its word (q - i) & 3 and receives
-// thread (q + i) & 3's word q.
-__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&word)[4], int q,
-                                                int lane) {
-  uint32_t got[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = (q - i) & 3;
-    const int from = (q + i) & 3;
-    const uint32_t send = k == 0 ? word[0] : k == 1 ? word[1] : k == 2 ? word[2] : word[3];
-    const uint32_t v = __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) got[m] = from == m ? v : got[m];
-  }
-  return make_uint4(got[0], got[1], got[2], got[3]);
-}
-
 // The conv layer's epilogue on the halo mainloop (conv3x3_halo_sm90.cuh).
 template <int N, int KR>
 struct ConvEpi {

@@ -2,7 +2,9 @@
 // SAME 3x3 conv of cin input channels to a chunk of N output columns per
 // tile of KR output rows x 64 output columns, its epilogue a template
 // parameter.  Shared by K4's Hopper kernel (conv3x3_fused_sm90.cu, a conv
-// layer's epilogue) and K3's (sr_tail_sm90.cu, the SRVGG tail's epilogue).
+// layer's epilogue) and K3's (sr_tail_sm90.cu, the SRVGG tail's epilogue);
+// K5's stage kernels (rdb_block_sm90.cu) walk their own slices with
+// rows_mma, encode_halo and quad_transpose.
 //
 // One block per SM: a producer warpgroup and WGS consumer warpgroups (2, or
 // 1 where two consumers' halo parts do not fit beside the weights).
@@ -88,11 +90,12 @@ __host__ __device__ constexpr int smem_bytes(int n, int kr, int slices, int wgs,
 
 // Halo rows [H0, H1) of one 64-channel slice of a tile's K loop, read from
 // the part that holds them, straight-line (no branch between its wgmmas):
-// one group per (halo row hr, dx) of KS k16 A fragments, issued against
+// one group per (halo row hr, dx) of KS k16 A fragments (the slice's k16
+// steps KC0 .. KC0 + KS - 1), issued against
 // every output row hr - dy it feeds.  A is double buffered: group i+1
 // loads while group i's wgmmas run (wait_group 1); the call ends with every
 // wgmma retired, so none is in flight across the next barrier wait.
-template <int N, int KR, int KS, int H0, int H1>
+template <int N, int KR, int KS, int H0, int H1, int KC0 = 0>
 __device__ __forceinline__ void rows_mma(float (&acc)[KR][N / 2], uint32_t part,
                                          uint64_t wdesc, int warp, int lane) {
   constexpr int kTap = N * kLine;
@@ -107,7 +110,7 @@ __device__ __forceinline__ void rows_mma(float (&acc)[KR][N / 2], uint32_t part,
       const uint32_t line = (uint32_t)(hr - H0) * kHaloCols + warp * 16 + (lane & 15) + dx;
 #pragma unroll
       for (int kc = 0; kc < KS; ++kc) {
-        ldsm_x4(part + swz(line, 2 * kc + (lane >> 4)), a[b][kc]);
+        ldsm_x4(part + swz(line, 2 * (KC0 + kc) + (lane >> 4)), a[b][kc]);
       }
       wg_fence();
 #pragma unroll
@@ -117,7 +120,7 @@ __device__ __forceinline__ void rows_mma(float (&acc)[KR][N / 2], uint32_t part,
 #pragma unroll
         for (int kc = 0; kc < KS; ++kc) {
           wgmma_rs<N>(acc[r], a[b][kc],
-                      wdesc + (uint64_t)(((dy * 3 + dx) * kTap + kc * 32) >> 4));
+                      wdesc + (uint64_t)(((dy * 3 + dx) * kTap + (KC0 + kc) * 32) >> 4));
         }
       }
       wg_commit();
@@ -139,6 +142,26 @@ __device__ __forceinline__ void part_mma(float (&acc)[KR][N / 2], uint32_t part,
   } else {
     rows_mma<N, KR, 4, H0, H1>(acc, part, wdesc, warp, lane);
   }
+}
+
+// A 4 x 4 transpose of 32-bit words within a quad (lanes 4i..4i+3):
+// thread q ends with word[q] of each of the quad's threads, in thread
+// order.  Round i: each thread sends its word (q - i) & 3 and receives
+// thread (q + i) & 3's word q.  An epilogue so turns the accumulators'
+// channel pairs into 8 channels of one pixel (one 16-byte access), and back.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&word)[4], int q,
+                                                int lane) {
+  uint32_t got[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = (q - i) & 3;
+    const int from = (q + i) & 3;
+    const uint32_t send = k == 0 ? word[0] : k == 1 ? word[1] : k == 2 ? word[2] : word[3];
+    const uint32_t v = __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) got[m] = from == m ? v : got[m];
+  }
+  return make_uint4(got[0], got[1], got[2], got[3]);
 }
 
 // The whole kernel body: every thread of the block calls it.  wmat is the
@@ -277,16 +300,14 @@ __device__ __forceinline__ void halo_conv(const CUtensorMap& x_map,
 }
 
 // Encodes the halo's 4-D tensor map over channels [0, cin) of a plain
-// (N, h, w, c_in_total) bf16 buffer and launches `kernel` with WGS
-// consumers on `grid` blocks, `smem` bytes each.  Returns a cudaError_t
-// code.
-template <int KR, int WGS, class K, class... A>
-static int launch_halo(K kernel, const void* x, int n, int h, int w, int cin,
-                       int c_in_total, int grid, int smem, cudaStream_t stream,
-                       A... args) {
+// (N, h, w, c_in_total) bf16 buffer: boxes of 64 channels x 66 columns x
+// part_rows(KR) rows, the 128-byte swizzle, zero fill outside.  Returns a
+// cudaError_t code.
+template <int KR>
+static int encode_halo(CUtensorMap* map, const void* x, int n, int h, int w, int cin,
+                       int c_in_total) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap map;
   const cuuint64_t row = (cuuint64_t)c_in_total * 2;
   const cuuint64_t dims[4] = {(cuuint64_t)cin, (cuuint64_t)w, (cuuint64_t)h,
                               (cuuint64_t)n};
@@ -294,12 +315,25 @@ static int launch_halo(K kernel, const void* x, int n, int h, int w, int cin,
   const cuuint32_t box[4] = {(cuuint32_t)kSlice, (cuuint32_t)kHaloCols,
                              (cuuint32_t)part_rows(KR), 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
              strides, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaSuccess;
+}
+
+// Encodes the halo's map over channels [0, cin) of a plain (N, h, w,
+// c_in_total) bf16 buffer and launches `kernel` with WGS consumers on
+// `grid` blocks, `smem` bytes each.  Returns a cudaError_t code.
+template <int KR, int WGS, class K, class... A>
+static int launch_halo(K kernel, const void* x, int n, int h, int w, int cin,
+                       int c_in_total, int grid, int smem, cudaStream_t stream,
+                       A... args) {
+  CUtensorMap map;
+  const int code = encode_halo<KR>(&map, x, n, h, w, cin, c_in_total);
+  if (code != (int)cudaSuccess) return code;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -64,8 +64,8 @@ _SIGNATURES = {
     # x, out, wmat, bias, slope, leaky, n, h, w, cin, c_in_total, cout,
     # c_out_total, out_off, act, stream
     "uvt_conv3x3_fused_sm90": ([_P] * 5 + [ctypes.c_float] + [_I] * 9 + [_P], _I),
-    # x, out, wstream, bpack, n, h, w, slope, stream
-    "uvt_rdb_block_sm90": ([_P] * 4 + [_I] * 3 + [ctypes.c_float, _P], _I),
+    # x, out, wstream, bpack, scratch, c2f, n, h, w, slope, stream
+    "uvt_rdb_block_sm90": ([_P] * 6 + [_I] * 3 + [ctypes.c_float, _P], _I),
     # x, out, n, h, w, inv_h2, two_s2, stream
     "uvt_nl_means_sm90": ([_P] * 2 + [_I] * 3 + [ctypes.c_float] * 2 + [_P], _I),
     # src, dst, umat, bias, slope, n, h, w, cin, cout, act, stream

@@ -24,14 +24,19 @@ in order, that source's taps in ``(dy, dx, channel)`` order — the
 per-source slices of ``pack_rdb_weights`` in the JAX package (:160), here
 transposed to one row per output channel — then the
 1x1 skip transposed ``(32, 64)``; and the f32 biases ``b1..b5, b_skip``.
-The Hopper kernel reads the same values as one stream of weight blocks in
-the order it consumes them, each in the image its wgmma B descriptor reads
-(:func:`pack_rdb_weights_sm90`, :func:`sm90_blocks`).
+The Hopper kernels read the same values, each once, in the order their
+stages keep them resident (:func:`pack_rdb_weights_sm90`,
+:func:`sm90_blocks`): per stage and 32-column cout chunk, per 64-channel
+slice the stage walks (x, then c1|c2, then c3|c4; stage 2 c1 before x),
+per tap, 32 output lines of the slice's channels; c2's skip after stage
+2's slices.
 
 :func:`rdb_block` dispatches on the input's device: a CPU tensor takes
-:func:`rdb_block_plain`; a CUDA tensor launches the Hopper kernel
-``csrc/rdb_block_sm90.cu`` or raises.  ``rdb_block.launches`` and
-``rdb_block.launches_sm90`` both count its launches (one per call).
+:func:`rdb_block_plain`; a CUDA tensor launches ``csrc/rdb_block_sm90.cu``
+(one C call: five stage kernels on the current stream, over a bf16
+scratch for c1..c4 and an f32 one for c2, both ``torch.empty`` per call)
+or raises.  ``rdb_block.launches`` and ``rdb_block.launches_sm90`` both
+count its calls (one per dense block).
 """
 
 from __future__ import annotations
@@ -62,72 +67,74 @@ BPACK_NUMEL = SKIP_B_OFF + GC                    # 224
 MACS_PER_PIXEL = WPACK_NUMEL                     # one MAC per weight per pixel
 
 
+SCRATCH_CH = 4 * GC                              # c1..c4, bf16
+C2F_CH = GC                                      # c2 before rounding, f32
+STAGE_CHUNKS = (1, 1, 1, 1, NF // GC)            # 32-column cout chunks
+
+
+def sm90_slices(t: int) -> tuple:
+    """The 64-channel slices stage ``t`` (0..4 for c1..c5) walks, in order:
+    ``(first source, channels)`` (source 0 = x; ``s >= 1`` holds c_s and,
+    with 64 channels, c_{s+1}), then ``(-1, 64)`` for c2's 1x1 skip."""
+    if t == 1:
+        return ((1, GC), (0, NF), (-1, NF))
+    return ((0, NF),) + tuple((s, min(2, t + 1 - s) * GC)
+                              for s in range(1, t + 1, 2))
+
+
 class SM90Block(NamedTuple):
-    """One weight block of the Hopper kernel's stream: target ``t`` (0..4
-    for c1..c5), source ``s`` (0 = x) or -1 for c2's 1x1 skip, ``tap``
-    (dy*3+dx), source channels ``[k0, k0+k)``, ``n`` output channels;
-    ``n`` rows of ``k`` bf16 at element ``offset``, 16-byte chunks
-    XOR-swizzled by row (``k`` 64: the 128-byte swizzle, chunk ^ (row & 7);
-    ``k`` 32: the 64-byte swizzle, chunk ^ ((row >> 1) & 3))."""
+    """One block of the Hopper pack: stage ``t`` (0..4 for c1..c5), cout
+    chunk ``chunk`` (output channels ``32 * chunk`` ..), slice ``slice`` of
+    :func:`sm90_slices` with first source ``s`` (0 = x, -1 = c2's skip),
+    ``tap`` (dy*3+dx; 0 for the skip); ``32`` rows (output channels) of
+    ``k`` channels at element ``offset``, row-major."""
     t: int
+    chunk: int
+    slice: int
     s: int
     tap: int
-    k0: int
     k: int
-    n: int
     offset: int
 
 
 @functools.lru_cache(maxsize=1)
 def sm90_blocks() -> tuple:
-    """The blocks in the order the Hopper kernel consumes them: per target
-    c1..c5, per source x, c1, ..., per tap; c5's x taps in two 32-channel
-    halves (every block fits a 4 KB slot); c2's skip after c2's pieces."""
+    """The blocks in the order the Hopper stages copy them into shared
+    memory: per stage, per cout chunk, per slice, per tap."""
     out, off = [], 0
     for t in range(5):
-        n = WIDTHS[t]
-        for s in range(t + 1):
-            k = NF if s == 0 and t < 4 else GC
-            for tap in range(9):
-                for k0 in range(0, SOURCE_CH[s], k):
-                    out.append(SM90Block(t, s, tap, k0, k, n, off))
-                    off += n * k
-        if t == 1:
-            out.append(SM90Block(t, -1, 0, 0, NF, GC, off))
-            off += GC * NF
+        for chunk in range(STAGE_CHUNKS[t]):
+            for i, (s, k) in enumerate(sm90_slices(t)):
+                for tap in range(1 if s < 0 else 9):
+                    out.append(SM90Block(t, chunk, i, s, tap, k, off))
+                    off += GC * k
     assert off == WPACK_NUMEL
     return tuple(out)
-
-
-def sm90_swizzle(row, chunk, k: int):
-    """The physical 16-byte chunk of logical ``chunk`` in row ``row`` of a
-    block whose rows hold ``k`` bf16 values (ints or numpy arrays)."""
-    return chunk ^ ((row & 7) if k == NF else ((row >> 1) & 3))
 
 
 @functools.lru_cache(maxsize=1)
 def sm90_gather_index() -> torch.Tensor:
     """``wpack_sm90 = wpack[index]``: for each element of the Hopper
-    kernel's stream, its position in :func:`pack_rdb_weights`' ``wpack``."""
+    pack, its position in :func:`pack_rdb_weights`' ``wpack``."""
     idx = np.empty(WPACK_NUMEL, np.int64)
     for b in sm90_blocks():
-        rows = np.arange(b.n)[:, None, None]
-        chunk = np.arange(b.k // 8)[None, :, None]
-        elem = np.arange(8)[None, None, :]
-        ch = b.k0 + chunk * 8 + elem                 # source channel
+        row = np.arange(GC)[:, None]                 # output channel in chunk
+        kk = np.arange(b.k)[None, :]                 # channel in the slice
+        o = GC * b.chunk + row
         if b.s < 0:
-            src = SKIP_W_OFF + rows * NF + ch
+            src = SKIP_W_OFF + o * NF + kk
+        elif b.s == 0:
+            src = W_OFFS[b.t] + o * 9 * CINS[b.t] + b.tap * NF + kk
         else:
-            src = (W_OFFS[b.t] + rows * 9 * CINS[b.t] + 9 * SOURCE_OFF[b.s]
-                   + b.tap * SOURCE_CH[b.s] + ch)
-        phys = sm90_swizzle(rows, chunk, b.k)
-        dst = b.offset + rows * b.k + phys * 8 + elem
-        idx[dst.reshape(-1)] = np.broadcast_to(src, dst.shape).reshape(-1)
+            s = b.s + kk // GC                       # c_s, then c_{s+1}
+            src = (W_OFFS[b.t] + o * 9 * CINS[b.t] + 9 * np.take(SOURCE_OFF, s)
+                   + b.tap * GC + kk % GC)
+        idx[b.offset:b.offset + GC * b.k] = src.reshape(-1)
     return torch.from_numpy(idx)
 
 
 def pack_rdb_weights_sm90(wpack: torch.Tensor) -> torch.Tensor:
-    """:func:`pack_rdb_weights`' ``wpack`` as the Hopper kernel's stream
+    """:func:`pack_rdb_weights`' ``wpack`` as the Hopper stages' pack
     (:func:`sm90_blocks`): the same values, each once, moved."""
     if wpack.shape != (WPACK_NUMEL,):
         raise ValueError(f"wpack {tuple(wpack.shape)} != ({WPACK_NUMEL},)")
@@ -138,7 +145,7 @@ class RDBWeights(NamedTuple):
     wpack: torch.Tensor  # (WPACK_NUMEL,) in the compute dtype (bf16 for K5)
     bpack: torch.Tensor  # (BPACK_NUMEL,) f32
     slope: float         # the leaky slope of c1..c4 (the graph's, 0.2)
-    # wpack as the Hopper kernel's stream (bf16 packs only)
+    # wpack as the Hopper stages' pack (bf16 packs only)
     wpack_sm90: Optional[torch.Tensor] = None
 
 
@@ -237,10 +244,10 @@ def _check_shapes(x: torch.Tensor, weights: RDBWeights) -> None:
 
 
 def rdb_block(x: torch.Tensor, weights: RDBWeights) -> torch.Tensor:
-    """One fused dense block over ``x`` ``(N, H, W, 64)``: the plain version
-    for a CPU tensor, the Hopper kernel for a CUDA tensor (bf16 in, bf16
-    out, the weights' ``wpack_sm90`` stream); raises on what the kernel
-    does not take."""
+    """One dense block over ``x`` ``(N, H, W, 64)``: the plain version for a
+    CPU tensor, the Hopper stages for a CUDA tensor (bf16 in, bf16 out, the
+    weights' ``wpack_sm90`` pack); raises on what the kernels do not
+    take."""
     if x.device.type == "cpu":
         return rdb_block_plain(x, weights)
     if x.device.type != "cuda":
@@ -263,11 +270,17 @@ def rdb_block(x: torch.Tensor, weights: RDBWeights) -> torch.Tensor:
 
     n, h, w, _ = x.shape
     out = torch.empty_like(x)
+    # c1..c4 and c2's f32 value, from the caching allocator: every element
+    # is written before it is read, and both are free again on return
+    scratch = torch.empty((n, h, w, SCRATCH_CH), dtype=torch.bfloat16,
+                          device=x.device)
+    c2f = torch.empty((n, h, w, C2F_CH), dtype=torch.float32, device=x.device)
     build.launch(
         build.library().uvt_rdb_block_sm90, x.device,
         "uvt_rdb_block_sm90 launch",
         x.data_ptr(), out.data_ptr(), wstream.data_ptr(),
-        weights.bpack.data_ptr(), n, h, w, ctypes.c_float(weights.slope),
+        weights.bpack.data_ptr(), scratch.data_ptr(), c2f.data_ptr(), n, h, w,
+        ctypes.c_float(weights.slope),
     )
     rdb_block.launches += 1
     rdb_block.launches_sm90 += 1
