@@ -7,7 +7,8 @@ one configuration, traffic mix or metric is a file of its own, found by the
 name ``BENCHMARK.json`` gives it:
 
 - ``configs/<config>.json``: the model's published widths and how it is run;
-- ``models/<family>.py``: the family's ncnn graph and its plain forward;
+- ``models/<family>.py``: the family's ncnn graph and its plain forward
+  (and its own ``flops`` where the graph does not show all its work);
 - ``traffic/<traffic>.json``: resolution, contract, GPUs, source pool;
 - ``limits/<workload>.json``: the limits of the output comparison, with
   the readings they were set from;

@@ -18,10 +18,10 @@ from typing import Dict, List
 
 import numpy as np
 
-# the reference's work per run: frames sampled is this over a frame's conv
-# FLOPs, from 2 to 16, and at least a step's frames (2 Valar frames of
-# 1080p, 4 Compact ones under --tta), so that the float32 reference takes
-# less time than the window
+# the reference's work per run: frames sampled is this over a frame's
+# FLOPs (``Run.flops_per_frame``), from 2 to 16, and at least a step's
+# frames (2 Valar frames of 1080p, 4 Compact ones under --tta), so that the
+# float32 reference takes less time than the window
 CHECK_FLOPS = 40e12
 BLOCK = 32
 NUMBERS = ("rmse", "block_rmse")

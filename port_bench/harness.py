@@ -91,20 +91,7 @@ class Run:
         for d in self.devices:
             torch.zeros(1, device=d)
         self._mark("device_init")
-        self._tmp = tempfile.TemporaryDirectory(prefix="port_bench_")
-        self.tmp = self._tmp.name
-        self.layers = self.family.layers(cfg)
-        self.weights = ncnn.seeded_weights(self.layers, self.weight_seed,
-                                           self.dev, cfg["init"])
-        model_dir = os.path.join(self.tmp, "models")
-        os.makedirs(model_dir)
-        stem = os.path.join(model_dir, f"{cfg['upscale']}{cfg['model_file']}")
-        with open(stem + ".param", "w") as fh:
-            fh.write(ncnn.param_text(self.layers))
-        with open(stem + ".bin", "wb") as fh:
-            fh.write(ncnn.bin_bytes(self.layers, self.weights))
-        self.model_bytes = sum(os.path.getsize(stem + ext)
-                               for ext in (".param", ".bin"))
+        model_dir = self.write_model()
         self.pool = frames.pool(t, self.frame_seed, self.dev)
         if self.dev.type == "cuda":
             for d in self.devices:
@@ -134,13 +121,38 @@ class Run:
         self.workdir = os.path.join(self.tmp, "work")
         os.makedirs(self.workdir)
         self._mark("engine")
-        self.flops_per_frame = graph_conv_flops(
-            self.layers, t["height"], t["width"]) * (8 if t.get("tta") else 1)
         self._stage_log = logging.getLogger(STAGE_LOGGER)
         self._lines = _Lines()
         self._stage_log.addHandler(self._lines)
         self._stage_log.setLevel(logging.INFO)
         self._stage_log.propagate = False
+
+    def write_model(self) -> str:
+        """The configuration's graph, its seeded weights, its ``.param`` and
+        ``.bin`` in a new temporary directory, and the work of a frame
+        (``flops_per_frame``: the family's ``flops(cfg, height, width)``
+        where it defines one, else :func:`graph_conv_flops`; x8 under
+        ``--tta``).  Returns the directory that holds the model files."""
+        cfg, t = self.cfg, self.traffic
+        self._tmp = tempfile.TemporaryDirectory(prefix="port_bench_")
+        self.tmp = self._tmp.name
+        self.layers = self.family.layers(cfg)
+        self.weights = ncnn.seeded_weights(self.layers, self.weight_seed,
+                                           self.dev, cfg["init"])
+        model_dir = os.path.join(self.tmp, "models")
+        os.makedirs(model_dir)
+        stem = os.path.join(model_dir, f"{cfg['upscale']}{cfg['model_file']}")
+        with open(stem + ".param", "w") as fh:
+            fh.write(ncnn.param_text(self.layers))
+        with open(stem + ".bin", "wb") as fh:
+            fh.write(ncnn.bin_bytes(self.layers, self.weights))
+        self.model_bytes = sum(os.path.getsize(stem + ext)
+                               for ext in (".param", ".bin"))
+        count = getattr(self.family, "flops", None)
+        per_frame = (count(cfg, t["height"], t["width"]) if count else
+                     graph_conv_flops(self.layers, t["height"], t["width"]))
+        self.flops_per_frame = per_frame * (8 if t.get("tta") else 1)
+        return model_dir
 
     def loop(self, n_frames: int, keep=()) -> Recorder:
         """One call of the stream loop over ``n_frames`` frames, as one

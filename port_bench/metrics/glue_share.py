@@ -1,15 +1,18 @@
 """glue_share: device time in kernels that are not the port's own
 (``csrc/``: the plain torch glue of ``ops/pixel.py``, ``ops/yuv.py``,
-``ops/tiling.py``, casts, residual adds) over all kernel time, in %."""
+``ops/tiling.py``, casts, residual adds) over all kernel time, in %.
+
+A kernel is the port's when its name carries one of the port's C++
+namespaces, ``uvt::`` or ``uvt_<name>::``, as every ``__global__`` of
+``csrc/`` does (``void uvt_rdb_sm90::rdb_block_sm90_kernel<5>(...)``), so
+a kernel a later change adds in such a namespace counts without an edit
+here."""
 
 import re
 
 LAYER = "plain torch glue"
 MOVES = "fps"
-PORT_KERNELS = re.compile(
-    r"\b(?:chain_layer_(?:sm90_|narrow_)?kernel|conv3x3_fused(?:_sm90)?_kernel"
-    r"|q8_layer(?:_sm90)?_kernel|wino_layer(?:_sm90)?_kernel|nl_means_sm90"
-    r"|rdb_block_sm90_kernel|sr_tail(?:_plain)?(?:_sm90)?_kernel)\b")
+PORT_KERNELS = re.compile(r"\buvt(?:_\w+)?::")
 
 
 def read(run):

@@ -6,6 +6,22 @@ the port's ``load_model`` reads (the ``-m`` path users run);
 :func:`seeded_weights` makes the weights on the device from a seed.  The
 plain reference reads the same weights (``models/<family>.py``), never the
 port's copy of them.
+
+The weighted layer types and their ``.bin`` layout, in ncnn's order
+(``ModelBin::load``: a tagged block is a 4-byte tag then float16 values
+padded to 4 bytes; a raw block is float32 with no tag):
+
+- ``Convolution``, ``ConvolutionDepthWise``, ``Deconvolution``: tagged
+  ``weight`` ``(cout, cin / group, kh, kw)``, then with attr 5 a raw
+  ``bias`` ``(cout,)``.  Deconvolution's weight keeps ncnn's own order,
+  output channel first, which is not PyTorch's ``ConvTranspose2d`` order;
+- ``InnerProduct``: tagged ``weight`` ``(out, in)`` (attr 0 out, attr 2
+  its size), then with attr 1 a raw ``bias`` ``(out,)``;
+- ``PReLU``: raw ``slope`` ``(attr 0,)``;
+- ``LayerNorm``: with attr 2 (affine, 1 by default) raw ``gamma`` then
+  raw ``beta``, each ``(attr 0,)``;
+- ``MemoryData``: raw ``data``, attrs 0, 1, 2 its w, h, c (those not 0),
+  stored ``(c, h, w)``.
 """
 
 from __future__ import annotations
@@ -60,35 +76,56 @@ def param_text(layers: List[Layer]) -> str:
     return "\n".join(lines) + "\n"
 
 
+CONV_TYPES = ("Convolution", "ConvolutionDepthWise", "Deconvolution")
+TAGGED = CONV_TYPES + ("InnerProduct",)  # the weight is a float16-tagged block
+
+
 def conv_shape(layer: Layer):
-    """``(cout, cin, k, k)`` of a Convolution layer (its attrs 0, 1, 6)."""
-    cout, k = int(layer.attr(0)), int(layer.attr(1))
-    return cout, int(layer.attr(6)) // (cout * k * k), k, k
+    """``(cout, cin / group, kh, kw)`` of a Convolution,
+    ConvolutionDepthWise or Deconvolution layer (its attrs 0, 1, 11, 6)."""
+    cout, kw = int(layer.attr(0)), int(layer.attr(1))
+    kh = int(layer.attr(11, kw))
+    return cout, int(layer.attr(6)) // (cout * kh * kw), kh, kw
 
 
 def weight_shapes(layers: List[Layer]) -> Dict[str, Dict[str, tuple]]:
-    """Every weight the graph holds: a conv's ``weight`` (OIHW) and, with
-    attr 5, its ``bias``; a PReLU's ``slope``."""
+    """Every weight the graph holds, by layer and key, in the order the
+    ``.bin`` stores them (the module's docstring lists the types)."""
     out: Dict[str, Dict[str, tuple]] = {}
     for layer in layers:
-        if layer.type == "Convolution":
-            shape = conv_shape(layer)
-            out[layer.name] = {"weight": shape}
+        lt, shapes = layer.type, {}
+        if lt in CONV_TYPES:
+            shapes["weight"] = conv_shape(layer)
             if layer.attr(5):
-                out[layer.name]["bias"] = (shape[0],)
-        elif layer.type == "PReLU":
-            out[layer.name] = {"slope": (int(layer.attr(0, 1)),)}
+                shapes["bias"] = (int(layer.attr(0)),)
+        elif lt == "InnerProduct":
+            n = int(layer.attr(0))
+            shapes["weight"] = (n, int(layer.attr(2)) // n)
+            if layer.attr(1):
+                shapes["bias"] = (n,)
+        elif lt == "PReLU":
+            shapes["slope"] = (int(layer.attr(0, 1)),)
+        elif lt == "LayerNorm":
+            if layer.attr(2, 1):
+                shapes["gamma"] = shapes["beta"] = (int(layer.attr(0)),)
+        elif lt == "MemoryData":
+            dims = tuple(int(layer.attr(k)) for k in (2, 1, 0)
+                         if int(layer.attr(k)))
+            if dims:
+                shapes["data"] = dims
+        if shapes:
+            out[layer.name] = shapes
     return out
 
 
 def conv_init(init: dict, name: str, fan_in: int) -> dict:
-    """The initialisation of conv ``name`` under ``init``: its top-level
-    keys, then those of each rule whose ``match`` (a regular expression)
-    finds the name, later rules winning.  Keys: ``conv_std`` (the weights'
-    standard deviation) or ``conv_gain`` (that over ``sqrt(fan_in)``);
-    ``bias_gain`` likewise for the bias (the weights' own deviation by
-    default), or ``bias``, a constant; ``zero_mean``, each output channel's
-    weights less their mean."""
+    """The initialisation of conv or InnerProduct ``name`` under ``init``:
+    its top-level keys, then those of each rule whose ``match`` (a regular
+    expression) finds the name, later rules winning.  Keys: ``conv_std``
+    (the weights' standard deviation) or ``conv_gain`` (that over
+    ``sqrt(fan_in)``); ``bias_gain`` likewise for the bias (the weights' own
+    deviation by default), or ``bias``, a constant; ``zero_mean``, each
+    output channel's weights less their mean."""
     r = {k: v for k, v in init.items() if k not in ("rules", "prelu_slope")}
     for rule in init.get("rules", []):
         if re.search(rule["match"], name):
@@ -103,13 +140,19 @@ def conv_init(init: dict, name: str, fan_in: int) -> dict:
 
 def seeded_weights(layers: List[Layer], seed: int, device, init: dict
                    ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Weights of ``layers`` from ``seed`` on ``device``, in two calls of a
-    generator there: conv weights and biases normal, scaled per conv as
-    :func:`conv_init` says, PReLU slopes uniform in
-    ``init["prelu_slope"]``.  Conv weights are rounded to float16, as the
-    ``.bin`` stores them, so the port and the reference read the same
-    numbers."""
+    """Weights of ``layers`` from ``seed`` on ``device``, in at most two
+    calls of a generator there.  The first, normal, covers every weight
+    but PReLU slopes, in file order: conv and InnerProduct weights and
+    biases scaled per layer as :func:`conv_init` says over the weight's
+    fan-in; LayerNorm ``gamma`` ``1 + N(0, norm_std)`` and ``beta`` ``N(0,
+    norm_std)`` (``init["norm_std"]``, 0.1 by default: an affine part a
+    program drops shows); MemoryData ``N(0, data_std)`` (``init
+    ["data_std"]``, 0.02 by default).  The second, where the graph has a
+    PReLU, draws the slopes uniform in ``init["prelu_slope"]``.  Tagged
+    weights are rounded to float16, as the ``.bin`` stores them, so the
+    port and the reference read the same numbers."""
     shapes = weight_shapes(layers)
+    kinds = {layer.name: layer.type for layer in layers}
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     normal = [(n, k, s) for n, d in shapes.items() for k, s in d.items()
@@ -122,44 +165,50 @@ def seeded_weights(layers: List[Layer], seed: int, device, init: dict
     pos = 0
     for name, key, shape in normal:
         size = int(np.prod(shape))
-        wshape = shapes[name]["weight"]
-        how = conv_init(init, name, int(np.prod(wshape[1:])))
         v = flat[pos:pos + size].reshape(shape)
-        if key == "weight":
-            if how["zero_mean"]:
-                v = v - v.mean(dim=(1, 2, 3), keepdim=True)
-            v = (v * how["weight"]).to(torch.float16).to(torch.float32)
-        elif how["fill"] is not None:
-            v = torch.full_like(v, float(how["fill"]))
+        if kinds[name] == "LayerNorm":
+            v = v * init.get("norm_std", 0.1) + (1.0 if key == "gamma" else 0.0)
+        elif kinds[name] == "MemoryData":
+            v = v * init.get("data_std", 0.02)
         else:
-            v = v * how["bias"]
+            wshape = shapes[name]["weight"]
+            how = conv_init(init, name, int(np.prod(wshape[1:])))
+            if key == "weight":
+                if how["zero_mean"]:
+                    v = v - v.mean(dim=tuple(range(1, v.dim())), keepdim=True)
+                v = (v * how["weight"]).to(torch.float16).to(torch.float32)
+            elif how["fill"] is not None:
+                v = torch.full_like(v, float(how["fill"]))
+            else:
+                v = v * how["bias"]
         out[name][key] = v
         pos += size
-    lo, hi = init["prelu_slope"]
-    total = sum(int(np.prod(s)) for _, _, s in slopes)
-    flat = torch.rand(total, generator=gen, device=device) * (hi - lo) + lo
-    pos = 0
-    for name, key, shape in slopes:
-        size = int(np.prod(shape))
-        out[name][key] = flat[pos:pos + size].reshape(shape)
-        pos += size
+    if slopes:
+        lo, hi = init["prelu_slope"]
+        total = sum(int(np.prod(s)) for _, _, s in slopes)
+        flat = torch.rand(total, generator=gen, device=device) * (hi - lo) + lo
+        pos = 0
+        for name, key, shape in slopes:
+            size = int(np.prod(shape))
+            out[name][key] = flat[pos:pos + size].reshape(shape)
+            pos += size
     return out
 
 
 def bin_bytes(layers: List[Layer], weights: Dict[str, Dict[str, torch.Tensor]]
               ) -> bytes:
-    """The ``.bin`` bytes: per conv a float16-tagged OIHW weight block
-    (padded to 4 bytes) then its float32 bias; per PReLU its float32
-    slopes."""
+    """The ``.bin`` bytes, layer by layer in file order and each layer's
+    weights in the order :func:`weight_shapes` gives: a conv's or an
+    InnerProduct's ``weight`` as a float16-tagged block (padded to 4
+    bytes), every other weight raw float32."""
     out = bytearray()
     for layer in layers:
-        w = weights.get(layer.name)
-        if layer.type == "Convolution":
-            payload = w["weight"].detach().cpu().numpy().astype("<f2").tobytes()
-            out += struct.pack("<I", TAG_F16) + payload
-            out += b"\x00" * ((-len(payload)) % 4)
-            if "bias" in w:
-                out += w["bias"].detach().cpu().numpy().astype("<f4").tobytes()
-        elif layer.type == "PReLU":
-            out += w["slope"].detach().cpu().numpy().astype("<f4").tobytes()
+        for key in weight_shapes([layer]).get(layer.name, {}):
+            v = weights[layer.name][key].detach().cpu().numpy()
+            if key == "weight" and layer.type in TAGGED:
+                payload = v.astype("<f2").tobytes()
+                out += struct.pack("<I", TAG_F16) + payload
+                out += b"\x00" * ((-len(payload)) % 4)
+            else:
+                out += v.astype("<f4").tobytes()
     return bytes(out)
