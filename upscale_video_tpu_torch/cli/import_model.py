@@ -2,7 +2,9 @@
 
 Port of ``upscale_video_tpu/cli/import_model.py`` (``vsr-import``): the
 same flags and output naming, through the port's importer, and the printed
-command runs ``upscale-video-torch``.  The notes below are the original's.
+command runs ``upscale-video-torch``; it imports SwinIR too, whose files
+hold the port's ``WindowAttention`` layer, which only the port loads.  The
+notes below are the original's.
 
 The reference's upstream ecosystem distributes most checkpoints as torch
 state_dicts; reference users need external converter tools to produce the
@@ -32,8 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", "--input", required=True,
                    help="torch checkpoint (.pth): SRVGGNetCompact, basicsr "
                         "RRDBNet (incl. the pixel-unshuffle x2/x1 "
-                        "variants), or old-architecture ESRGAN "
-                        "(model.1.sub.N.RDBx keys).")
+                        "variants), old-architecture ESRGAN "
+                        "(model.1.sub.N.RDBx keys), or SwinIR "
+                        "(3conv, nearest+conv: the real-world SR models).")
     p.add_argument("-o", "--output_dir", required=True,
                    help="Directory for the .param/.bin files.")
     p.add_argument("--stem", help="Output stem suffix (default: the input "

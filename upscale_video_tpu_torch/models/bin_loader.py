@@ -22,7 +22,8 @@ Tagged weight blocks (ncnn "auto" storage, used for conv weights):
   - ``0x0002C056``: raw float32 (alternate tag)
   - anything else: uint8 indices into a 1024-byte (256 x f32) dequant table
 
-Untagged blocks (biases, PReLU slopes) are raw float32.
+Untagged blocks (biases, PReLU slopes, LayerNorm's gamma and beta,
+MemoryData) are raw float32.
 
 Weights are returned in **HWIO layout** (kh, kw, in_ch, out_ch) — the native
 layout for NHWC convolutions on TPU — converted from ncnn's flattened
@@ -101,6 +102,12 @@ def _infer_conv_in_channels(layer: NcnnLayer) -> Optional[int]:
     return wsize // denom
 
 
+def _memorydata_shape(layer: NcnnLayer) -> tuple:
+    """A MemoryData's ``(c, h, w)`` (attrs 2, 1, 0), less the sizes that
+    are 0."""
+    return tuple(layer.attr_i(k) for k in (2, 1, 0) if layer.attr_i(k))
+
+
 def load_weights(graph: NcnnGraph, data: bytes, strict: bool = True) -> Dict[str, Dict[str, np.ndarray]]:
     """Read a .bin byte string against ``graph``; returns params pytree.
 
@@ -109,6 +116,8 @@ def load_weights(graph: NcnnGraph, data: bytes, strict: bool = True) -> Dict[str
       - ConvolutionDepthWise: ``{"weight": HWIO-grouped, "bias"}``
       - PReLU: ``{"slope": [C] f32}``
       - InnerProduct: ``{"weight": [in, out] f32, "bias": [out]?}``
+      - LayerNorm (affine): ``{"gamma": [C] f32, "beta": [C] f32}``, raw
+      - MemoryData: ``{"data": (c, h, w) f32}`` (sizes 0 dropped), raw
 
     With ``strict=True`` raises if trailing bytes remain unconsumed.
     """
@@ -157,6 +166,15 @@ def load_weights(graph: NcnnGraph, data: bytes, strict: bool = True) -> Dict[str
             params[layer.name] = {"weight": flat.reshape(out_n, in_n).T.copy()}
             if layer.attr_i(1):
                 params[layer.name]["bias"] = r.read_raw_f32(out_n)
+        elif layer.type == "LayerNorm" and layer.attr_i(2, 1):
+            n = layer.attr_i(0)
+            params[layer.name] = {"gamma": r.read_raw_f32(n),
+                                  "beta": r.read_raw_f32(n)}
+        elif layer.type == "MemoryData":
+            dims = _memorydata_shape(layer)
+            if dims:
+                params[layer.name] = {
+                    "data": r.read_raw_f32(int(np.prod(dims))).reshape(dims)}
         # all other layer types carry no weights
 
     if strict and r.remaining:
@@ -204,8 +222,9 @@ def emit_bin(
 ) -> bytes:
     """Serialize params back into ncnn .bin bytes (test fixture generator).
 
-    Inverse of :func:`load_weights` for the Convolution/PReLU subset; used
-    to synthesize loader test fixtures without copying reference binaries.
+    Inverse of :func:`load_weights` for the Convolution, PReLU, LayerNorm
+    and MemoryData subset; used to synthesize loader test fixtures without
+    copying reference binaries, and by ``vsr-import-torch``.
     """
     out = bytearray()
     for layer in graph.layers:
@@ -225,4 +244,8 @@ def emit_bin(
                 out += entry["bias"].astype("<f4").tobytes()
         elif layer.type == "PReLU":
             out += params[layer.name]["slope"].astype("<f4").tobytes()
+        elif layer.type in ("LayerNorm", "MemoryData") \
+                and layer.name in params:
+            for v in params[layer.name].values():  # gamma, beta; data
+                out += np.asarray(v).astype("<f4").tobytes()
     return bytes(out)

@@ -36,6 +36,13 @@ walk on generic ops alone, the aten route; ``rdb`` adds K5 alone;
 no K1 chain, each conv's output channels split over the GPUs of a mesh,
 one K4 launch per GPU at its slice, then :func:`exchange_channels`.
 
+A SwinIR graph (``WindowAttention``, ``models/param_parser.py``'s
+dialect) takes the graph walk too: each ``Permute(3) -> LayerNorm ->
+Permute(4)`` is one LayerNorm over the NHWC blob's channels, each 1x1 conv
+of its token stream one GEMM, and the attention one op
+(:mod:`upscale_video_tpu_torch.ops.swin`); its ranges ``swin.*`` are
+profiler ranges while a profiler records.
+
 A layer type outside the op set raises ``NotImplementedError``; nothing
 falls back.
 """
@@ -47,11 +54,14 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.autograd.profiler import record_function
 
 import torch.nn.functional as F
 
 from upscale_video_tpu_torch.models.bin_loader import _infer_conv_in_channels
-from upscale_video_tpu_torch.models.ops import OP_REGISTRY, conv_geometry
+from upscale_video_tpu_torch.models.ops import (
+    OP_REGISTRY, apply_activation, conv_geometry,
+)
 from upscale_video_tpu_torch.models.param_parser import NcnnGraph, NcnnLayer
 from upscale_video_tpu_torch.ops.common import (
     ACT_LEAKY, ACT_NONE, ACT_PRELU, ACT_RELU,
@@ -62,10 +72,12 @@ from upscale_video_tpu_torch.ops.conv_chain import (
 )
 from upscale_video_tpu_torch.ops.pixel import frames_to_planar, model_to_frames
 from upscale_video_tpu_torch.ops.rdb import RDBWeights, pack_rdb_weights, rdb_block
+from upscale_video_tpu_torch.ops.swin import token_linear, token_norm
 from upscale_video_tpu_torch.ops.tail import (
     LAYOUTS, pack_tail_weights, sr_tail_chain, sr_tail_fused,
 )
 from upscale_video_tpu_torch.ops.yuv import yuv420_from_planar
+from upscale_video_tpu_torch.utils.trace import profiling
 
 log = logging.getLogger(__name__)
 
@@ -683,6 +695,131 @@ def _plan_dense_buffers(graph: NcnnGraph, consumers: Dict[str, List[int]],
     return plan, absorbed
 
 
+# ncnn Permute order types: (c, h, w) -> (h, w, c), and back
+TO_TOKENS, FROM_TOKENS = 3, 4
+TOKEN_OPS = ("WindowAttention", "GELU")
+
+
+def has_window_attention(graph: NcnnGraph) -> bool:
+    return any(layer.type == "WindowAttention" for layer in graph.layers)
+
+
+def _plan_token_norms(graph: NcnnGraph, consumers: Dict[str, List[int]]):
+    """Each ``Permute(3) -> LayerNorm -> Permute(4)`` in which each layer
+    alone consumes the one before: ncnn's LayerNorm over the innermost
+    axis of the (h, w, c) view, which is a LayerNorm over each pixel's
+    channels, the last axis of the NHWC blob as it is.  Returns ``({first
+    Permute's name: {"norm", "eps", "size", "out"}}, absorbed)``; a Permute
+    or LayerNorm outside such a pattern raises (the graph walk keeps no
+    ncnn axis order to permute)."""
+    plans: Dict[str, dict] = {}
+    absorbed: set = set()
+
+    def only(blob: str, kind: str) -> Optional[NcnnLayer]:
+        cons = consumers.get(blob, [])
+        layer = graph.layers[cons[0]] if len(cons) == 1 else None
+        return layer if layer is not None and layer.type == kind else None
+
+    for layer in graph.layers:
+        if layer.type != "Permute" or layer.attr_i(0) != TO_TOKENS:
+            continue
+        norm = only(layer.outputs[0], "LayerNorm")
+        back = norm and only(norm.outputs[0], "Permute")
+        if back is None or back.attr_i(0) != FROM_TOKENS:
+            continue
+        plans[layer.name] = {"norm": norm.name, "eps": norm.attr_f(1, 0.001),
+                             "size": norm.attr_i(0), "out": back.outputs[0]}
+        absorbed |= {norm.name, back.name}
+    stray = [layer.name for layer in graph.layers
+             if layer.type in ("Permute", "LayerNorm")
+             and layer.name not in plans and layer.name not in absorbed]
+    if stray:
+        raise NotImplementedError(
+            f"Permute/LayerNorm outside a Permute(3) -> LayerNorm -> "
+            f"Permute(4) token norm: {stray}")
+    return plans, absorbed
+
+
+def _plan_token_linears(graph: NcnnGraph, consumers: Dict[str, List[int]],
+                        token_blobs: set) -> Dict[str, dict]:
+    """The 1x1 stride-1 convs of a token stream, which run as GEMMs
+    (:func:`~upscale_video_tpu_torch.ops.swin.token_linear`): those that
+    read a token norm's output or a ``WindowAttention``'s or ``GELU``'s
+    (``token_blobs``), or feed one of those two.  Returns ``{conv name:
+    {"act", "slope_attr"}}``."""
+    out = {}
+    for layer in graph.layers:
+        if _dense_conv_class(layer) != "1x1":
+            continue
+        feeds = {graph.layers[c].type for c in consumers.get(layer.outputs[0], [])}
+        if layer.inputs[0] in token_blobs or feeds & set(TOKEN_OPS):
+            out[layer.name] = {"act": layer.attr_i(9, 0),
+                               "slope_attr": layer.attr(10, [])}
+    return out
+
+
+def _swin_spans(graph: NcnnGraph, consumers: Dict[str, List[int]],
+                norm_layers: set) -> Dict[int, str]:
+    """Layer index -> the profiler range it runs in, for a graph with a
+    ``WindowAttention`` (else empty): ``swin.norm`` the token norms;
+    ``swin.attn`` each attention with its ``qkv`` and table producers, its
+    ``proj`` and the add after it; ``swin.mlp`` each GELU with ``fc1``,
+    ``fc2`` and the add after it; ``swin.embed`` what comes before the
+    first norm, ``swin.tail`` what comes after the last, ``swin.rstb_conv``
+    the rest (each RSTB's convs and its residual add)."""
+    if not has_window_attention(graph):
+        return {}
+    index = {layer.name: i for i, layer in enumerate(graph.layers)}
+    producer = {b: i for i, layer in enumerate(graph.layers)
+                for b in layer.outputs}
+    spans = {index[n]: "swin.norm" for n in norm_layers}
+
+    def after(i: int) -> List[int]:
+        return [c for b in graph.layers[i].outputs for c in consumers.get(b, [])]
+
+    for i, layer in enumerate(graph.layers):
+        if layer.type not in TOKEN_OPS:
+            continue
+        name = "swin.attn" if layer.type == "WindowAttention" else "swin.mlp"
+        around = [producer[b] for b in layer.inputs if b in producer]
+        for j in after(i):  # proj or fc2, then the residual add
+            around += [j] + [k for k in after(j)
+                             if graph.layers[k].type == "BinaryOp"]
+        for j in [i] + around:
+            spans[j] = name
+    at = [index[n] for n in norm_layers]
+    first, last = min(at), max(at)
+    for i in range(len(graph.layers)):
+        if i not in spans:
+            spans[i] = ("swin.embed" if i < first else "swin.tail" if i > last
+                        else "swin.rstb_conv")
+    return spans
+
+
+class _Ranges:
+    """Consecutive layers of one span name in one profiler range, opened
+    only while a profiler records (:func:`~upscale_video_tpu_torch.utils.
+    trace.profiling`)."""
+
+    def __init__(self, spans: Dict[int, str]):
+        self.spans = spans if spans and profiling() else {}
+        self.name, self.range = None, None
+
+    def at(self, i: int) -> None:
+        name = self.spans.get(i)
+        if name != self.name:
+            self.close()
+            self.name = name
+            if name is not None:
+                self.range = record_function(name)
+                self.range.__enter__()
+
+    def close(self) -> None:
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        self.name, self.range = None, None
+
+
 class GraphForward(nn.Module):
     """Stateless forward of a graph that is not one K1 chain + K2 tail (the
     RRDBNet family, the 1x SRVGG anime model, wide or one-conv SRVGG
@@ -725,7 +862,19 @@ class GraphForward(nn.Module):
       results flow on in f32 (``_spine_cast``, executor.py:1214); the next
       conv or dense block rounds its own input to bf16.
     - A graph with a Reorg of stride r edge-pads the input's H and W to
-      multiples of r and crops the output back (executor.py:1222-1241).
+      multiples of r and crops the output back (executor.py:1222-1241);
+      one with a ``WindowAttention`` reflect-pads them to whole windows,
+      as SwinIR does.
+    - A token stream (SwinIR): each ``Permute(3) -> LayerNorm ->
+      Permute(4)`` (:func:`_plan_token_norms`) is one LayerNorm over the
+      blob's last axis, rounded to the compute dtype; each 1x1 conv that
+      reads a norm's, an attention's or a GELU's output, or feeds an
+      attention or a GELU (:func:`_plan_token_linears`), one ``F.linear``
+      in the compute dtype with its bias (``blin``, made by
+      :meth:`prepare`), on every route and precision; the window
+      attention, GELU and MemoryData are generic ops.  Consecutive layers
+      of one part of the model (:func:`_swin_spans`) run inside one
+      profiler range while a profiler records.
     - The JAX executor's canvas-eltwise branch (executor.py:1492) needs a
       canvas on every combine operand; an RRDB's skip operand never has
       one, so on the Valar graph every combine takes the generic path,
@@ -746,7 +895,8 @@ class GraphForward(nn.Module):
         super().__init__()
         if emit not in self.EMITS:
             raise ValueError(f"emit {emit!r} not in {self.EMITS}")
-        unsupported = sorted({l.type for l in graph.layers} - set(OP_REGISTRY))
+        unsupported = sorted({l.type for l in graph.layers} - set(OP_REGISTRY)
+                             - {"Permute", "LayerNorm"})
         if unsupported:
             raise NotImplementedError(
                 f"unsupported ncnn layer types for the port: {unsupported}")
@@ -757,6 +907,13 @@ class GraphForward(nn.Module):
         consumers = _consumers(graph)
         fused = compute_dtype != torch.float32
         self.kernels = kernels and fused
+        self.norms, norm_absorbed = _plan_token_norms(graph, consumers)
+        self.token_linears = _plan_token_linears(
+            graph, consumers,
+            {n["out"] for n in self.norms.values()}
+            | {b for l in graph.layers if l.type in TOKEN_OPS for b in l.outputs})
+        self.spans = _swin_spans(graph, consumers,
+                                 set(self.norms) | norm_absorbed)
         found = _find_tail(graph, consumers)
         if emit in ("planar", "yuv420") and found is None:
             raise ValueError(f"emit {emit!r} needs the SRVGG shuffle tail")
@@ -787,13 +944,15 @@ class GraphForward(nn.Module):
         self.dense_adds = {d["post_add"]: (d["block"], d["out_off"])
                            for d in self.dense.values() if d.get("post_add")}
         self.absorbed = (self.rdb_absorbed | self.chain_absorbed
-                         | dense_absorbed
+                         | dense_absorbed | norm_absorbed
                          | (tail_names - {self.tail["conv"]} if self.tail
                             else set())
                          | {s["prelu"] for s in self.solos.values()
                             if s["prelu"]})
         self.reorg_mod = max([l.attr_i(0, 1) for l in graph.layers
                               if l.type == "Reorg"] or [1])
+        self.window_mod = max([l.attr_i(1, 1) for l in graph.layers
+                               if l.type == "WindowAttention"] or [1])
         self.last_use: Dict[str, int] = {}
         for i, layer in enumerate(graph.layers):
             for b in layer.inputs:
@@ -807,14 +966,19 @@ class GraphForward(nn.Module):
 
     def prepare(self, state: nn.ModuleDict) -> None:
         """Add each dense block's packed K5 weights to ``state`` under its
-        trigger's name (the trigger Eltwise has no weights of its own), and
-        each chain's narrow-kernel weights (:func:`pack_chain_weights`).
+        trigger's name (the trigger Eltwise has no weights of its own),
+        each chain's narrow-kernel weights (:func:`pack_chain_weights`) and
+        each token linear's bias in the compute dtype (``blin``).
         Called at plan time (``Model.frames_forward``), where a second
         layout's forward finds them packed; :meth:`forward` only reads them."""
         from upscale_video_tpu_torch.models.zoo import LayerWeights
 
         for chain in self.chains.values():
             pack_chain_weights(chain["items"], state)
+        for name in self.token_linears:
+            lw = state[name]
+            if not hasattr(lw, "blin"):
+                lw.register_buffer("blin", lw.bias.to(self.compute_dtype))
         for name, block in self.rdb_triggers.items():
             if name in state:
                 continue
@@ -841,8 +1005,10 @@ class GraphForward(nn.Module):
         x, in_hw = self.pad_input(x.to(self.device))
         blobs: Dict[str, torch.Tensor] = {graph.input_blobs[0]: x.to(cd)}
         dense_bufs: Dict[int, torch.Tensor] = {}  # block -> its shared buffer
+        ranges = _Ranges(self.spans)
 
         for i, layer in enumerate(graph.layers):
+            ranges.at(i)
             if layer.type == "Input":
                 continue
             block = self.rdb_triggers.get(layer.name)
@@ -884,22 +1050,39 @@ class GraphForward(nn.Module):
                     blobs[self.tail["skip_blob"]].to(cd).contiguous(),
                     tw.wmat, tw.bias, self.tail["scale"], self.emit,
                     full_range)
+            elif layer.name in self.norms:
+                norm = self.norms[layer.name]
+                p = state[norm["norm"]] if norm["norm"] in state else None
+                blobs[norm["out"]] = token_norm(
+                    blobs[layer.inputs[0]], norm["size"],
+                    getattr(p, "gamma", None), getattr(p, "beta", None),
+                    norm["eps"], cd)
+            elif layer.name in self.token_linears:
+                lin, lw = self.token_linears[layer.name], state[layer.name]
+                y = token_linear(blobs[layer.inputs[0]].to(cd), lw.wmat, lw.blin)
+                blobs[layer.outputs[0]] = apply_activation(
+                    y, lin["act"], lin["slope_attr"])
             elif layer.name not in self.absorbed:
                 self.run_op(layer, blobs, state, dense_bufs)
             self.free(i, layer, blobs)
+        ranges.close()
         y = self.finish(blobs[graph.output_blobs[0]], tuple(x.shape[1:3]),
                         in_hw, full_range)
         return y[0] if squeeze else y
 
     def pad_input(self, x: torch.Tensor):
-        """``x`` edge-padded to the Reorg stride's multiples, and its
-        ``(H, W)`` before (executor.py:1222-1241)."""
-        in_h, in_w = x.shape[1], x.shape[2]
-        mod_h, mod_w = (-in_h) % self.reorg_mod, (-in_w) % self.reorg_mod
-        if mod_h or mod_w:
-            x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
-                      mode="replicate").permute(0, 2, 3, 1)
-        return x, (in_h, in_w)
+        """``x`` edge-padded to the Reorg stride's multiples
+        (executor.py:1222-1241), then reflect-padded to the attention
+        window's (SwinIR's ``check_image_size``), and its ``(H, W)``
+        before."""
+        in_hw = (x.shape[1], x.shape[2])
+        for mod, mode in ((self.reorg_mod, "replicate"),
+                          (self.window_mod, "reflect")):
+            mod_h, mod_w = (-x.shape[1]) % mod, (-x.shape[2]) % mod
+            if mod_h or mod_w:
+                x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
+                          mode=mode).permute(0, 2, 3, 1)
+        return x, in_hw
 
     def free(self, i: int, layer: NcnnLayer, blobs: dict) -> None:
         """Drop the blobs whose last use is layer ``i``."""
@@ -1029,6 +1212,10 @@ class TensorParallelForward(nn.Module):
                  compute_dtype: torch.dtype, residual_dtype, emit: str,
                  kernels: bool = True, rdb: bool = False):
         super().__init__()
+        if has_window_attention(graph):
+            raise NotImplementedError(
+                "--parallel tp splits each conv's output channels; a graph "
+                "with a WindowAttention (SwinIR) is not split: use dp")
         self.plan = plan = GraphForward(graph, devices[0], compute_dtype,
                                         residual_dtype, emit, kernels, rdb,
                                         chains=False)

@@ -8,6 +8,8 @@ each op takes ``(layer, inputs, p, compute_dtype)`` as its JAX counterpart
 does, with NHWC tensors, and ``p`` is the layer's weight module from
 :func:`upscale_video_tpu_torch.models.zoo.params_from_jax` (``wmat`` in the
 compute dtype, ``bias`` f32; ``wflat`` for a ConvolutionDepthWise).
+``MemoryData``, ``GELU`` and the port's ``WindowAttention`` (SwinIR) have
+no JAX counterpart.
 
 A Convolution here is an ``F.conv2d`` in f32 (TF32 off) from compute-dtype
 operands, + the f32 bias and its fused activation in f32, rounded once to
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from upscale_video_tpu_torch.models.param_parser import NcnnLayer
 from upscale_video_tpu_torch.ops.conv_chain import no_tf32
+from upscale_video_tpu_torch.ops.swin import window_attention
 
 # CHW axis -> NHWC axis (Concat attribute 0)
 _CHW_TO_NHWC = {0: 3, 1: 1, 2: 2}
@@ -334,6 +337,29 @@ def op_dropout(layer: NcnnLayer, inputs, p, compute_dtype):
     return inputs[0] if scale == 1.0 else inputs[0] * _scalar(scale, inputs[0])
 
 
+def op_memorydata(layer: NcnnLayer, inputs, p, compute_dtype):
+    """ncnn MemoryData: its weights as a blob, f32, shaped ``(c, h, w)``
+    less the sizes that are 0 (an RGB mean ``(3,)``, a bias table ``(h,
+    w)``).  A ``(c,)`` blob broadcasts over an NHWC blob's channels, as
+    ncnn's BinaryOp broadcasts a 1-D operand over a 3-D one's."""
+    return p.data
+
+
+def op_gelu(layer: NcnnLayer, inputs, p, compute_dtype):
+    """ncnn GELU: the exact (erf) form, the tanh form with attr 0 set."""
+    return F.gelu(inputs[0], approximate="tanh" if layer.attr_i(0, 0) else "none")
+
+
+def op_window_attention(layer: NcnnLayer, inputs, p, compute_dtype):
+    """The port's ``WindowAttention`` (attr 0 heads, 1 window, 2 shift;
+    inputs the ``qkv`` blob and the bias table's MemoryData):
+    :func:`~upscale_video_tpu_torch.ops.swin.window_attention` in the
+    compute dtype."""
+    qkv, table = inputs
+    return window_attention(qkv.to(compute_dtype), table, layer.attr_i(0),
+                            layer.attr_i(1), layer.attr_i(2, 0))
+
+
 OP_REGISTRY: Dict[str, Callable] = {
     "Input": op_identity,
     "Split": op_split,
@@ -351,4 +377,7 @@ OP_REGISTRY: Dict[str, Callable] = {
     "Dropout": op_dropout,
     "Noop": op_identity,
     "Reorg": op_reorg,
+    "MemoryData": op_memorydata,
+    "GELU": op_gelu,
+    "WindowAttention": op_window_attention,
 }

@@ -19,6 +19,28 @@ Format (observed from the model zoo files themselves):
   ``count,v1,v2,...`` (e.g. ``-23310=1,2.000000e-01`` is array attr 10 with
   one float, the leaky-relu slope fused into Convolution layers in
   ``models/4x_Valar_v1.param``).
+
+The dialect the port reads beyond the reference's models (SwinIR,
+``models/zoo.py:make_swinir_graph``; ``vsr-import-torch`` writes it):
+
+- ``MemoryData`` (attrs 0 w, 1 h, 2 c): a constant blob from the ``.bin``
+  (raw float32, ``(c, h, w)`` less the sizes that are 0): the RGB mean
+  ``(3,)``, which a ``BinaryOp`` applies per channel, and each block's
+  relative-position bias table ``((2w-1)^2, heads)``;
+- ``Permute`` (attr 0 order type: 3 (c, h, w) -> (h, w, c), 4 back) and
+  ``LayerNorm`` (0 affine size, 1 eps, 2 affine; raw float32 gamma then
+  beta), stock ncnn: the port takes them only as ``Permute(3) ->
+  LayerNorm -> Permute(4)``, a LayerNorm over each pixel's channels;
+- ``GELU`` (attr 0 fast_gelu: 0 the exact erf form), stock ncnn;
+- token linears as stock 1x1 ``Convolution`` layers on the map;
+- ``WindowAttention``, the port's own, weightless: inputs the ``qkv``
+  map ``(3C, h, w)`` (channel ``s*C + head*d + i`` for ``s`` in q, k, v)
+  and the bias table; attrs 0 heads, 1 window, 2 shift; output the
+  ``(C, h, w)`` map before ``proj``.  SwinIR's shifted-window attention:
+  the map rolled by ``-shift``, windows of ``window`` x ``window``,
+  ``softmax(q k^T / sqrt(d) + B[idx] + M) v`` per window and head with
+  the relative index and shift mask computed from its attrs and the map
+  size, merged and rolled back.
 """
 
 from __future__ import annotations

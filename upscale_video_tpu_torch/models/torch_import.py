@@ -11,6 +11,17 @@ Supported architectures (detected from state_dict keys):
 - **SRVGGNetCompact** (``body.{2i}``/``body.{2i+1}`` conv/PReLU pairs +
   final conv + PixelShuffle + nearest skip) at any width: the Compact
   family, ``realesr-animevideov3.pth`` and its kin.
+- **SwinIR** (``JingyunLiang/SwinIR`` naming: ``conv_first``,
+  ``patch_embed.norm``, ``layers.{i}.residual_group.blocks.{j}.{norm1,
+  attn.qkv, attn.relative_position_bias_table, attn.proj, norm2, mlp.fc1,
+  mlp.fc2}``, ``layers.{i}.conv.{0,2,4}``, ``norm``, ``conv_after_body
+  .{0,2,4}``, ``conv_before_upsample.0``, ``conv_up1/2``, ``conv_hr``,
+  ``conv_last``) with ``resi_connection='3conv'`` and ``upsampler=
+  'nearest+conv'``, the real-world SR models (SwinIR-L x4 among them), as
+  ``make_swinir_graph``'s graph; the ``attn_mask`` and
+  ``relative_position_index`` buffers are not weights (the graph walk
+  computes both), and the RGB mean, an attribute outside the state dict,
+  is SwinIR's ``(0.4488, 0.4371, 0.4040)``.
 - **RRDBNet** (basicsr naming: ``conv_first``, ``body.{i}.rdb{j}.conv{k}``,
   ``conv_body``, ``conv_up1/2``, ``conv_hr``, ``conv_last``), e.g.
   ``RealESRGAN_x4plus.pth``, including the pixel-unshuffle x2/x1 variants
@@ -22,7 +33,8 @@ Channel domain: torch checkpoints are trained on RGB tensors, while the
 model domain is BGR (ncnn ``from_pixels(PIXEL_BGR)``).  The import folds
 the swap into the weights: the first conv's input channels and the last
 conv's output channels (per PixelShuffle block of ``r*r`` for SRVGG) are
-permuted, so the model equals the torch forward under the BGR<->RGB flip.
+permuted, so the model equals the torch forward under the BGR<->RGB flip
+(SwinIR's mean too).
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ import numpy as np
 import torch
 
 from upscale_video_tpu_torch.models.zoo import (
-    Model, make_rrdb_graph, make_srvgg_graph,
+    Model, make_rrdb_graph, make_srvgg_graph, make_swinir_graph,
 )
 
 log = logging.getLogger(__name__)
@@ -107,7 +119,15 @@ def _translate_old_esrgan(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+_SWIN_TABLE_RE = re.compile(
+    r"layers\.(\d+)\.residual_group\.blocks\.(\d+)\.attn\."
+    r"relative_position_bias_table$")
+SWINIR_RGB_MEAN = (0.4488, 0.4371, 0.4040)  # network_swinir.py, 3 channels
+
+
 def detect_arch(sd: Dict[str, np.ndarray]) -> str:
+    if any(_SWIN_TABLE_RE.match(k) for k in sd):
+        return "swinir"
     if any(re.match(r"body\.\d+\.rdb\d\.conv\d\.weight$", k) for k in sd):
         return "rrdb"
     if any(_OLD_ESRGAN_RE.match(k) for k in sd):
@@ -116,8 +136,9 @@ def detect_arch(sd: Dict[str, np.ndarray]) -> str:
         return "srvgg"
     raise ValueError(
         "unrecognized checkpoint: expected SRVGGNetCompact (body.N conv/"
-        "PReLU pairs), basicsr RRDBNet (body.N.rdbM.convK), or old-arch "
-        f"ESRGAN (model.1.sub.N.RDBx) keys; got {sorted(sd)[:8]}..."
+        "PReLU pairs), basicsr RRDBNet (body.N.rdbM.convK), old-arch "
+        "ESRGAN (model.1.sub.N.RDBx) or SwinIR (layers.N.residual_group."
+        f"blocks.M.attn...) keys; got {sorted(sd)[:8]}..."
     )
 
 
@@ -246,6 +267,90 @@ def _import_rrdb(sd: Dict[str, np.ndarray], compute_dtype, device) -> Model:
     )
 
 
+def _import_swinir(sd: Dict[str, np.ndarray], compute_dtype, device) -> Model:
+    blocks: Dict[int, int] = {}
+    for k in sd:
+        m = _SWIN_TABLE_RE.match(k)
+        if m:
+            i, j = int(m.group(1)), int(m.group(2))
+            blocks[i] = max(blocks.get(i, 0), j + 1)
+    if sorted(blocks) != list(range(len(blocks))):
+        raise ValueError(f"SwinIR layers {sorted(blocks)} are not 0..n-1")
+    depths = [blocks[i] for i in range(len(blocks))]
+    first = "layers.{}.residual_group.blocks.0."
+    tables = [sd[first.format(i) + "attn.relative_position_bias_table"]
+              for i in range(len(depths))]
+    num_heads = [int(t.shape[1]) for t in tables]
+    window = (math.isqrt(int(tables[0].shape[0])) + 1) // 2
+    if (2 * window - 1) ** 2 != tables[0].shape[0]:
+        raise ValueError(f"bias table of {tables[0].shape[0]} rows is no "
+                         "(2w-1)^2")
+    dim = int(sd["conv_first.weight"].shape[0])
+    hidden = int(sd[first.format(0) + "mlp.fc1.weight"].shape[0])
+    if "layers.0.conv.4.weight" not in sd:
+        raise ValueError("SwinIR import takes resi_connection='3conv' only")
+    if "conv_before_upsample.0.weight" not in sd or "conv_up1.weight" not in sd:
+        raise ValueError("SwinIR import takes upsampler='nearest+conv' only")
+    if sd["conv_first.weight"].shape[1] != 3:
+        raise ValueError("SwinIR import takes 3-channel models only")
+    scale = 4 if "conv_up2.weight" in sd else 2
+    num_feat = int(sd["conv_before_upsample.0.weight"].shape[0])
+    graph = make_swinir_graph(scale=scale, embed_dim=dim, depths=depths,
+                              num_heads=num_heads, window_size=window,
+                              mlp_ratio=hidden / dim, num_feat=num_feat)
+    params: Dict[str, Dict[str, Any]] = {
+        "mean": {"data": np.asarray(SWINIR_RGB_MEAN[::-1], np.float32)}}
+
+    def conv(torch_name, ours, first=False, last=False):
+        w = _oihw_to_hwio(sd[f"{torch_name}.weight"])
+        b = sd[f"{torch_name}.bias"]
+        if first:
+            w = _fold_bgr_first(w)
+        if last:
+            w, b = _fold_bgr_last(w, b, block=1)
+        params[ours] = {"weight": w, "bias": b}
+
+    def linear(torch_name, ours):  # (out, in) -> a 1x1 conv's HWIO
+        params[ours] = {"weight": sd[f"{torch_name}.weight"].T[None, None],
+                        "bias": sd[f"{torch_name}.bias"]}
+
+    def norm(torch_name, ours):
+        params[ours] = {"gamma": sd[f"{torch_name}.weight"],
+                        "beta": sd[f"{torch_name}.bias"]}
+
+    conv("conv_first", "conv_first", first=True)
+    norm("patch_embed.norm", "patch_norm")
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            pre, tag = f"layers.{i}.residual_group.blocks.{j}.", f"l{i}b{j}"
+            norm(pre + "norm1", f"{tag}_norm1")
+            linear(pre + "attn.qkv", f"{tag}_qkv")
+            params[f"{tag}_table"] = {
+                "data": sd[pre + "attn.relative_position_bias_table"]}
+            linear(pre + "attn.proj", f"{tag}_proj")
+            norm(pre + "norm2", f"{tag}_norm2")
+            linear(pre + "mlp.fc1", f"{tag}_fc1")
+            linear(pre + "mlp.fc2", f"{tag}_fc2")
+        for k in (0, 2, 4):
+            conv(f"layers.{i}.conv.{k}", f"l{i}_conv{k}")
+    norm("norm", "norm")
+    for k in (0, 2, 4):
+        conv(f"conv_after_body.{k}", f"after_body{k}")
+    conv("conv_before_upsample.0", "conv_before_upsample")
+    for k in range(1, 2 if scale == 2 else 3):
+        conv(f"conv_up{k}", f"conv_up{k}")
+    conv("conv_hr", "conv_hr")
+    conv("conv_last", "conv_last", last=True)
+    return Model(
+        name=f"{scale}x_torch_swinir", scale=scale, graph=graph,
+        params=params, device=device, compute_dtype=compute_dtype,
+    )
+
+
+_IMPORTERS = {"srvgg": _import_srvgg, "rrdb": _import_rrdb,
+              "swinir": _import_swinir}
+
+
 def import_torch_checkpoint(
     path_or_state: Any, compute_dtype: torch.dtype = torch.bfloat16,
     device: "torch.device | str" = "cpu",
@@ -260,9 +365,7 @@ def import_torch_checkpoint(
     if arch == "rrdb_old":
         sd = _translate_old_esrgan(sd)
         arch = "rrdb"
-    model = (_import_srvgg if arch == "srvgg" else _import_rrdb)(
-        sd, compute_dtype, device
-    )
+    model = _IMPORTERS[arch](sd, compute_dtype, device)
     log.info(
         "imported torch %s checkpoint: %s (scale %dx, %d layers)",
         arch, model.name, model.scale, len(model.graph.layers),

@@ -68,8 +68,9 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
                     compute_dtype: torch.dtype = torch.bfloat16) -> nn.ModuleDict:
     """The JAX package's params (nested dicts of numpy arrays from
     ``synthesize_weights`` / ``load_weights``: HWIO ``weight``, ``bias``,
-    ``slope``; a ConvolutionDepthWise's flat ``weight``) -> the port's model
-    state on ``device``."""
+    ``slope``; a ConvolutionDepthWise's flat ``weight``; a LayerNorm's
+    ``gamma`` and ``beta`` and a MemoryData's ``data``, f32 as they are)
+    -> the port's model state on ``device``."""
     state = {}
     for name, p in params.items():
         t = {}
@@ -93,9 +94,10 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
             t["bias"] = (torch.zeros(cout) if b is None
                          else torch.from_numpy(np.asarray(b, np.float32).copy())
                          ).to(device)
-        if "slope" in p:
-            t["slope"] = torch.from_numpy(
-                np.asarray(p["slope"], np.float32).copy()).to(device)
+        for key in ("slope", "gamma", "beta", "data"):
+            if key in p:
+                t[key] = torch.from_numpy(
+                    np.asarray(p[key], np.float32).copy()).to(device)
         state[name] = LayerWeights(**t)
     return nn.ModuleDict(state)
 
@@ -405,3 +407,106 @@ def make_synthetic_rrdb_model(
     params = synthesize_weights(graph, seed=seed)
     return Model(f"synthetic_{scale}x_rrdb{num_rrdb}", scale, graph, params,
                  device, compute_dtype, residual_dtype, conv_impl)
+
+
+def make_swinir_graph(
+    scale: int = 4,
+    embed_dim: int = 240,
+    depths=(6,) * 9,
+    num_heads=(8,) * 9,
+    window_size: int = 8,
+    mlp_ratio: float = 2.0,
+    num_feat: int = 64,
+    in_ch: int = 3,
+    out_ch: int = 3,
+) -> NcnnGraph:
+    """SwinIR (``JingyunLiang/SwinIR`` ``models/network_swinir.py``) with
+    ``resi_connection='3conv'`` and ``upsampler='nearest+conv'``, the
+    real-world SR models' form, as an ncnn graph in the port's dialect
+    (``models/param_parser.py``).  The defaults are SwinIR-L's
+    (``003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN``).  The layer
+    names follow the state dict's (``l{i}b{j}_qkv`` for
+    ``layers.{i}.residual_group.blocks.{j}.attn.qkv``); the benchmark's
+    ``port_bench/models/swinir.py:layers`` writes the same graph.
+
+    - ``mean`` (MemoryData, the RGB mean, 3 values) is subtracted from the
+      input and added to the output; ``conv_first`` (3x3) embeds.
+    - A token norm is ``Permute(3) -> LayerNorm(eps 1e-5) -> Permute(4)``.
+    - Each Swin block: norm1, ``qkv`` (1x1 conv), its bias table
+      (MemoryData ``((2w-1)^2, heads)``), ``WindowAttention`` (shift
+      ``window // 2`` on odd blocks), ``proj`` (1x1), add; norm2, ``fc1``
+      (1x1), GELU (exact), ``fc2`` (1x1), add.
+    - Each RSTB: its blocks, then 3x3 conv to ``dim/4`` + leaky 0.2, 1x1 +
+      leaky 0.2, 3x3 conv back to ``dim``, add the RSTB's input.
+    - Then the final norm, ``after_body`` (the same three convs), add the
+      embedding, ``conv_before_upsample`` (3x3 + leaky 0.01), nearest 2x
+      + ``conv_up1`` (+ leaky 0.2; and ``conv_up2`` at 4x), ``conv_hr`` (+
+      leaky 0.2), ``conv_last``, add the mean."""
+    if scale not in (2, 4):
+        raise ValueError(f"SwinIR nearest+conv upsamples 2x or 4x, not {scale}x")
+    layers = [NcnnLayer("Input", "input", [], ["input"]),
+              NcnnLayer("MemoryData", "mean", [], ["mean"], {0: in_ch}),
+              NcnnLayer("BinaryOp", "sub_mean", ["input", "mean"], ["x0"],
+                        {0: 1})]
+
+    def add(kind, name, srcs, attrs=None):
+        layers.append(NcnnLayer(kind, name, list(srcs), [name],
+                                dict(attrs or {})))
+        return name
+
+    def conv(name, src, cin, cout, k=3, slope=None):
+        attrs = {0: cout, 1: k, 5: 1, 6: cout * cin * k * k}
+        if k == 3:
+            attrs[4] = 1
+        if slope is not None:
+            attrs[9] = 2
+            attrs[10] = [slope]
+        return add("Convolution", name, [src], attrs)
+
+    def norm(name, src):
+        t = add("Permute", f"{name}_tok", [src], {0: 3})
+        t = add("LayerNorm", name, [t], {0: embed_dim, 1: 1e-5, 2: 1})
+        return add("Permute", f"{name}_map", [t], {0: 4})
+
+    def three_conv(tag, src):
+        q = embed_dim // 4
+        y = conv(f"{tag}0", src, embed_dim, q, slope=0.2)
+        y = conv(f"{tag}2", y, q, q, k=1, slope=0.2)
+        return conv(f"{tag}4", y, q, embed_dim)
+
+    feat = conv("conv_first", "x0", in_ch, embed_dim)
+    t = norm("patch_norm", feat)
+    hidden = int(embed_dim * mlp_ratio)
+    table = (2 * window_size - 1) ** 2
+    for i, (depth, heads) in enumerate(zip(depths, num_heads)):
+        rin = t
+        for j in range(depth):
+            tag = f"l{i}b{j}"
+            qkv = conv(f"{tag}_qkv", norm(f"{tag}_norm1", t), embed_dim,
+                       3 * embed_dim, k=1)
+            tb = add("MemoryData", f"{tag}_table", [], {0: heads, 1: table})
+            a = add("WindowAttention", f"{tag}_attn", [qkv, tb],
+                    {0: heads, 1: window_size,
+                     2: window_size // 2 if j % 2 else 0})
+            t = add("BinaryOp", f"{tag}_add1",
+                    [t, conv(f"{tag}_proj", a, embed_dim, embed_dim, k=1)],
+                    {0: 0})
+            h = conv(f"{tag}_fc1", norm(f"{tag}_norm2", t), embed_dim,
+                     hidden, k=1)
+            h = conv(f"{tag}_fc2", add("GELU", f"{tag}_gelu", [h]), hidden,
+                     embed_dim, k=1)
+            t = add("BinaryOp", f"{tag}_add2", [t, h], {0: 0})
+        t = add("BinaryOp", f"l{i}_add", [three_conv(f"l{i}_conv", t), rin],
+                {0: 0})
+    y = add("BinaryOp", "body_add",
+            [three_conv("after_body", norm("norm", t)), feat], {0: 0})
+    y = conv("conv_before_upsample", y, embed_dim, num_feat, slope=0.01)
+    for k in range(1, 2 if scale == 2 else 3):
+        y = add("Interp", f"up{k}", [y], {0: 1, 1: 2.0, 2: 2.0})
+        y = conv(f"conv_up{k}", y, num_feat, num_feat, slope=0.2)
+    y = conv("conv_hr", y, num_feat, num_feat, slope=0.2)
+    y = conv("conv_last", y, num_feat, out_ch)
+    layers.append(NcnnLayer("BinaryOp", "add_mean", [y, "mean"], ["output"],
+                            {0: 0}))
+    blob_count = len({b for l in layers for b in l.outputs})
+    return NcnnGraph(layers=layers, blob_count=blob_count)

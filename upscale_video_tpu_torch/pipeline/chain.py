@@ -17,10 +17,13 @@ tail itself, or packed after the frames):
   (K5 per dense block, K4 per solo 3x3 conv, one K1 chain for the last
   three) -> scaled-halo crop;
 - SR, ``-m sr=<stem>``, an imported model (``vsr-import-torch``),
-  whole-frame unless ``--tile_size``: an SRVGG on K1 + K2 or, where its
-  body is no chain, the graph walk with K4 and K3; an RRDBNet such as
-  RealESRGAN_x4plus on the graph walk (K4 per 3x3 conv outside its one K1
-  chain);
+  whole-frame unless ``--tile_size``, 4 frames a step, bf16 under
+  ``auto``: an SRVGG on K1 + K2 or, where its body is no chain, the graph
+  walk with K4 and K3; an RRDBNet such as RealESRGAN_x4plus on the graph
+  walk (K4 per 3x3 conv outside its one K1 chain); a SwinIR on the graph
+  walk (its token linears on cuBLAS, its window attention on PyTorch's
+  fused attention, ``ops/swin.py``; K4 and one K1 chain for its convs),
+  which ``--parallel sp`` and ``tp`` refuse;
 - ``--tta`` averages the SR stage's model-domain output over the 8
   dihedral transforms (K2's f32 layout for Compact);
 - scale 1 has no SR stage: the pre-SR stages' output is quantized.
@@ -50,6 +53,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from upscale_video_tpu_torch.models.executor import has_window_attention
 from upscale_video_tpu_torch.models.zoo import (
     Model, load_model, make_synthetic_model, make_synthetic_rrdb_model,
 )
@@ -600,6 +604,13 @@ class ChainEngine:
         if mode not in mesh.axis_names:
             raise ValueError(f"--parallel {mode} needs a mesh with a {mode!r} "
                              f"axis, got {mesh}")
+        if mode != "dp" and any(
+                has_window_attention(m.graph)
+                for m in (self.sr_model, self.anime_model) if m is not None):
+            raise ValueError(
+                f"--parallel {mode} cannot split a shifted-window attention "
+                "model (SwinIR): its windows see past any band of rows, and "
+                "its token linears are no convs to split; use --parallel dp")
         self._mesh, self._mesh_mode = mesh, mode
         self._steps = None
         self._tp = None
