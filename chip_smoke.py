@@ -85,6 +85,16 @@ contracts, counting kernel launches:
   ``-m r`` tile batch (the ``pallas`` route's) and ``[K2_tiles]`` K2's
   model layout at ``--tile_size 256``'s tile batch, each against its plain
   version.
+- ``[swin_attn]``: K9, SwinIR's shifted-window attention
+  (``csrc/window_attention_sm90.cu``), at the ``swinir4x-1080p-i420``
+  cell's step (4 x 1080p, C 240, 8 heads of 30, window 8) for shift 0 and
+  4 against its plain version, timed beside its bound (the bytes K9 moves)
+  and the benchmark's (``attention_work``), the plain version, the
+  ``sdpa`` route and the SDPA call alone; the route counts of one call
+  each way, and its registers and spills.  ``[swin_graph]``: one ``-m
+  sr=`` step of that cell's graph (SwinIR-L at its widths and depth, its
+  seeded weights) through ``load_model`` on a small map, its K9 launches
+  and routes counted from 0; every WindowAttention layer must go to K9.
 
 K2 and K3 run on their Hopper kernels (``csrc/sr_tail_sm90.cu``: K2 on
 K1's narrow ring mainloop for Cf 64, K3 on K4's halo mainloop for Cf a
@@ -696,6 +706,13 @@ def main() -> int:
         per="one launch, 4x1080p, h=3")
     del k6_x
     torch.cuda.empty_cache()
+
+    # K9 at the SwinIR cell's shape, with its registers and spills
+    k9_row = swin_attn_phase(dev, errs)
+    k9_row.update(swin_graph_phase(dev))
+    _, k9_res = kernel_resources("WindowAttentionKernel")
+    say("swin_attn_resources", regs=k9_res.get("REG"),
+        stack=k9_res.get("STACK"), local=k9_res.get("LOCAL"))
 
     # K1 at the anime chain's shapes: the 10-layer nf-24 stack at 4x1080p
     anime = make_synthetic_model(scale=1, num_conv=8, num_feat=24, seed=0,
@@ -1469,6 +1486,9 @@ def main() -> int:
          "layer_bound_ms": k8_layer["bound_ms"],
          "layer_bound_by": k8_layer["bound_by"],
          "layer_bf16_out_bound_ms": k8_layer["bf16_out_bound_ms"]},
+        {"name": "window_attention", "route": "cuda",
+         "source": "upscale_video_tpu_torch/csrc/window_attention_sm90.cu",
+         "replaces": None, "max_abs_err": errs["K9"], **k9_row},
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
@@ -1487,6 +1507,159 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# K9 against its plain version: a P element that rounds to the next bf16
+# level moves an output by at most that level's share of max |v| (2**-8 of
+# it, at P's largest), and the output's own rounding by one level of it
+SWIN_ATOL_V = 2.0 ** -8  # x max |v|
+SWIN_RTOL = 2.0 ** -7
+
+
+def swin_attn_phase(dev, errs) -> dict:
+    """``[swin_attn]``: K9 (``csrc/window_attention_sm90.cu``) at the
+    ``swinir4x-1080p-i420`` cell's shape, 4 x 1080p, C 240 (8 heads of 30),
+    window 8, shift 0 and 4: against its plain version, then timed beside
+    its bound, the plain version, the ``sdpa`` route (gather, per-head pad,
+    the pinned SDPA call, scatter) and the ``F.scaled_dot_product_attention``
+    call alone on the padded per-head q, k, v of the step's frames.  The
+    bound counts the bytes K9 moves: the qkv blob read and the output
+    written once, and its f32 table.  The benchmark's bound
+    (``attention_work``, read by ``attn_roofline``) is given beside it as
+    ``bench_bound_ms``: it counts besides the gathered bias and, on a
+    shifted block, a dense mask, which K9 computes and never reads.  The
+    route counts of one call each way."""
+    import torch
+
+    from port_bench import spec
+    from port_bench.flops import launch_bound_s
+    from upscale_video_tpu_torch.ops import swin
+
+    fam = spec.load_module(spec.BENCH_DIR / "models" / "swinir.py",
+                           "swinir_family")
+    heads, d, win = 8, 30, 8
+    c = heads * d
+    work = fam.attention_work({"window_size": win, "embed_dim": c,
+                               "depths": [2], "num_heads": [heads]}, H, W)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    qkv = torch.randn((N, H, W, 3 * c), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    tab = torch.randn(((2 * win - 1) ** 2, heads), generator=gen, device=dev)
+    vmax = qkv[..., 2 * c:].abs().max().item()
+    row = {"shape": f"{N}x{H}x{W}x{3 * c}", "heads": heads, "head_dim": d}
+    for shift, (flop, nbytes) in zip((0, win // 2), work):
+        got = swin.window_attention_k9(qkv, tab, heads, win, shift)
+        want = swin.window_attention_plain(qkv, tab, heads, win, shift)
+        torch.cuda.synchronize()
+        worst, differ, ok = compare(got, want, SWIN_ATOL_V * vmax, SWIN_RTOL)
+        errs["K9"] = max(errs.get("K9", 0.0), worst)
+        del got, want
+        torch.cuda.empty_cache()
+        k9_ms = cuda_ms(lambda: swin.window_attention_k9(qkv, tab, heads, win,
+                                                         shift), 10)
+        plain_ms = cuda_ms(lambda: swin.window_attention_plain(
+            qkv, tab, heads, win, shift), 1)
+        sdpa_ms = cuda_ms(lambda: swin.window_attention_sdpa(
+            qkv, tab, heads, win, shift), 3)
+        torch.cuda.empty_cache()
+        t = win * win
+        order = swin.window_order(H, W, win, shift, dev)
+        x = qkv[0].reshape(H * W, 3 * c).index_select(0, order)
+        x = torch.nn.functional.pad(
+            x.reshape(-1, t, 3, heads, d).permute(2, 0, 3, 1, 4),
+            (0, swin.HEAD_ALIGN * -(-d // swin.HEAD_ALIGN) - d))
+        mask = swin.attention_bias(tab, win, shift, H, W, qkv.dtype)
+
+        def sdpa_alone():
+            for _ in range(N):
+                swin._sdpa(x[0], x[1], x[2], mask, d ** -0.5)
+
+        lib_ms = cuda_ms(sdpa_alone, 3)
+        del x, mask
+        torch.cuda.empty_cache()
+        k9_bytes = N * H * W * 2 * (3 * c + c) + 4 * tab.numel()
+        bound_ms = 1e3 * launch_bound_s(N * flop, k9_bytes)
+        bench_bound_ms = 1e3 * N * launch_bound_s(flop, nbytes)
+        say("swin_attn", shift=shift, shape=row["shape"],
+            max_abs_err=worst, frac_differ=f"{differ:.3e}",
+            bound=f"atol={SWIN_ATOL_V}*max|v|={SWIN_ATOL_V * vmax:.4f},"
+                  f"rtol={SWIN_RTOL}", ok=ok,
+            ms=f"{k9_ms:.3f}", bound_ms=f"{bound_ms:.3f}",
+            share=f"{bound_ms / k9_ms:.3f}",
+            bench_bound_ms=f"{bench_bound_ms:.3f}",
+            bench_share=f"{bench_bound_ms / k9_ms:.3f}",
+            plain_ms=f"{plain_ms:.3f}",
+            sdpa_route_ms=f"{sdpa_ms:.3f}", sdpa_call_ms=f"{lib_ms:.3f}")
+        if not ok:
+            raise SystemExit(f"K9 disagrees with its plain version at shift "
+                             f"{shift}")
+        row[f"shift{shift}"] = {"ms": k9_ms, "bound_ms": bound_ms,
+                                "bench_bound_ms": bench_bound_ms,
+                                "plain_ms": plain_ms, "sdpa_route_ms": sdpa_ms,
+                                "library_ms": lib_ms}
+    before = dict(swin.window_attention.routes)
+    launches = swin.window_attention.launches
+    swin.window_attention(qkv, tab, heads, win, win // 2)
+    swin.window_attention(qkv[:1, :16, :16].float(), tab, heads, win, 0)
+    torch.cuda.synchronize()
+    routes = {k: v - before[k] for k, v in swin.window_attention.routes.items()}
+    say("swin_attn_routes", routes=routes,
+        k9_launches=swin.window_attention.launches - launches)
+    if routes != {"k9": 1, "sdpa": 1, "plain": 0}:
+        raise SystemExit(f"window attention took the routes {routes}")
+    del qkv
+    torch.cuda.empty_cache()
+    return row
+
+
+def swin_graph_phase(dev) -> dict:
+    """``[swin_graph]``: one ``-m sr=`` step of the ``swinir4x-1080p-i420``
+    cell's graph (``port_bench/configs/swinir4x.json``: SwinIR-L, 54 Swin
+    blocks of 8 heads of 30 at window 8, the cell's seeded weights) through
+    ``load_model`` and ``GraphForward`` in bf16, on N frames of 64 x 96.
+    K9's launch count and the route counts are set to 0 just before it, so
+    they are that step's alone; fails unless every WindowAttention layer of
+    the graph went to ``k9``, one launch each, and the output is finite.
+    Returns the step's counts for the ``kernels`` row."""
+    import torch
+
+    from port_bench import ncnn, spec
+    from upscale_video_tpu_torch.models.zoo import load_model
+    from upscale_video_tpu_torch.ops import swin
+
+    cfg = json.loads((spec.BENCH_DIR / "configs" / "swinir4x.json").read_text())
+    fam = spec.load_module(spec.BENCH_DIR / "models" / "swinir.py",
+                           "swinir_family")
+    layers = fam.layers(cfg)
+    blocks = sum(layer.type == "WindowAttention" for layer in layers)
+    weights = ncnn.seeded_weights(layers, 2 ** 31 + 28, "cpu", cfg["init"])
+    x = torch.from_numpy(np.random.default_rng(28).uniform(
+        0, 1, (N, 64, 96, 3)).astype(np.float32)).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "4x_swin.param"), "w") as f:
+            f.write(ncnn.param_text(layers))
+        with open(os.path.join(tmp, "4x_swin.bin"), "wb") as f:
+            f.write(ncnn.bin_bytes(layers, weights))
+        model = load_model("x_swin", 4, dev, tmp, compute_dtype=torch.bfloat16)
+    routes = swin.window_attention.routes
+    swin.window_attention.launches = 0
+    for k in routes:
+        routes[k] = 0
+    with torch.no_grad():
+        y = model(x, "model")
+    torch.cuda.synchronize()
+    launches, routes = swin.window_attention.launches, dict(routes)
+    finite = bool(torch.isfinite(y).all())
+    say("swin_graph", config=cfg["name"], shape=f"{N}x64x96", blocks=blocks,
+        k9_launches=launches, routes=routes, out=tuple(y.shape), finite=finite)
+    if (routes != {"k9": blocks, "sdpa": 0, "plain": 0} or launches != blocks
+            or not finite):
+        raise SystemExit(f"SwinIR's step took the routes {routes} with "
+                         f"{launches} K9 launches for {blocks} blocks "
+                         f"(finite: {finite})")
+    del model, x, y
+    torch.cuda.empty_cache()
+    return {"launches": launches, "graph_blocks": blocks, "graph_routes": routes}
 
 
 def multi_gpu_phases(dev, tmp, counted, smi, peng, veng, clip, stream_out,

@@ -863,7 +863,7 @@ def test_q8_sm90_layer_without_its_image_raises(dev):
 # --- the launch device ------------------------------------------------------
 
 LAUNCH_SITES = ("conv_chain", "conv3x3", "tail", "rdb", "nlmeans",
-                "conv_winograd", "conv_chain_q8")
+                "conv_winograd", "conv_chain_q8", "swin")
 
 
 @pytest.mark.parametrize("module", LAUNCH_SITES)

@@ -24,6 +24,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+import itertools
 import math
 
 import numpy as np
@@ -187,15 +188,153 @@ def test_port_matches_plain_forward(small, case, monkeypatch):
     assert (got - want).abs().max() < TOL
 
 
+MAPS = ((8, 12, 4, 2), (16, 24, 8, 4), (24, 8, 8, 4))  # h, w, window, shift
+
+
 def test_shift_mask_and_index_as_swinir_computes_them():
     """The port's mask and relative index (``ops/swin.py``) against the
     plain forward's, which follow SwinIR's ``calculate_mask`` slices."""
-    for h, w, ws, s in ((8, 12, 4, 2), (16, 24, 8, 4), (24, 8, 8, 4)):
+    for h, w, ws, s in MAPS:
         got = swin.shift_mask(h, w, ws, s, torch.device("cpu"), torch.float32)
         assert torch.equal(got[:, 0], FAM._shift_mask(h, w, ws, s))
     for ws in (4, 8):
         assert torch.equal(swin.relative_position_index(ws, torch.device("cpu")),
                            FAM._relative_index(ws).flatten())
+
+
+def k9_window_rows(h: int, w: int, window: int, shift: int) -> torch.Tensor:
+    """``(h*w,)`` source token of each row K9
+    (``csrc/window_attention_sm90.cu``) loads, window by window: window
+    ``wi`` is ``(wi // (w/window), wi % (w/window))``, its row ``r`` reads
+    source ``((wy*window + r // window + shift) mod h, (wx*window + r %
+    window + shift) mod w)`` with the wrap as one subtraction.  The
+    kernel's ``token_of`` in Python."""
+    def wrap(v, n):
+        return torch.where(v >= n, v - n, v)
+
+    nwx = w // window
+    wi = torch.arange((h // window) * nwx)[:, None]
+    r = torch.arange(window * window)[None, :]
+    ys = wrap((wi // nwx) * window + r // window + shift, h)
+    xs = wrap((wi % nwx) * window + r % window + shift, w)
+    return (ys * w + xs).flatten()
+
+
+def k9_mask(h: int, w: int, window: int, shift: int) -> torch.Tensor:
+    """``(nW, T, T)`` mask K9 adds, from its band arithmetic: on a shifted
+    block a window of the last window row has its rows ``l >= window -
+    shift`` in the last band (``band_rows``), one of the last column its
+    columns; a (query, key) pair in different bands of either axis gets
+    -100."""
+    nwy, nwx = h // window, w // window
+    last = window - shift if shift else window
+    local = torch.arange(window) >= last  # in the last band
+    tok = torch.arange(window * window)
+    ly, lx = local[tok // window], local[tok % window]
+    masks = torch.zeros(nwy, nwx, window * window, window * window)
+    for wy in range(nwy):
+        for wx in range(nwx):
+            dy = (ly[:, None] != ly[None, :]) & (shift > 0) & (wy == nwy - 1)
+            dx = (lx[:, None] != lx[None, :]) & (shift > 0) & (wx == nwx - 1)
+            masks[wy, wx] = torch.where(dy | dx, swin.MASK_VALUE, 0.0)
+    return masks.reshape(nwy * nwx, window * window, window * window)
+
+
+def k9_bias_rows() -> torch.Tensor:
+    """``(T, T)`` table row K9 adds to score ``(query, key)``, gathered the
+    way its lanes hold them: lane ``(g, t)`` of query tile ``mi``, key row
+    ``nj``, half ``hi`` and column ``e`` holds query ``16 mi + 8 hi + g``
+    and key ``8 nj + 2t + e``, and adds its bias register ``dy = 2 mi + hi
+    - nj + 7`` of column ``dx = g - 2t - e + 7``."""
+    window = swin.K9_WINDOW
+    t, span = window * window, 2 * window - 1
+    rows = torch.full((t, t), -1, dtype=torch.long)
+    for lane in range(32):
+        g, tq = lane >> 2, lane & 3
+        for mi, nj, hi, e in itertools.product(range(4), range(8), range(2),
+                                               range(2)):
+            dy = 2 * mi + hi - nj + window - 1
+            dx = g - 2 * tq - e + window - 1
+            rows[16 * mi + 8 * hi + g, 8 * nj + 2 * tq + e] = dy * span + dx
+    return rows
+
+
+@pytest.mark.parametrize("h,w,ws,s", MAPS + ((8, 48, 8, 4), (16, 16, 8, 0)))
+def test_k9_rows_and_mask_mirror_window_order_and_shift_mask(h, w, ws, s):
+    """K9's index arithmetic, mirrored in Python above: the source token
+    of each row it loads is :func:`window_order`'s, and the mask its band
+    comparisons add is :func:`shift_mask`'s (none unshifted),
+    on maps one window tall, non-square and not a multiple of 16."""
+    cpu = torch.device("cpu")
+    assert torch.equal(k9_window_rows(h, w, ws, s),
+                       swin.window_order(h, w, ws, s, cpu))
+    want = (swin.shift_mask(h, w, ws, s, cpu, torch.float32)[:, 0] if s
+            else torch.zeros((h // ws) * (w // ws), ws * ws, ws * ws))
+    assert torch.equal(k9_mask(h, w, ws, s), want)
+
+
+def test_k9_bias_registers_hold_the_relative_index():
+    """The table row each lane's bias register adds to each score it holds
+    (query tile, key row, half and column) is the pair's relative index."""
+    rows = k9_bias_rows()
+    assert (rows >= 0).all()
+    assert torch.equal(rows.flatten(),
+                       swin.relative_position_index(8, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("shape,heads,window,device,dtype,route", [
+    ((4, 1080, 1920, 720), 8, 8, "cuda", torch.bfloat16, "k9"),  # SwinIR-L
+    ((1, 64, 48, 540), 6, 8, "cuda", torch.bfloat16, "k9"),  # SwinIR-M
+    ((2, 24, 40, 180), 6, 8, "cuda", torch.bfloat16, "k9"),  # lightweight
+    ((1, 8, 8, 96), 1, 8, "cuda", torch.bfloat16, "k9"),  # one head of 32
+    ((4, 1080, 1920, 720), 8, 8, "cpu", torch.bfloat16, "plain"),
+    ((4, 1080, 1920, 720), 8, 8, "cuda", torch.float32, "sdpa"),
+    ((4, 1080, 1920, 720), 8, 8, "cuda", torch.float16, "sdpa"),
+    ((2, 12, 20, 180), 2, 4, "cuda", torch.bfloat16, "sdpa"),  # window 4
+    ((1, 64, 64, 1080), 12, 8, "cuda", torch.bfloat16, "sdpa"),  # 12 heads
+    ((1, 64, 64, 360), 8, 8, "cuda", torch.bfloat16, "sdpa"),  # d 15, odd
+    ((1, 64, 64, 720), 6, 8, "cuda", torch.bfloat16, "sdpa"),  # d 40
+])
+def test_attention_route_by_shape(shape, heads, window, device, dtype, route):
+    """The route follows from what the call can see: K9 takes a CUDA bf16
+    blob at window 8 with at most 8 heads of an even head dim up to 32."""
+    assert swin.attention_route(shape, heads, window, device, dtype) == route
+
+
+@pytest.mark.parametrize("shape,heads,window", [
+    ((1, 16, 16, 721), 8, 8), ((1, 16, 16, 720), 7, 8), ((1, 12, 16, 720), 8, 8),
+])
+def test_attention_route_refuses_what_is_no_blob_of_windows(shape, heads,
+                                                            window):
+    with pytest.raises(ValueError, match="window attention"):
+        swin.attention_route(shape, heads, window, "cuda", torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,w,ws,s", MAPS)
+def test_plain_version_equals_the_sdpa_route(h, w, ws, s):
+    """K9's plain version (explicit scores, softmax and ``P v`` in f32) and
+    the ``sdpa`` route (gather, pad, fused attention, scatter) agree in f32
+    on the CPU, within f32 rounding of the reordered sums (1e-5)."""
+    g = torch.Generator().manual_seed(h * w + s)
+    qkv = torch.randn(2, h, w, 3 * 2 * 30, generator=g)
+    table = torch.randn((2 * ws - 1) ** 2, 2, generator=g)
+    got = swin.window_attention_plain(qkv, table, 2, ws, s)
+    want = swin.window_attention_sdpa(qkv, table, 2, ws, s)
+    assert (got - want).abs().max() < 1e-5
+
+
+def test_cpu_calls_take_the_plain_route_and_k9_refuses_them():
+    qkv = torch.randn(1, 8, 16, 3 * 8 * 30, dtype=torch.bfloat16)
+    table = torch.randn(225, 8)
+    before = dict(swin.window_attention.routes)
+    launches = swin.window_attention.launches
+    got = swin.window_attention(qkv, table, 8, 8, 4)
+    assert torch.equal(got, swin.window_attention_plain(qkv, table, 8, 8, 4))
+    assert swin.window_attention.routes["plain"] == before["plain"] + 1
+    assert swin.window_attention.routes["k9"] == before["k9"]
+    assert swin.window_attention.launches == launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        swin.window_attention_k9(qkv, table, 8, 8, 4)
 
 
 @pytest.mark.parametrize("cfg", [SMALL, SWINIR_L], ids=["small", "swinir_l"])

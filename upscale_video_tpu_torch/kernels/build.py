@@ -35,7 +35,8 @@ SOURCES = ("conv3x3_chain.cu", "conv3x3_chain_sm90.cu",
            "conv3x3_chain_narrow_sm90.cu", "sr_tail.cu", "sr_tail_sm90.cu",
            "rdb_block_sm90.cu", "nlmeans_sm90.cu", "conv3x3_fused.cu",
            "conv3x3_fused_sm90.cu", "conv_winograd.cu", "conv_winograd_sm90.cu",
-           "conv_chain_q8.cu", "conv_chain_q8_sm90.cu")
+           "conv_chain_q8.cu", "conv_chain_q8_sm90.cu",
+           "window_attention_sm90.cu")
 HEADERS = ("conv3x3_core.cuh", "conv3x3_plain.cuh", "sm90_common.cuh",
            "conv3x3_ring_sm90.cuh", "conv3x3_halo_sm90.cuh")
 NVCC_FLAGS = (
@@ -79,6 +80,9 @@ _SIGNATURES = {
     # to_int8, stream
     "uvt_conv3x3_chain_q8_layer_sm90": ([_P] * 6 + [ctypes.c_float]
                                         + [_I] * 7 + [_P], _I),
+    # qkv, out, table, n, h, w, heads, d, shift, scale, stream
+    "uvt_window_attention_sm90": ([_P] * 3 + [_I] * 6 + [ctypes.c_float, _P],
+                                  _I),
     "uvt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -21,8 +21,8 @@ tail itself, or packed after the frames):
   ``auto``: an SRVGG on K1 + K2 or, where its body is no chain, the graph
   walk with K4 and K3; an RRDBNet such as RealESRGAN_x4plus on the graph
   walk (K4 per 3x3 conv outside its one K1 chain); a SwinIR on the graph
-  walk (its token linears on cuBLAS, its window attention on PyTorch's
-  fused attention, ``ops/swin.py``; K4 and one K1 chain for its convs),
+  walk (its token linears on cuBLAS, its window attention on K9 where the
+  shape allows, ``ops/swin.py``; K4 and one K1 chain for its convs),
   which ``--parallel sp`` and ``tp`` refuse;
 - ``--tta`` averages the SR stage's model-domain output over the 8
   dihedral transforms (K2's f32 layout for Compact);
