@@ -565,8 +565,9 @@ def main() -> int:
 
     model = make_synthetic_model(scale=2, seed=0, device=dev)
     fwd = model.frames_forward("planar")
-    layers = chain_layers(fwd.items, model.state)
-    tail = model.state[fwd.tail["conv"]]
+    (chain,) = fwd.chains.values()
+    layers = chain_layers(chain["items"], model.state)
+    tail = model.state[chain["tail"]["conv"]]
     assert len(layers) == 17, len(layers)
     rng = np.random.default_rng(0)
     errs = {}
@@ -2804,8 +2805,9 @@ def k2_tiles_phase(dev, errs) -> dict:
 
     model = make_synthetic_model(scale=2, seed=0, device=dev)
     fwd = model.frames_forward("model")
-    layers = chain_layers(fwd.items, model.state)
-    tail = model.state[fwd.tail["conv"]]
+    (chain,) = fwd.chains.values()
+    layers = chain_layers(chain["items"], model.state)
+    tail = model.state[chain["tail"]["conv"]]
     th, tw = fit_tile_grid(H, W, TILE_BUDGET)
     row = {}
     for h, w in ((th + 32, tw + 32), (TILE_BUDGET + 32, TILE_BUDGET + 32)):

@@ -31,7 +31,7 @@ from upscale_video_tpu.ops.pixel import model_to_frames as jax_model_to_frames
 from upscale_video_tpu.ops.tail_pallas import sr_tail_fused as jax_sr_tail_fused
 from upscale_video_tpu_torch.models import ops as port_ops
 from upscale_video_tpu_torch.models.executor import (
-    GraphForward, SRVGGForward, build_forward,
+    GraphForward, build_forward,
 )
 from upscale_video_tpu_torch.models.param_parser import NcnnLayer
 from upscale_video_tpu_torch.models.zoo import (
@@ -45,7 +45,9 @@ from upscale_video_tpu_torch.ops.conv3x3 import (
 )
 from upscale_video_tpu_torch.ops.pixel import planar_to_frames
 from upscale_video_tpu_torch.ops.tail import sr_tail_fused
-from tests.torch_fixtures import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import (  # noqa: F401
+    assert_chain_takes_tail, one_torch_thread,
+)
 
 ACTS = (ACT_NONE, ACT_PRELU, ACT_LEAKY, ACT_RELU)
 # every conv_first and ESRGAN width in, every out width; the activations
@@ -322,12 +324,13 @@ def test_srvgg_plan_takes_k3_where_the_body_is_no_chain(num_conv, num_feat, kind
     g = make_srvgg_graph(scale=4, num_conv=num_conv, num_feat=num_feat)
     fwd = build_forward(g, "cpu", torch.bfloat16, "planar")
     if kind == "chain":
-        assert isinstance(fwd, SRVGGForward)
+        assert_chain_takes_tail(fwd, num_conv + 1)
         return
     assert isinstance(fwd, GraphForward) and fwd.tail["scale"] == 4
     assert fwd.tail["conv"] == "conv_up"
     assert sorted(fwd.solos) == [f"conv_{i}" for i in range(num_conv + 1)]
     assert all(s["prelu"] == f"prelu_{s['name'][5:]}" for s in fwd.solos.values())
     # mixed keeps the same plan (K2's skip add is f32 already)
-    assert isinstance(build_forward(make_srvgg_graph(), "cpu", torch.bfloat16,
-                                    "planar", torch.float32), SRVGGForward)
+    assert_chain_takes_tail(build_forward(make_srvgg_graph(), "cpu",
+                                          torch.bfloat16, "planar",
+                                          torch.float32), 17)

@@ -168,13 +168,8 @@ def test_planned_chains_split_as_sm90_takes():
     )
 
     def split(model, emit):
-        fwd = model.frames_forward(emit)
-        if hasattr(fwd, "chains"):
-            (chain,) = fwd.chains.values()
-            items = chain["items"]
-        else:
-            items = fwd.items
-        layers = chain_layers(items, model.state)
+        (chain,) = model.frames_forward(emit).chains.values()
+        layers = chain_layers(chain["items"], model.state)
         for l in layers:
             assert (l.wpack is not None) is (chain_kernel(l.cin, l.cout) == "narrow")
         assert [sm90_takes(l.cin, l.cout) for l in layers] == [True] * len(layers)

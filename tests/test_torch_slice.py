@@ -17,6 +17,8 @@ generic graph walk, as the JAX package demotes its kernels under f32).
   4:2:0 steps): within 1 u8 LSB, the PARITY.md contract.
 """
 
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,14 +30,16 @@ from upscale_video_tpu.ops.pixel import frames_to_model as jax_frames_to_model
 from upscale_video_tpu.pipeline.chain import ChainEngine as JaxEngine
 from upscale_video_tpu.pipeline.chain import ChainSpec as JaxSpec
 from upscale_video_tpu_torch.models.executor import (
-    SRVGGForward, build_forward, plan_srvgg, probe_srvgg_tail,
+    GraphForward, build_forward, probe_srvgg_tail,
 )
 from upscale_video_tpu_torch.models.zoo import (
     make_srvgg_graph, params_from_jax,
 )
 from upscale_video_tpu_torch.ops.pixel import frames_to_model, planar_to_frames
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
-from tests.torch_fixtures import one_torch_thread  # noqa: F401
+from tests.torch_fixtures import (  # noqa: F401
+    assert_chain_takes_tail, one_torch_thread,
+)
 
 
 def _max_lsb(a, b):
@@ -80,7 +84,7 @@ def test_bf16_planar_matches_jax_pallas_path(num_conv):
     want = np.asarray(jf(m.params, jax_frames_to_model(jnp.asarray(frames))))
     state = params_from_jax(m.params, "cpu", torch.bfloat16)
     fwd = build_forward(m.graph, "cpu", torch.bfloat16, "planar")
-    assert isinstance(fwd, SRVGGForward)
+    assert_chain_takes_tail(fwd, num_conv + 1)
     got = fwd(state, frames_to_model(torch.from_numpy(frames))).numpy()
     assert got.shape == (2, 16, 24, 12)
     assert _max_lsb(planar_to_frames(got, 2), want) <= 1
@@ -102,18 +106,20 @@ def test_model_layouts_agree():
     model-domain, u8 frame and u8 planar layouts: on the kernel route in
     bf16 (K2's three epilogues), and on the aten route in f32 (which makes
     its planar layout from its frames)."""
-    from upscale_video_tpu_torch.models.executor import GraphForward
     from upscale_video_tpu_torch.models.zoo import make_synthetic_model
 
     x = frames_to_model(torch.from_numpy(_frames(3, n=1, h=10, w=12)))
-    for dtype, route in ((torch.bfloat16, SRVGGForward),
-                         (torch.float32, GraphForward)):
+    for dtype in (torch.bfloat16, torch.float32):
         m = make_synthetic_model(scale=2, num_conv=2, num_feat=16, seed=9,
                                  compute_dtype=dtype)
         # 3 body convs + the tail conv (wmat, bias) and 3 PReLU slopes
         assert sum(1 for _ in m.buffers()) == 2 * 4 + 3
-        assert all(isinstance(m.frames_forward(e), route)
-                   for e in ("model", "frames", "planar"))
+        for e in ("model", "frames", "planar"):
+            fwd = m.frames_forward(e)
+            if dtype == torch.bfloat16:
+                assert_chain_takes_tail(fwd, 3)
+            else:
+                assert not fwd.chains and fwd.tail is None
         y = m(x, "model").numpy()
         u8 = m(x, "frames").numpy()
         q = np.clip(np.round(y[..., ::-1] * 255.0), 0, 255).astype(np.uint8)
@@ -123,18 +129,24 @@ def test_model_layouts_agree():
 
 
 def test_plan_covers_compact_graph():
-    plan = plan_srvgg(make_srvgg_graph(scale=2, num_conv=16, num_feat=64))
-    assert len(plan["items"]) == 17
-    assert all(it["prelu"] is not None for it in plan["items"])
-    assert plan["tail"]["scale"] == 2 and plan["tail"]["conv"] == "conv_up"
+    fwd = GraphForward(make_srvgg_graph(scale=2, num_conv=16, num_feat=64),
+                       "cpu", torch.bfloat16, None, "planar")
+    assert_chain_takes_tail(fwd, 17)
+    (chain,) = fwd.chains.values()
+    assert all(it["prelu"] is not None for it in chain["items"])
+    assert chain["tail"]["scale"] == 2
     assert probe_srvgg_tail(make_srvgg_graph(scale=4)) == 4
 
 
-def test_plan_rejects_other_graphs():
+def test_rrdb_graph_attaches_no_tail_to_any_chain():
+    """An RRDB graph ends in convs and an Interp, not the SRVGG tail: its
+    chains keep their cropped outputs and no layer runs a kernel tail."""
     from upscale_video_tpu.models.zoo import make_rrdb_graph
 
-    with pytest.raises(NotImplementedError, match="Concat"):
-        plan_srvgg(make_rrdb_graph(num_rrdb=1))
+    fwd = GraphForward(make_rrdb_graph(num_rrdb=1), "cpu", torch.bfloat16,
+                       None, "model")
+    assert fwd.chains and not any("tail" in c for c in fwd.chains.values())
+    assert fwd.tail is None and not fwd.fused_tail
 
 
 @pytest.fixture(scope="module")
@@ -193,7 +205,7 @@ def kernel_engines():
                               synthetic=True, conv_impl="pallas")
     port = ChainEngine.build(ChainSpec(), 2, "cpu",
                              compute_dtype=torch.bfloat16, synthetic=True)
-    assert isinstance(port.sr_model.frames_forward("planar"), SRVGGForward)
+    assert_chain_takes_tail(port.sr_model.frames_forward("planar"), 17)
     return jax_eng, port
 
 
@@ -389,3 +401,70 @@ def test_mixed_compact_equals_bf16_byte_for_byte():
                        bf16.yuv_step(False, planar=True)(frames))
     bf16, mixed = _port_engine("bf16", tile=4), _port_engine("mixed", tile=4)
     assert torch.equal(mixed.step(frames), bf16.step(frames))
+
+
+def _routes(fwd) -> dict:
+    """Layer name -> what its step runs in the walk's plan: ``K1xL`` a
+    chain of L convs (``+K2`` with the tail attached), ``K4`` (``K4
+    dense`` on a dense block's buffer), ``K5``, ``K3``, the token ``norm``
+    and ``linear``, else the generic op's layer type."""
+    kinds = {"_rdb": "K5", "_tail": "K3", "_norm": "norm", "_linear": "linear"}
+    types = {layer.name: layer.type for layer in fwd.graph.layers}
+    out = {}
+    for name, step in fwd.steps.items():
+        kind = step.__name__
+        if kind == "_chain":
+            chain = fwd.chains[name]
+            kind = f"K1x{len(chain['items'])}" + ("+K2" if "tail" in chain else "")
+        elif kind == "_solo":
+            kind = "K4 dense" if name in fwd.dense else "K4"
+        out[name] = kinds.get(kind, types[name] if kind == "run_op" else kind)
+    return out
+
+
+@pytest.mark.parametrize("graph,counts,anchors", [
+    ("compact2x", {"K1x17+K2": 1, "Split": 1}, {"conv_0": "K1x17+K2"}),
+    ("compact4x", {"K1x17+K2": 1, "Split": 1}, {"conv_0": "K1x17+K2"}),
+    ("anime1x", {"K1x10": 1, "Split": 1, "PixelShuffle": 1, "Interp": 1,
+                 "BinaryOp": 1}, {"conv_0": "K1x10"}),
+    ("wide", {"K4": 2, "K3": 1, "Split": 1}, {"conv_up": "K3"}),
+    ("oneconv", {"K4": 1, "K3": 1, "Split": 1},
+     {"conv_0": "K4", "conv_up": "K3"}),
+    ("esrgan", {"K4": 3, "K4 dense": 15, "K1x3": 1, "Eltwise": 4,
+                "BinaryOp": 1, "Interp": 2},
+     {"conv_first": "K4", "r0d0_c1": "K4 dense", "conv_up2": "K1x3"}),
+    ("valar", {"K4": 3, "K5": 3, "K1x3": 1, "Eltwise": 1, "BinaryOp": 1,
+               "Interp": 2},
+     {"r0d0_res": "K5", "conv_trunk": "K4", "conv_up2": "K1x3"}),
+    ("swinir", {"K4": 9, "norm": 10, "linear": 16, "K1x3": 1,
+                "MemoryData": 5, "BinaryOp": 13, "WindowAttention": 4,
+                "GELU": 4, "Convolution": 3, "Interp": 2},
+     {"conv_first": "K4", "patch_norm_tok": "norm", "l0b0_qkv": "linear",
+      "l0b0_attn": "WindowAttention", "conv_up2": "K1x3"}),
+])
+def test_walk_routes_every_layer(graph, counts, anchors):
+    """The kernel route of every layer of each graph the port ships or
+    tests, on the product route (bf16, ``auto``): the Compact's whole body
+    one K1 chain with K2 attached; the anime model one K1 chain and
+    generic ops; a wide or one-conv SRVGG on K4 with its tail on K3;
+    ESRGAN's dense blocks on K4 buffers; Valar's on K5; SwinIR's token
+    norms and linears, its convs on K4 and its upsampler chain on K1."""
+    from upscale_video_tpu_torch.models.zoo import (
+        make_rrdb_graph, make_swinir_graph,
+    )
+
+    make = {
+        "compact2x": lambda: make_srvgg_graph(scale=2),
+        "compact4x": lambda: make_srvgg_graph(scale=4),
+        "anime1x": lambda: make_srvgg_graph(scale=1, num_conv=8, num_feat=24),
+        "wide": lambda: make_srvgg_graph(scale=4, num_conv=1, num_feat=160),
+        "oneconv": lambda: make_srvgg_graph(scale=4, num_conv=0),
+        "esrgan": lambda: make_rrdb_graph(num_rrdb=1, variant="esrgan"),
+        "valar": lambda: make_rrdb_graph(num_rrdb=1),
+        "swinir": lambda: make_swinir_graph(
+            embed_dim=60, depths=[2, 2], num_heads=[2, 2], window_size=4,
+            num_feat=16),
+    }[graph]
+    routes = _routes(build_forward(make(), "cpu", torch.bfloat16, "model"))
+    assert dict(Counter(routes.values())) == counts
+    assert {name: routes[name] for name in anchors} == anchors

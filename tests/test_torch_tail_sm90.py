@@ -199,7 +199,8 @@ def test_srvgg_forward_emits_yuv420_as_planar_then_pack():
     x = torch.rand(2, 9, 14, 3)
     planar = model.frames_forward("planar")(model.state, x)
     fwd = model.frames_forward("yuv420")
-    tail = model.state[fwd.tail["conv"]]
+    (chain,) = fwd.chains.values()
+    tail = model.state[chain["tail"]["conv"]]
     assert tail.wpack_tail.numel() == 9 * 16 * 64
     for full in (False, True):
         np.testing.assert_array_equal(fwd(model.state, x, full_range=full),

@@ -41,7 +41,9 @@ from upscale_video_tpu_torch.ops import tiling
 from upscale_video_tpu_torch.ops.rdb import rdb_block
 from upscale_video_tpu_torch.pipeline.chain import ChainEngine, ChainSpec
 from upscale_video_tpu_torch.pipeline.process import process_file
-from tests.torch_fixtures import one_torch_thread, two_rrdbs  # noqa: F401
+from tests.torch_fixtures import (  # noqa: F401
+    assert_chain_takes_tail, one_torch_thread, two_rrdbs,
+)
 
 PRECISIONS = {
     # name: (JAX build_forward kwargs, port compute dtype, port residual dtype)
@@ -278,14 +280,12 @@ def test_engine_build_defaults_for_m_r():
     assert eng.describe() == "valar-4x (scale 4x)"
     assert eng.planar_scale is None
     assert len(eng.sr_model.frames_forward("model").rdb_triggers) == 69
-    from upscale_video_tpu_torch.models.executor import SRVGGForward
-
     # sr= with --synthetic_models builds the Compact: mixed runs on K1 + K2
     # (K2's skip add is f32 already), and reaches the anime model's adds
     for models in ("a,sr=x_Foo", None):
         mixed = ChainEngine.build(ChainSpec.parse(models), 2, "cpu",
                                   synthetic=True, residual_dtype=torch.float32)
-        assert isinstance(mixed.sr_model.frames_forward("planar"), SRVGGForward)
+        assert_chain_takes_tail(mixed.sr_model.frames_forward("planar"), 17)
         assert mixed.planar_scale == 2 and mixed.tile == 0
     assert mixed.sr_model.residual_dtype == torch.float32
 

@@ -1,40 +1,38 @@
-"""Graph planners + forward modules: the SRVGG (Compact) family with its
-shuffle tail, and the graph walk for everything else (the RRDBNet family,
-Valar and ESRGAN; the 1x SRVGG anime deblur model; SRVGG imports whose
-body is not one chain).
+"""The graph planner and its one forward: every model of the port, the
+SRVGG (Compact) family with its shuffle tail, the RRDBNet family (Valar
+and ESRGAN), the 1x SRVGG anime deblur model and SwinIR, runs as one walk
+over its layers (:class:`GraphForward`).
 
-SRVGG: port of the parts of ``upscale_video_tpu/models/executor.py`` that
-the Compact graph reaches with ``--conv_impl pallas``: ``_match_srvgg_tail``
-(:884), ``probe_srvgg_tail`` (:935) and the chain assembly
-(``_plan_pallas_fusion`` / ``_assemble_chains``, :705-881).  A graph whose
-body is one run of two or more chain-eligible convs becomes one bordered
-conv chain (kernel K1, :mod:`upscale_video_tpu_torch.ops.conv_chain`) and
-the tail one fused tail launch (kernel K2, :mod:`upscale_video_tpu_torch.ops.tail`).
-The JAX planner's TPU lane gate (``_pallas_fusable``'s ``cin >= 32``,
-executor.py:723-730) is not copied.
-
-Graph walk: port of ``_plan_rdb_blocks`` (:539-702, with
-``_dense_conv_class`` :383), of ``_plan_pallas_fusion`` (:757-811) and the
-bordered-chain assembly (``_assemble_chains`` :814), of the Reorg mod-pad
-(:1222-1241) and of ``build_forward``'s graph walk (:1001-1570) for the
-generic ops in :mod:`upscale_video_tpu_torch.models.ops`: every matched
-dense block is one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`), every
-run of two or more linearly linked SAME 3x3 convs one K1 chain, every other
-SAME 3x3 stride-1 conv one K4 launch (:mod:`upscale_video_tpu_torch.ops.conv3x3`,
+Port of ``_plan_rdb_blocks`` (upscale_video_tpu/models/executor.py:539-702,
+with ``_dense_conv_class`` :383), of ``_plan_pallas_fusion`` (:757-811) and
+the bordered-chain assembly (``_assemble_chains`` :814-882), of
+``_match_srvgg_tail`` (:884) and ``probe_srvgg_tail`` (:935), of the Reorg
+mod-pad (:1222-1241) and of ``build_forward``'s graph walk (:1001-1570)
+for the generic ops in :mod:`upscale_video_tpu_torch.models.ops`: every
+matched dense block is one K5 launch (:mod:`upscale_video_tpu_torch.ops.rdb`),
+every run of two or more linearly linked SAME 3x3 convs one K1 chain
+(:mod:`upscale_video_tpu_torch.ops.conv_chain`), every other SAME 3x3
+stride-1 conv one K4 launch (:mod:`upscale_video_tpu_torch.ops.conv3x3`,
 with a PReLU that alone consumes it fused in; an ESRGAN dense block's convs
-on one shared buffer instead of their Concats), an SRVGG tail one K3 launch
-(:func:`~upscale_video_tpu_torch.ops.tail.sr_tail_fused`), every other
-layer one op; blobs are freed at their last use, and ``mixed`` keeps the
-residual spine (Eltwise/BinaryOp) in f32.
+on one shared buffer instead of their Concats), every other layer one op;
+blobs are freed at their last use, and ``mixed`` keeps the residual spine
+(Eltwise/BinaryOp) in f32.  An SRVGG tail is one launch: K2
+(:func:`~upscale_video_tpu_torch.ops.tail.sr_tail_chain`) on the bordered
+buffer of the K1 chain that alone feeds it (``_assemble_chains``' rule,
+:866-882; the Compact models' whole body), else K3
+(:func:`~upscale_video_tpu_torch.ops.tail.sr_tail_fused`).  The JAX
+planner's TPU lane gate (``_pallas_fusable``'s ``cin >= 32``,
+executor.py:723-730) is not copied.
 
 ``--conv_impl`` picks among these routes as the JAX package reads the
 flag (:func:`conv_routes`): ``xla`` (and every f32 forward) is the graph
 walk on generic ops alone, the aten route; ``rdb`` adds K5 alone;
 ``pallas`` the conv kernels without K5; ``auto`` both.
 
-:class:`TensorParallelForward` is the graph walk under ``--parallel tp``:
+:class:`TensorParallelForward` is the same walk under ``--parallel tp``:
 no K1 chain, each conv's output channels split over the GPUs of a mesh,
-one K4 launch per GPU at its slice, then :func:`exchange_channels`.
+one K4 launch per GPU at its slice, then :func:`exchange_channels`; every
+other layer runs :class:`GraphForward`'s step for it on each rank.
 
 A SwinIR graph (``WindowAttention``, ``models/param_parser.py``'s
 dialect) takes the graph walk too: each ``Permute(3) -> LayerNorm ->
@@ -80,12 +78,6 @@ from upscale_video_tpu_torch.ops.yuv import yuv420_from_planar
 from upscale_video_tpu_torch.utils.trace import profiling
 
 log = logging.getLogger(__name__)
-
-SUPPORTED_OPS = frozenset({
-    "Input", "Split", "Convolution", "PReLU", "PixelShuffle", "Interp",
-    "BinaryOp",
-})
-
 
 def _consumers(graph: NcnnGraph) -> Dict[str, List[int]]:
     out: Dict[str, List[int]] = {}
@@ -189,70 +181,6 @@ def _conv_item(graph: NcnnGraph, consumers, layer: NcnnLayer) -> dict:
     return item
 
 
-def plan_srvgg(graph: NcnnGraph) -> dict:
-    """Plan ``graph`` as one conv chain of two or more layers + one fused
-    tail.
-
-    Returns ``{"items": [{"name", "prelu", "act", "slope_attr", "out"},
-    ...], "tail": {"conv", "scale", "skip_blob", "out"}}``.  Raises
-    ``NotImplementedError`` for any graph that is not exactly that."""
-    unsupported = sorted({l.type for l in graph.layers}
-                         - SUPPORTED_OPS)
-    if unsupported:
-        raise NotImplementedError(
-            f"unsupported ncnn layer types for the port: {unsupported}")
-    inputs, outputs = graph.input_blobs, graph.output_blobs
-    if len(inputs) != 1 or len(outputs) != 1:
-        raise NotImplementedError(
-            f"one input and one output expected, got {inputs} / {outputs}")
-    consumers = _consumers(graph)
-    tail = _find_tail(graph, consumers)
-    if tail is None:
-        raise NotImplementedError(
-            "graph does not end in the SRVGG tail (conv -> PixelShuffle -> "
-            "add of a nearest-upsampled input)")
-
-    # walk the body from the network input: [conv (+PReLU)]* -> tail conv
-    blob = inputs[0]
-    split = [l for l in graph.layers if l.type == "Split"]
-    for l in split:
-        if l.inputs[0] != inputs[0]:
-            raise NotImplementedError(f"Split {l.name} is not of the input")
-        body = [b for b in l.outputs if b != tail["skip_blob"]]
-        if len(body) != 1:
-            raise NotImplementedError(f"Split {l.name}: expected one body branch")
-        blob = body[0]
-    items: List[dict] = []
-    claimed = {l.name for l in split} | tail["absorbed"] | {tail["conv"]}
-    while True:
-        # without a Split the input also feeds the tail's skip Interp
-        cons = [c for c in consumers.get(blob, [])
-                if blob != tail["skip_blob"]
-                or graph.layers[c].name not in tail["absorbed"]]
-        if len(cons) != 1:
-            raise NotImplementedError(
-                f"blob {blob!r} has {len(cons)} consumers: not a linear chain")
-        layer = graph.layers[cons[0]]
-        if layer.type != "Convolution" or not _chain_eligible(layer):
-            raise NotImplementedError(
-                f"layer {layer.name} ({layer.type}) is not a SAME 3x3 "
-                "stride-1 conv the chain kernel takes")
-        if layer.name == tail["conv"]:
-            break
-        item = _conv_item(graph, consumers, layer)
-        claimed.update(n for n in (item["name"], item["prelu"]) if n)
-        blob = item["out"]
-        items.append(item)
-    if len(items) < 2:
-        raise NotImplementedError(
-            f"SRVGG body of {len(items)} conv(s): no chain to run on K1")
-    left = [l.name for l in graph.layers
-            if l.type != "Input" and l.name not in claimed]
-    if left:
-        raise NotImplementedError(f"layers outside the chain + tail plan: {left}")
-    return {"items": items, "tail": tail}
-
-
 def _solo_args(item: dict, state):
     """A solo conv item -> K4's ``(wmat, bias, slope, act)``: the PReLU's
     slope tensor, the leaky slope as a float (no device read), else None."""
@@ -293,17 +221,14 @@ def chain_layers(items: List[dict], state) -> List[ChainLayer]:
     return layers
 
 
-def pack_chain_weights(items: List[dict], state) -> None:
-    """Add each chain layer's packed weights for K1's narrow kernel
-    (``wpack_narrow``, :func:`~upscale_video_tpu_torch.ops.conv_chain.
-    pack_narrow_weights`) to ``state`` where that kernel takes its shape
-    in bf16, once: a second layout's forward finds them packed."""
-    for it in items:
-        lw = state[it["name"]]
-        if not hasattr(lw, "wpack_narrow"):
-            pack = pack_narrow_weights(lw.wmat)
-            if pack is not None:
-                lw.register_buffer("wpack_narrow", pack)
+def _register(lw: nn.Module, name: str, make, *args) -> None:
+    """Give a layer's weights the buffer ``name`` = ``make(*args)`` once
+    (a second layout's forward finds it there), unless ``make`` returns
+    None: the kernel that would read it does not take the shape."""
+    if not hasattr(lw, name):
+        t = make(*args)
+        if t is not None:
+            lw.register_buffer(name, t)
 
 
 def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
@@ -341,64 +266,6 @@ def _plan_chains(graph: NcnnGraph, consumers: Dict[str, List[int]],
         absorbed.update(seq[1:])
         absorbed.update(it["prelu"] for it in items if it["prelu"])
     return chains, absorbed
-
-
-class SRVGGForward(nn.Module):
-    """Stateless forward of a planned SRVGG graph: ``fwd(state, x)`` runs
-    K1 over the whole body then K2 once.  Its one residual add is K2's
-    skip add, which is f32 in every layout (bias, conv and the skip summed
-    in f32 before the one quantization, as in the JAX Pallas tail,
-    tail_pallas.py:196-200), so ``--precision mixed`` runs it unchanged.
-
-    ``state`` maps layer name -> a module with ``wmat`` (9*cin, cout),
-    ``bias`` (cout,) f32 and, for PReLU layers, ``slope`` (see
-    :func:`upscale_video_tpu_torch.models.zoo.params_from_jax`).  ``x`` is
-    the model-domain float input ``(N, H, W, 3)`` (BGR, [0, 1]).  ``emit``
-    is one of the tail layouts: ``"model"`` returns float32 model-domain
-    ``(N, sH, sW, 3)``, ``"frames"`` uint8 RGB, ``"planar"`` uint8
-    ``(N, H, W, 3*s*s)``, ``"yuv420"`` the packed 4:2:0 uint8 ``(N, H, W,
-    s*s + 2*(s//2)**2)`` (``forward``'s ``full_range``), tail and pack in
-    one K2 launch.
-    """
-
-    def __init__(self, plan: dict, device: torch.device,
-                 compute_dtype: torch.dtype, emit: str):
-        super().__init__()
-        if emit not in LAYOUTS:
-            raise ValueError(f"emit {emit!r} not in {LAYOUTS}")
-        self.items = plan["items"]
-        self.tail = plan["tail"]
-        self.scale = self.tail["scale"]
-        self.compute_dtype = compute_dtype
-        self.emit = emit
-        self.device = torch.device(device)
-
-    def prepare(self, state: nn.ModuleDict) -> None:
-        """Pack the chain's narrow-kernel weights into ``state``
-        (:func:`pack_chain_weights`) and the tail's Hopper weights
-        (``wpack_tail``, :func:`~upscale_video_tpu_torch.ops.tail.
-        pack_tail_weights`) where that kernel takes its shape in bf16, at
-        plan time."""
-        pack_chain_weights(self.items, state)
-        tw = state[self.tail["conv"]]
-        if not hasattr(tw, "wpack_tail"):
-            pack = pack_tail_weights(tw.wmat, self.scale)
-            if pack is not None:
-                tw.register_buffer("wpack_tail", pack)
-
-    def forward(self, state, x: torch.Tensor,
-                full_range: bool = False) -> torch.Tensor:
-        squeeze = x.ndim == 3
-        if squeeze:
-            x = x[None]
-        # the skip reads the input rounded to the compute dtype, as the
-        # JAX executor's blobs[input] = x.astype(compute_dtype)
-        x = x.to(device=self.device, dtype=self.compute_dtype).contiguous()
-        buf = conv3x3_chain(x, chain_layers(self.items, state), crop=False)
-        tw = state[self.tail["conv"]]
-        y = sr_tail_chain(buf, x, tw.wmat, tw.bias, self.scale, self.emit,
-                          full_range, getattr(tw, "wpack_tail", None))
-        return y[0] if squeeze else y
 
 
 def _dense_conv_class(layer: NcnnLayer) -> Optional[str]:
@@ -821,16 +688,31 @@ class _Ranges:
 
 
 class GraphForward(nn.Module):
-    """Stateless forward of a graph that is not one K1 chain + K2 tail (the
-    RRDBNet family, the 1x SRVGG anime model, wide or one-conv SRVGG
-    imports): ``fwd(state, x)`` walks the layers in order, as the JAX
-    ``build_forward`` does.
+    """Stateless forward of a planned graph, the port's one forward on one
+    device (every model: the SRVGG family, the RRDBNet family, the 1x SRVGG
+    anime model, SwinIR): ``fwd(state, x)`` walks the layers in order, as
+    the JAX ``build_forward`` does.  Planning gives each layer that runs
+    its step (``steps``: layer name -> the method that runs it on one
+    rank's blobs, state and dense block buffers); a layer another plan
+    absorbs has none.
 
     - Every run of two or more linearly linked SAME 3x3 convs (with their
       PReLUs) is one K1 chain over the run's input cast to the compute
       dtype (:func:`_plan_chains`; on the CPU K1's plain version).  The 1x
       anime model's whole conv stack is one chain; its ``PixelShuffle(1)``,
       ``Interp(1)`` and skip add run as generic ops.
+    - A graph ending in the SRVGG tail (``probe_srvgg_tail``) runs its tail
+      conv, shuffle, skip Interp and add as one launch, which writes the
+      ``emit`` layout itself (``planar`` and ``yuv420`` too).  Where a K1
+      chain's output is read by the tail conv alone (the JAX rule,
+      ``_assemble_chains``, executor.py:866-882; a Compact model's whole
+      body is that chain) the tail is the chain's ``"tail"`` and K2 reads
+      the chain's bordered buffer; its skip add is f32 in every layout
+      (bias, conv and the skip summed in f32 before the one quantization,
+      as in the JAX Pallas tail, tail_pallas.py:196-200), so ``--precision
+      mixed`` runs such a model unchanged.  Any other tail (a wide or
+      one-conv body, no chain) is one K3 launch: ``tail`` is that plan,
+      None where a chain took the tail and on the aten route.
     - With ``rdb`` every matched Valar dense block is one K5 launch on the
       block's input cast to bf16; its output comes back in bf16.  Its
       packed weights live in ``state`` under the trigger's name, put there
@@ -848,15 +730,11 @@ class GraphForward(nn.Module):
     - Without ``chains`` (``--parallel tp``, :class:`TensorParallelForward`)
       no K1 chain is planned: each of its convs is a K4 solo.
     - Without ``kernels`` (``--conv_impl xla`` or ``rdb``, and every f32
-      forward, :func:`conv_routes`) no chain, solo, dense buffer or K3
+      forward, :func:`conv_routes`) no chain, solo, dense buffer or kernel
       tail is planned: each conv is a generic ``F.conv2d`` (TF32 off), the
       SRVGG tail its generic ops, and the ``planar`` and ``yuv420``
       layouts are made from the quantized frames (the aten route).
       Without ``rdb`` (``pallas``, ``xla``) no dense block goes to K5.
-    - A graph ending in the SRVGG tail (``probe_srvgg_tail``) runs its tail
-      conv, shuffle, skip Interp and add as one K3 launch, which writes the
-      ``emit`` layout itself (``planar`` and ``yuv420`` too); ``tail`` is
-      that plan, None on the aten route.
     - ``residual_dtype=torch.float32`` with bf16 compute is ``mixed``: the
       inputs of every Eltwise and BinaryOp are upcast to f32 and their
       results flow on in f32 (``_spine_cast``, executor.py:1214); the next
@@ -880,11 +758,14 @@ class GraphForward(nn.Module):
       one, so on the Valar graph every combine takes the generic path,
       which is the one ported (pinned by tests/test_torch_valar.py).
 
-    ``x``: model-domain ``(N, H, W, 3)`` (BGR, [0, 1]).  ``emit="model"``
-    returns float32 ``(N, sH, sW, 3)``; ``"frames"`` uint8 RGB;
-    ``"planar"`` (SRVGG tail only) uint8 ``(N, H, W, 3*s*s)``; ``"yuv420"``
-    (SRVGG tail only) the packed 4:2:0 uint8 of ``forward``'s
-    ``full_range``.
+    ``state`` maps layer name -> a module with ``wmat`` (9*cin, cout),
+    ``bias`` (cout,) f32 and, for PReLU layers, ``slope`` (see
+    :func:`upscale_video_tpu_torch.models.zoo.params_from_jax`).  ``x``:
+    model-domain ``(N, H, W, 3)`` (BGR, [0, 1]).  ``emit="model"`` returns
+    float32 ``(N, sH, sW, 3)``; ``"frames"`` uint8 RGB; ``"planar"``
+    (SRVGG tail only) uint8 ``(N, H, W, 3*s*s)``; ``"yuv420"`` (SRVGG tail
+    only) the packed 4:2:0 uint8 ``(N, H, W, s*s + 2*(s//2)**2)`` of
+    ``forward``'s ``full_range``.
     """
 
     EMITS = LAYOUTS
@@ -905,6 +786,7 @@ class GraphForward(nn.Module):
                 f"one input and one output expected, got "
                 f"{graph.input_blobs} / {graph.output_blobs}")
         consumers = _consumers(graph)
+        index = {layer.name: i for i, layer in enumerate(graph.layers)}
         fused = compute_dtype != torch.float32
         self.kernels = kernels and fused
         self.norms, norm_absorbed = _plan_token_norms(graph, consumers)
@@ -918,24 +800,37 @@ class GraphForward(nn.Module):
         if emit in ("planar", "yuv420") and found is None:
             raise ValueError(f"emit {emit!r} needs the SRVGG shuffle tail")
         self.tail_scale = found["scale"] if found else None
-        self.tail = found if self.kernels else None  # K3's, else generic ops
-        tail_names = (self.tail["absorbed"] | {self.tail["conv"]}
-                      if self.tail else set())
+        tail = found if self.kernels else None  # K2's or K3's, else generic ops
+        self.fused_tail = tail is not None
+        tail_names = tail["absorbed"] | {tail["conv"]} if tail else set()
         blocks, absorbed = (_plan_rdb_blocks(graph, consumers)
                             if rdb and fused else ([], set()))
         self.chains, self.chain_absorbed = (
             _plan_chains(graph, consumers, absorbed | tail_names)
             if self.kernels and chains else ({}, set()))
+        tail_at = None  # the layer whose step reads the tail's skip
+        if tail is not None:
+            # a chain whose output only the tail conv reads takes the tail,
+            # K2 on its bordered buffer (_assemble_chains, executor.py:866);
+            # any other tail is K3's
+            tail_at = index[tail["conv"]]
+            for first, chain in self.chains.items():
+                if consumers.get(chain["out"]) == [tail_at]:
+                    chain.update(tail=tail, out=tail["out"])
+                    tail, tail_at = None, index[first]
+                    break
+        self.tail = tail  # K3's
         self.graph = graph
+        self.input_blob, self.output_blob = (graph.input_blobs[0],
+                                             graph.output_blobs[0])
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.emit = emit
         self.residual_f32 = (residual_dtype == torch.float32
                              and compute_dtype != torch.float32)
         self.rdb_triggers = {b["trigger"]: b for b in blocks}
-        self.rdb_absorbed = absorbed
         self.solos = (_plan_solos(graph, consumers,
-                                  self.rdb_absorbed | set(self.chains)
+                                  absorbed | set(self.chains)
                                   | self.chain_absorbed | tail_names)
                       if self.kernels else {})
         self.dense, dense_absorbed = _plan_dense_buffers(graph, consumers,
@@ -943,42 +838,67 @@ class GraphForward(nn.Module):
         # add -> (block, channel offset): its result goes into the buffer
         self.dense_adds = {d["post_add"]: (d["block"], d["out_off"])
                            for d in self.dense.values() if d.get("post_add")}
-        self.absorbed = (self.rdb_absorbed | self.chain_absorbed
+        self.absorbed = (absorbed | self.chain_absorbed
                          | dense_absorbed | norm_absorbed
                          | (tail_names - {self.tail["conv"]} if self.tail
-                            else set())
+                            else tail_names)
                          | {s["prelu"] for s in self.solos.values()
                             if s["prelu"]})
+        self.steps = {layer.name: self.run_op for layer in graph.layers
+                      if layer.type != "Input"
+                      and layer.name not in self.absorbed}
+        # the last plan that holds a layer names its step
+        for plans, step in ((self.token_linears, self._linear),
+                            (self.norms, self._norm),
+                            ([self.tail["conv"]] if self.tail else [],
+                             self._tail),
+                            (self.solos, self._solo),
+                            (self.chains, self._chain),
+                            (self.rdb_triggers, self._rdb)):
+            self.steps.update(dict.fromkeys(plans, step))
         self.reorg_mod = max([l.attr_i(0, 1) for l in graph.layers
                               if l.type == "Reorg"] or [1])
         self.window_mod = max([l.attr_i(1, 1) for l in graph.layers
                                if l.type == "WindowAttention"] or [1])
-        self.last_use: Dict[str, int] = {}
+        last_use: Dict[str, int] = {}
         for i, layer in enumerate(graph.layers):
             for b in layer.inputs:
-                self.last_use[b] = i
-        if self.tail:
-            # the skip is read at the tail conv, wherever its Interp sits
-            conv_idx = next(i for i, l in enumerate(graph.layers)
-                            if l.name == self.tail["conv"])
-            blob = self.tail["skip_blob"]
-            self.last_use[blob] = max(self.last_use.get(blob, -1), conv_idx)
+                last_use[b] = i
+        if tail_at is not None:
+            # the skip is read where the tail runs, wherever its Interp sits
+            blob = found["skip_blob"]
+            last_use[blob] = max(last_use.get(blob, -1), tail_at)
+        # the walk: each layer, its step (None where a plan absorbs it) and
+        # the blobs to drop after it, those whose last use it is
+        self.walk = [(layer, self.steps.get(layer.name),
+                      [b for b in layer.inputs if last_use[b] == i])
+                     for i, layer in enumerate(graph.layers)]
 
     def prepare(self, state: nn.ModuleDict) -> None:
         """Add each dense block's packed K5 weights to ``state`` under its
         trigger's name (the trigger Eltwise has no weights of its own),
-        each chain's narrow-kernel weights (:func:`pack_chain_weights`) and
-        each token linear's bias in the compute dtype (``blin``).
-        Called at plan time (``Model.frames_forward``), where a second
-        layout's forward finds them packed; :meth:`forward` only reads them."""
+        each chain layer's weights for K1's narrow kernel (``wpack_narrow``,
+        :func:`~upscale_video_tpu_torch.ops.conv_chain.pack_narrow_weights`)
+        and those of a tail a chain takes for K2's Hopper kernel
+        (``wpack_tail``, :func:`~upscale_video_tpu_torch.ops.tail.
+        pack_tail_weights`), where those kernels take the shape in bf16,
+        and each token linear's bias in the compute dtype (``blin``), each
+        once (:func:`_register`).  Called at plan time
+        (``Model.frames_forward``), where a second layout's forward finds
+        them packed; :meth:`forward` only reads them."""
         from upscale_video_tpu_torch.models.zoo import LayerWeights
 
         for chain in self.chains.values():
-            pack_chain_weights(chain["items"], state)
+            for it in chain["items"]:
+                lw = state[it["name"]]
+                _register(lw, "wpack_narrow", pack_narrow_weights, lw.wmat)
+            if "tail" in chain:
+                tw = state[chain["tail"]["conv"]]
+                _register(tw, "wpack_tail", pack_tail_weights, tw.wmat,
+                          chain["tail"]["scale"])
         for name in self.token_linears:
             lw = state[name]
-            if not hasattr(lw, "blin"):
-                lw.register_buffer("blin", lw.bias.to(self.compute_dtype))
+            _register(lw, "blin", lw.bias.to, self.compute_dtype)
         for name, block in self.rdb_triggers.items():
             if name in state:
                 continue
@@ -1000,97 +920,115 @@ class GraphForward(nn.Module):
             raise RuntimeError(
                 f"{len(unpacked)} dense blocks have no packed K5 weights in "
                 f"this state (first: {unpacked[0]}): call prepare(state)")
-        cd = self.compute_dtype
-        graph = self.graph
         x, in_hw = self.pad_input(x.to(self.device))
-        blobs: Dict[str, torch.Tensor] = {graph.input_blobs[0]: x.to(cd)}
+        # a tail's skip reads the input rounded to the compute dtype, as
+        # the JAX executor's blobs[input] = x.astype(compute_dtype)
+        blobs = {self.input_blob: x.to(self.compute_dtype)}
         dense_bufs: Dict[int, torch.Tensor] = {}  # block -> its shared buffer
         ranges = _Ranges(self.spans)
-
-        for i, layer in enumerate(graph.layers):
+        for i, (layer, step, dead) in enumerate(self.walk):
             ranges.at(i)
-            if layer.type == "Input":
-                continue
-            block = self.rdb_triggers.get(layer.name)
-            if block is not None:
-                pw = state[layer.name]
-                blobs[block["out"]] = rdb_block(
-                    blobs[layer.inputs[1]].to(cd).contiguous(),
-                    RDBWeights(pw.wpack, pw.bpack, block["slope"],
-                               pw.wpack_sm90))
-            elif layer.name in self.chains:
-                chain = self.chains[layer.name]
-                blobs[chain["out"]] = conv3x3_chain(
-                    blobs[layer.inputs[0]].to(cd).contiguous(),
-                    chain_layers(chain["items"], state))
-            elif layer.name in self.dense:
-                d = self.dense[layer.name]
-                if d["first"]:  # the block's input, rounded as .to(cd) does
-                    x0 = blobs[layer.inputs[0]]
-                    buf = torch.empty((*x0.shape[:3], d["total"]), dtype=cd,
-                                      device=x0.device)
-                    buf[..., :d["cin"]] = x0
-                    dense_bufs[d["block"]] = buf
-                buf = dense_bufs[d["block"]]
-                if d["out_off"] is None:
-                    del dense_bufs[d["block"]]
-                blobs[self.solos[layer.name]["out"]] = conv3x3_fused(
-                    buf[..., :d["cin"]], *_solo_args(self.solos[layer.name], state),
-                    out_dtype=cd, out=None if d["out_off"] is None else buf,
-                    out_off=d["out_off"] or 0)
-            elif layer.name in self.solos:
-                solo = self.solos[layer.name]
-                blobs[solo["out"]] = conv3x3_fused(
-                    blobs[layer.inputs[0]].to(cd).contiguous(),
-                    *_solo_args(solo, state), out_dtype=cd)
-            elif self.tail is not None and layer.name == self.tail["conv"]:
-                tw = state[layer.name]
-                blobs[self.tail["out"]] = sr_tail_fused(
-                    blobs[layer.inputs[0]].to(cd).contiguous(),
-                    blobs[self.tail["skip_blob"]].to(cd).contiguous(),
-                    tw.wmat, tw.bias, self.tail["scale"], self.emit,
-                    full_range)
-            elif layer.name in self.norms:
-                norm = self.norms[layer.name]
-                p = state[norm["norm"]] if norm["norm"] in state else None
-                blobs[norm["out"]] = token_norm(
-                    blobs[layer.inputs[0]], norm["size"],
-                    getattr(p, "gamma", None), getattr(p, "beta", None),
-                    norm["eps"], cd)
-            elif layer.name in self.token_linears:
-                lin, lw = self.token_linears[layer.name], state[layer.name]
-                y = token_linear(blobs[layer.inputs[0]].to(cd), lw.wmat, lw.blin)
-                blobs[layer.outputs[0]] = apply_activation(
-                    y, lin["act"], lin["slope_attr"])
-            elif layer.name not in self.absorbed:
-                self.run_op(layer, blobs, state, dense_bufs)
-            self.free(i, layer, blobs)
+            if step is not None:
+                step(layer, blobs, state, dense_bufs, full_range)
+            for b in dead:
+                blobs.pop(b, None)
         ranges.close()
-        y = self.finish(blobs[graph.output_blobs[0]], tuple(x.shape[1:3]),
-                        in_hw, full_range)
+        y = self.finish(blobs[self.output_blob], tuple(x.shape[1:3]), in_hw,
+                        full_range)
         return y[0] if squeeze else y
 
-    def pad_input(self, x: torch.Tensor):
-        """``x`` edge-padded to the Reorg stride's multiples
-        (executor.py:1222-1241), then reflect-padded to the attention
-        window's (SwinIR's ``check_image_size``), and its ``(H, W)``
-        before."""
-        in_hw = (x.shape[1], x.shape[2])
-        for mod, mode in ((self.reorg_mod, "replicate"),
-                          (self.window_mod, "reflect")):
-            mod_h, mod_w = (-x.shape[1]) % mod, (-x.shape[2]) % mod
-            if mod_h or mod_w:
-                x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
-                          mode=mode).permute(0, 2, 3, 1)
-        return x, in_hw
+    # The steps: each runs one planned layer on one rank's blobs, state and
+    # dense block buffers; ``full_range`` is the packed 4:2:0 layout's.
 
-    def free(self, i: int, layer: NcnnLayer, blobs: dict) -> None:
-        """Drop the blobs whose last use is layer ``i``."""
-        for b in layer.inputs:
-            if self.last_use.get(b) == i and b in blobs:
-                del blobs[b]
+    def _rdb(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict,
+             full_range: bool) -> None:
+        """One Valar dense block as one K5 launch."""
+        block, pw = self.rdb_triggers[layer.name], state[layer.name]
+        blobs[block["out"]] = rdb_block(
+            blobs[layer.inputs[1]].to(self.compute_dtype).contiguous(),
+            RDBWeights(pw.wpack, pw.bpack, block["slope"], pw.wpack_sm90))
 
-    def run_op(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict):
+    def _chain(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict,
+               full_range: bool) -> None:
+        """One K1 chain; with the tail attached, its bordered buffer goes
+        uncropped to one K2 launch."""
+        cd = self.compute_dtype
+        chain = self.chains[layer.name]
+        tail = chain.get("tail")
+        y = conv3x3_chain(blobs[layer.inputs[0]].to(cd).contiguous(),
+                          chain_layers(chain["items"], state),
+                          crop=tail is None)
+        if tail is not None:
+            tw = state[tail["conv"]]
+            y = sr_tail_chain(y, blobs[tail["skip_blob"]].to(cd).contiguous(),
+                              tw.wmat, tw.bias, tail["scale"], self.emit,
+                              full_range, getattr(tw, "wpack_tail", None))
+        blobs[chain["out"]] = y
+
+    def _solo(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict,
+              full_range: bool = False, part=None) -> None:
+        """One K4 launch.  A dense block's conv reads its channel prefix
+        of the block's buffer (the first copies the block's input in,
+        rounded as ``.to(cd)`` does) and writes its channels behind it; the
+        last writes a tensor of its own and releases the buffer.  ``part=
+        (r, n)`` (tensor parallel, ``state`` rank r's weight slices) writes
+        slice r of n of the output channels at its offset of a full-width
+        output (:func:`full_width`), or of the buffer."""
+        cd = self.compute_dtype
+        solo, d = self.solos[layer.name], self.dense.get(layer.name)
+        out, off = None, 0
+        if d is None:
+            src = blobs[layer.inputs[0]].to(cd).contiguous()
+        else:
+            if d["first"]:
+                x0 = blobs[layer.inputs[0]]
+                buf = full_width((*x0.shape[:3], d["total"]), cd, x0.device)
+                buf[..., :d["cin"]] = x0
+                dense_bufs[d["block"]] = buf
+            buf = dense_bufs[d["block"]]
+            src = buf[..., :d["cin"]]
+            if d["out_off"] is None:
+                del dense_bufs[d["block"]]
+            else:
+                out, off = buf, d["out_off"]
+        cout = layer.attr_i(0)
+        r, n = part or (0, 1)
+        if part is not None and out is None:
+            out = full_width((*src.shape[:3], cout), cd, src.device)
+        y = conv3x3_fused(src, *_solo_args(solo, state), out_dtype=cd,
+                          out=out, out_off=off + r * (cout // n))
+        blobs[solo["out"]] = y if out is None else out[..., off:off + cout]
+
+    def _tail(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict,
+              full_range: bool) -> None:
+        """The SRVGG tail that no chain took, as one K3 launch."""
+        cd = self.compute_dtype
+        tw = state[layer.name]
+        blobs[self.tail["out"]] = sr_tail_fused(
+            blobs[layer.inputs[0]].to(cd).contiguous(),
+            blobs[self.tail["skip_blob"]].to(cd).contiguous(),
+            tw.wmat, tw.bias, self.tail["scale"], self.emit, full_range)
+
+    def _norm(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict,
+              full_range: bool) -> None:
+        """A token norm: one LayerNorm over the blob's channels."""
+        norm = self.norms[layer.name]
+        p = state[norm["norm"]] if norm["norm"] in state else None
+        blobs[norm["out"]] = token_norm(
+            blobs[layer.inputs[0]], norm["size"], getattr(p, "gamma", None),
+            getattr(p, "beta", None), norm["eps"], self.compute_dtype)
+
+    def _linear(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict,
+                full_range: bool) -> None:
+        """A token linear: one GEMM, then its fused activation."""
+        lin, lw = self.token_linears[layer.name], state[layer.name]
+        y = token_linear(blobs[layer.inputs[0]].to(self.compute_dtype),
+                         lw.wmat, lw.blin)
+        blobs[layer.outputs[0]] = apply_activation(y, lin["act"],
+                                                   lin["slope_attr"])
+
+    def run_op(self, layer: NcnnLayer, blobs: dict, state, dense_bufs: dict,
+               full_range: bool = False) -> None:
         """One layer outside every kernel plan as its generic op, the
         residual spine in f32 under ``mixed``; an add a dense block takes
         in writes its result over its conv's channels of the buffer."""
@@ -1109,13 +1047,27 @@ class GraphForward(nn.Module):
             block, off = self.dense_adds[layer.name]
             dense_bufs[block][..., off:off + out.shape[-1]] = out
 
+    def pad_input(self, x: torch.Tensor):
+        """``x`` edge-padded to the Reorg stride's multiples
+        (executor.py:1222-1241), then reflect-padded to the attention
+        window's (SwinIR's ``check_image_size``), and its ``(H, W)``
+        before."""
+        in_hw = (x.shape[1], x.shape[2])
+        for mod, mode in ((self.reorg_mod, "replicate"),
+                          (self.window_mod, "reflect")):
+            mod_h, mod_w = (-x.shape[1]) % mod, (-x.shape[2]) % mod
+            if mod_h or mod_w:
+                x = F.pad(x.permute(0, 3, 1, 2), (0, mod_w, 0, mod_h),
+                          mode=mode).permute(0, 2, 3, 1)
+        return x, in_hw
+
     def finish(self, y: torch.Tensor, padded_hw, in_hw,
                full_range: bool) -> torch.Tensor:
-        """The graph's output in the ``emit`` layout: a K3 tail's as it
-        is; otherwise f32, the Reorg padding cropped (``padded_hw`` the
-        input's size after :meth:`pad_input`, ``in_hw`` before), then
-        quantized and packed as ``emit`` asks."""
-        if self.tail is not None:
+        """The graph's output in the ``emit`` layout: a kernel tail's (K2
+        or K3) as it is; otherwise f32, the Reorg padding cropped
+        (``padded_hw`` the input's size after :meth:`pad_input`, ``in_hw``
+        before), then quantized and packed as ``emit`` asks."""
+        if self.fused_tail:
             return y
         y = y.to(torch.float32)
         if tuple(padded_hw) != tuple(in_hw):
@@ -1132,9 +1084,10 @@ class GraphForward(nn.Module):
 
 def full_width(shape, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
-    """A split conv's full-width output on one rank (or a dense block's
-    buffer there), uninitialized: its slice is written by the rank's own
-    conv, every other channel by :func:`exchange_channels`."""
+    """A dense block's shared buffer, or a split conv's full-width output
+    on one rank, uninitialized: every channel is written before it is read
+    (by the block's input copy and its convs; by the rank's own conv and
+    :func:`exchange_channels`)."""
     return torch.empty(tuple(shape), dtype=dtype, device=device)
 
 
@@ -1181,16 +1134,18 @@ class TensorParallelForward(nn.Module):
     whose per-rank states ``shards`` are) runs on every rank over its slice
     of the weights, writing channels ``[r*C/n, (r+1)*C/n)`` of a full-width
     output on its device; :func:`exchange_channels` then gives every rank
-    the other slices before the next layer.
+    the other slices before the next layer.  Every other layer runs the
+    walk's own step for it (``plan.steps``) on each rank, over the rank's
+    blobs, shard and dense buffers.
 
     - The kernel route (``kernels``, :func:`conv_routes`): each SAME 3x3
       conv is one K4 launch per rank, reading the replicated input and
-      writing its slice at its offset (``out=``/``out_off``).  No K1 chain
-      is planned: a chain holds a whole stack in one launch and tp
-      exchanges after every conv.  A dense block keeps
+      writing its slice at its offset (``GraphForward._solo``'s ``part``).
+      No K1 chain is planned: a chain holds a whole stack in one launch
+      and tp exchanges after every conv.  A dense block keeps
       :func:`_plan_dense_buffers`: each rank holds the block's buffer, and
       each conv's growth slice lands at ``out_off + r*g/n``.  An SRVGG tail
-      is one K3 launch, on the first device.
+      is one K3 launch, on the first device, over the whole ``state``.
     - ``rdb`` (``--conv_impl rdb``): each matched dense block is one K5
       launch, whole, on every rank.
     - 1x1 convs, and every conv of the aten route, are ``F.conv2d`` on the
@@ -1223,27 +1178,29 @@ class TensorParallelForward(nn.Module):
         self.shards = shards
         n = len(self.devices)
         consumers = _consumers(graph)
-        self.index = {layer.name: i for i, layer in enumerate(graph.layers)}
-        tail_conv = plan.tail["conv"] if plan.tail else None
-        # convs the walk runs as generic ops -> the PReLU that alone
-        # consumes one (or None), applied to its slice
-        self.generic = {
-            layer.name: _conv_item(graph, consumers, layer)["prelu"]
-            for layer in graph.layers
-            if layer.type == "Convolution" and layer.name not in plan.absorbed
-            and layer.name not in plan.solos and layer.name != tail_conv}
-        self.absorbed = plan.absorbed | {p for p in self.generic.values() if p}
-        self.split = {name for name in [*plan.solos, *self.generic]
-                      if graph.layers[self.index[name]].attr_i(0) % n == 0}
-        self.last_split = max([self.index[name] for name in self.split]
-                              or [-1])
+        self.index = index = {layer.name: i for i, layer in enumerate(graph.layers)}
+        self.tail_conv = plan.tail["conv"] if plan.tail else None
+        # the split convs: K4 solos, and convs the walk runs as generic
+        # ops (``prelus``: each one's PReLU that alone consumes it, or None)
+        self.split = {layer.name for layer in graph.layers
+                      if layer.type == "Convolution" and layer.attr_i(0) % n == 0
+                      and layer.name in plan.steps
+                      and layer.name != self.tail_conv}
+        self.prelus: Dict[str, Optional[NcnnLayer]] = {}
+        for name in self.split - set(plan.solos):
+            prelu = _conv_item(graph, consumers, graph.layers[index[name]])["prelu"]
+            self.prelus[name] = graph.layers[index[prelu]] if prelu else None
+        taken = {p.name for p in self.prelus.values() if p}
+        self.steps = {name: step for name, step in plan.steps.items()
+                      if name not in taken}
+        self.last_split = max([index[name] for name in self.split] or [-1])
         for i, layer in enumerate(graph.layers):
-            if (layer.type == "PReLU" and layer.name not in self.absorbed
+            if (layer.type == "PReLU" and layer.name in self.steps
                     and n > 1 and layer.attr_i(0, 1) % n == 0):
                 raise NotImplementedError(
                     f"{layer.name}: a PReLU that no conv alone feeds has no "
                     "whole slope under --parallel tp")
-            if layer.name == tail_conv and i <= self.last_split:
+            if layer.name == self.tail_conv and i <= self.last_split:
                 raise NotImplementedError(
                     f"{layer.name}: the SRVGG tail comes before a split conv")
 
@@ -1258,114 +1215,68 @@ class TensorParallelForward(nn.Module):
             raise RuntimeError(
                 f"{len(unpacked)} dense blocks have no packed K5 weights in "
                 f"the shards (first: {unpacked[0]})")
-        cd = plan.compute_dtype
-        graph = plan.graph
         x, in_hw = plan.pad_input(x.to(self.devices[0]))
         n = len(self.devices)
-        blobs = [{graph.input_blobs[0]: x.to(d).to(cd)} for d in self.devices]
+        blobs = [{plan.input_blob: x.to(d).to(plan.compute_dtype)}
+                 for d in self.devices]
         dense_bufs: List[Dict[int, torch.Tensor]] = [{} for _ in range(n)]
-        for i, layer in enumerate(graph.layers):
-            if layer.type == "Input":
-                continue
+        for i, (layer, _, dead) in enumerate(plan.walk):
             ranks = range(n) if i <= self.last_split else range(1)
             name = layer.name
-            block = plan.rdb_triggers.get(name)
-            if block is not None:
-                for r in ranks:
-                    pw = self.shards[r][name]
-                    blobs[r][block["out"]] = rdb_block(
-                        blobs[r][layer.inputs[1]].to(cd).contiguous(),
-                        RDBWeights(pw.wpack, pw.bpack, block["slope"],
-                                   pw.wpack_sm90))
-            elif name in plan.solos:
-                self._solo(layer, ranks, blobs, dense_bufs)
-            elif plan.tail is not None and name == plan.tail["conv"]:
-                tw = state[name]
-                blobs[0][plan.tail["out"]] = sr_tail_fused(
-                    blobs[0][layer.inputs[0]].to(cd).contiguous(),
-                    blobs[0][plan.tail["skip_blob"]].to(cd).contiguous(),
-                    tw.wmat, tw.bias, plan.tail["scale"], plan.emit,
-                    full_range)
-            elif name in self.generic:
-                self._generic_conv(layer, ranks, blobs)
-            elif name not in self.absorbed:
-                for r in ranks:
-                    plan.run_op(layer, blobs[r], self.shards[r], dense_bufs[r])
+            if name in self.split:
+                split = (self._split_generic if name in self.prelus
+                         else self._split_solo)
+                split(layer, blobs, dense_bufs)
+            elif name in self.steps:
+                for r in ranks:  # the tail reads the whole state
+                    self.steps[name](
+                        layer, blobs[r],
+                        state if name == self.tail_conv else self.shards[r],
+                        dense_bufs[r], full_range)
             for r in ranks:
-                plan.free(i, layer, blobs[r])
-        y = plan.finish(blobs[0][graph.output_blobs[0]], tuple(x.shape[1:3]),
+                for b in dead:
+                    blobs[r].pop(b, None)
+        y = plan.finish(blobs[0][plan.output_blob], tuple(x.shape[1:3]),
                         in_hw, full_range)
         return y[0] if squeeze else y
 
-    def _solo(self, layer: NcnnLayer, ranks, blobs, dense_bufs) -> None:
-        """A K4 conv on every rank in ``ranks``: its slice at its offset of
-        a full-width output (or of the dense block's buffer), then the
-        exchange; whole where its cout does not divide the mesh."""
-        plan, cd = self.plan, self.plan.compute_dtype
-        solo = plan.solos[layer.name]
-        d = plan.dense.get(layer.name)
-        split = layer.name in self.split
-        cout = layer.attr_i(0)
-        c = cout // len(self.devices) if split else cout
-        outs = []
-        for r in ranks:
-            wmat, bias, slope, act = _solo_args(solo, self.shards[r])
-            dst, base = None, 0
-            if d is not None:
-                if d["first"]:  # the block's input, rounded as .to(cd) does
-                    x0 = blobs[r][layer.inputs[0]]
-                    buf = full_width((*x0.shape[:3], d["total"]), cd, x0.device)
-                    buf[..., :d["cin"]] = x0
-                    dense_bufs[r][d["block"]] = buf
-                buf = dense_bufs[r][d["block"]]
-                src = buf[..., :d["cin"]]
-                if d["out_off"] is None:
-                    del dense_bufs[r][d["block"]]
-                else:
-                    dst, base = buf, d["out_off"]
-            else:
-                src = blobs[r][layer.inputs[0]].to(cd).contiguous()
-            if split and dst is None:
-                dst = full_width((*src.shape[:3], cout), cd, src.device)
-            if dst is None:
-                outs.append(conv3x3_fused(src, wmat, bias, slope, act,
-                                          out_dtype=cd))
-                continue
-            conv3x3_fused(src, wmat, bias, slope, act, out_dtype=cd, out=dst,
-                          out_off=base + (r * c if split else 0))
-            outs.append(dst[..., base:base + cout])
-        if split and len(outs) > 1:
-            exchange_channels(outs)
-        for r, y in zip(ranks, outs):
-            blobs[r][solo["out"]] = y
+    def _split_solo(self, layer: NcnnLayer, blobs, dense_bufs) -> None:
+        """A split K4 conv: each rank's slice at its offset, then the
+        exchange."""
+        n = len(self.devices)
+        for r in range(n):
+            self.plan._solo(layer, blobs[r], self.shards[r], dense_bufs[r],
+                            part=(r, n))
+        if n > 1:
+            out = self.plan.solos[layer.name]["out"]
+            exchange_channels([b[out] for b in blobs])
 
-    def _generic_conv(self, layer: NcnnLayer, ranks, blobs) -> None:
-        """A conv outside the K4 plan (1x1, strided; every conv of the aten
-        route) as ``F.conv2d`` on every rank's weights, its PReLU on the
-        slice, the slice placed in a full-width output, then the exchange."""
-        plan, cd = self.plan, self.plan.compute_dtype
-        prelu = self.generic[layer.name]
-        prelu = plan.graph.layers[self.index[prelu]] if prelu else None
-        split = layer.name in self.split and len(self.devices) > 1
+    def _split_generic(self, layer: NcnnLayer, blobs, dense_bufs) -> None:
+        """A split conv outside the K4 plan (1x1, strided; every conv of
+        the aten route) as ``F.conv2d`` on every rank's weights, its PReLU
+        on the slice, the slice placed in a full-width output, then the
+        exchange."""
+        cd, n = self.plan.compute_dtype, len(self.devices)
+        prelu = self.prelus[layer.name]
         cout = layer.attr_i(0)
-        c = cout // len(self.devices)
+        c = cout // n
         outs = []
-        for r in ranks:
+        for r in range(n):
             y = OP_REGISTRY["Convolution"](
                 layer, [blobs[r][layer.inputs[0]]], self.shards[r][layer.name], cd)
             if prelu:
                 y = OP_REGISTRY["PReLU"](prelu, [y],
                                          self.shards[r][prelu.name], cd)
-            if split:
+            if n > 1:
                 full = full_width((*y.shape[:3], cout), y.dtype, y.device)
                 full[..., r * c:(r + 1) * c] = y
                 y = full
             outs.append(y)
-        if split:
+        if n > 1:
             exchange_channels(outs)
         out = (prelu or layer).outputs[0]
-        for r, y in zip(ranks, outs):
-            blobs[r][out] = y
+        for b, y in zip(blobs, outs):
+            b[out] = y
 
 
 CONV_IMPLS = ("auto", "pallas", "rdb", "xla")
@@ -1394,35 +1305,27 @@ def conv_routes(conv_impl: str, compute_dtype: torch.dtype):
 def build_forward(graph: NcnnGraph, device: "torch.device | str",
                   compute_dtype: torch.dtype = torch.bfloat16,
                   emit: str = "model", residual_dtype=None,
-                  conv_impl: str = "auto"):
-    """Plan ``graph`` and return its forward module: a graph that is one
-    conv chain ending in the SRVGG shuffle tail gets :class:`SRVGGForward`
-    (K1 then K2), any other :class:`GraphForward` (K5 per Valar dense
-    block, K1 per conv chain, K4 per other SAME 3x3 conv, K3 for an SRVGG
-    tail, generic ops between); a layer type outside the op set raises.
+                  conv_impl: str = "auto") -> GraphForward:
+    """Plan ``graph`` and return its forward module, the graph walk
+    (:class:`GraphForward`: K5 per Valar dense block, K1 per conv chain,
+    K4 per other SAME 3x3 conv, K2 for an SRVGG tail a chain feeds and K3
+    for any other, generic ops between); a layer type outside the op set
+    raises.
 
     ``conv_impl`` picks the kernels (:func:`conv_routes`): without the
-    conv kernels every graph takes the graph walk, each conv a generic
-    ``F.conv2d`` (the aten route), and without K5 a Valar dense block runs
-    its convs on K4 over one shared buffer (``pallas``) or as generic ops.
-    ``compute_dtype`` bf16 runs the kernels on CUDA (held to the JAX
-    Pallas path); float32 runs the aten route on either device (held to
-    the JAX XLA f32 path).  ``residual_dtype=torch.float32`` is
-    ``--precision mixed``: the graph walk's Eltwise/BinaryOp adds run in
-    f32 (the JAX package gives the 1x anime model the same residual dtype
-    under ``-m a,r``, chain.py:248); an SRVGG on K1 + K2 already adds its
-    skip in f32 in K2's epilogue, so there mixed computes what bf16 does."""
+    conv kernels each conv is a generic ``F.conv2d`` (the aten route), and
+    without K5 a Valar dense block runs its convs on K4 over one shared
+    buffer (``pallas``) or as generic ops.  ``compute_dtype`` bf16 runs
+    the kernels on CUDA (held to the JAX Pallas path); float32 runs the
+    aten route on either device (held to the JAX XLA f32 path).
+    ``residual_dtype=torch.float32`` is ``--precision mixed``: the graph
+    walk's Eltwise/BinaryOp adds run in f32 (the JAX package gives the 1x
+    anime model the same residual dtype under ``-m a,r``, chain.py:248);
+    K2 and K3 already add an SRVGG tail's skip in f32, so there mixed
+    computes what bf16 does."""
     device = torch.device(device)
     if compute_dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"compute dtype {compute_dtype}")
     kernels, rdb = conv_routes(conv_impl, compute_dtype)
-    plan = None
-    if kernels and probe_srvgg_tail(graph) is not None:
-        try:
-            plan = plan_srvgg(graph)
-        except NotImplementedError:
-            pass  # no single K1 chain: the graph walk, the tail on K3
-    if plan is not None:
-        return SRVGGForward(plan, device, compute_dtype, emit)
     return GraphForward(graph, device, compute_dtype, residual_dtype, emit,
                         kernels, rdb)

@@ -103,10 +103,13 @@ def params_from_jax(params: Dict[str, Dict[str, np.ndarray]],
 
 
 class Model(nn.Module):
-    """A loaded model on one device: an SRVGG with its shuffle tail (K1 +
-    K2, or the graph walk with K4 and K3 where its body is no chain), a 1x
-    SRVGG (one K1 chain + generic ops) or an RRDBNet (the graph walk: K5
-    per Valar dense block, K4 per other 3x3 conv, K1 chains).
+    """A loaded model on one device, run by the graph walk
+    (:class:`~upscale_video_tpu_torch.models.executor.GraphForward`): an
+    SRVGG with its shuffle tail (its body one K1 chain handing K2 its
+    bordered buffer, or K4 convs and K3 where the body is no chain), a 1x
+    SRVGG (one K1 chain + generic ops), an RRDBNet (K5 per Valar dense
+    block, K4 per other 3x3 conv, K1 chains) or a SwinIR (token norms,
+    token linears, window attention, K4 and a K1 chain).
     ``residual_dtype=torch.float32`` is ``--precision mixed``: the graph
     walk's residual adds run in f32 (K2's skip add is f32 already).
     ``conv_impl`` is ``--conv_impl``, which its forwards are built for
